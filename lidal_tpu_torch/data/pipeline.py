@@ -1,0 +1,81 @@
+"""Eval batch preparation: augment -> voxelize -> plan
+(port of ``lidal_tpu/data/pipeline.py``, eval half).
+
+Frames keep a fixed per-frame capacity and the batch is a leading axis, as in
+the JAX package, so every field compares with it directly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lidal_tpu_torch.data.augment import augment_and_voxelize
+from lidal_tpu_torch.ops.kernel_map import UNetPlan, build_unet_plan
+
+IGNORE_LABEL = 255
+
+
+def plan_overflow(plan: UNetPlan, uv_num_unique, uv_valid) -> torch.Tensor:
+    """[B, levels] dropped-voxel counts; level 0 from the point voxelization.
+
+    Static capacities drop voxels past the cap; callers report nonzero counts."""
+    lvl0 = (uv_num_unique - uv_valid.sum(dim=1)).to(torch.int32)
+    rest = [lv.overflow for lv in plan.levels[1:]]
+    return torch.stack([lvl0] + rest, dim=1)
+
+
+class EvalBatch(NamedTuple):
+    feats: torch.Tensor  # [B, cap0, 4]
+    plan: UNetPlan
+    pplan: Optional[object]  # SPVCNN point plan; None until SPVCNN is ported
+    inverse: torch.Tensor  # [B, P] point -> voxel (sentinel cap0)
+    point_valid: torch.Tensor  # [B, P]
+    overflow: torch.Tensor  # [B, levels] int32 unique voxels dropped per level
+
+
+def prepare_eval_batch(
+    generator: Optional[torch.Generator],
+    xyz: torch.Tensor,  # [B, P, 3]
+    sig: torch.Tensor,  # [B, P]
+    valid: torch.Tensor,  # [B, P]
+    level_caps: Tuple[int, ...],
+    scale: float = 20.0,
+    full_scale: int = 8192,
+    augment: bool = True,
+) -> EvalBatch:
+    """Eval batches keep the point->voxel inverse for projecting voxel logits
+    back to points (reference ``evaluate.py:104-107``).  The reference augments
+    in val mode too (``sk_dataset.py:143-161``); ``augment=False`` gives the
+    deterministic frame used by parity tests."""
+    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment)
+    plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
+    return EvalBatch(
+        feats=vf.feats,
+        plan=plan,
+        pplan=None,
+        inverse=vf.uv.inverse,
+        point_valid=vf.point_valid,
+        overflow=plan_overflow(plan, vf.uv.num_unique, vf.uv.valid),
+    )
+
+
+def pad_points(xyz, sig, labels, point_cap: int):
+    """Host-side: pad/trim one frame's raw arrays to the fixed point capacity.
+
+    Returns numpy arrays (xyz [P,3] f32, sig [P] f32, valid [P] bool,
+    labels [P] int32 with IGNORE on padding; labels may be None).
+    """
+    n = min(len(xyz), point_cap)
+    oxyz = np.zeros((point_cap, 3), np.float32)
+    osig = np.zeros((point_cap,), np.float32)
+    ovalid = np.zeros((point_cap,), bool)
+    olab = np.full((point_cap,), IGNORE_LABEL, np.int32)
+    oxyz[:n] = xyz[:n]
+    osig[:n] = sig[:n]
+    ovalid[:n] = True
+    if labels is not None:
+        olab[:n] = labels[:n]
+    return oxyz, osig, ovalid, olab

@@ -1,0 +1,77 @@
+"""MinkUNet: sparse 3D U-Net, eval mode (port of ``lidal_tpu/models/minkunet.py``,
+reference ``network/minkunet.py:14-122``).
+
+Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96].  Encoder: stem (2x
+conv3) + 4 stages of {down ks=2 s=2, 2 residual blocks}; decoder: 4 stages of
+{transposed ks=2 s=2, skip-concat, 2 residual blocks}; linear classifier.
+Returns ``(logits, 96-d penultimate features)``.  Submodule names follow the
+reference (``stem.0``, ``stage1.1.net.0``, ``up1.0.net.0``, ``classifier.0``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from lidal_tpu_torch.models.layers import (
+    DownBlock,
+    MaskedBatchNorm,
+    ResidualBlock,
+    SubMConv3,
+    TorchLinear,
+    UpBlock,
+    conv_bn,
+)
+from lidal_tpu_torch.ops.kernel_map import UNetPlan
+
+CS = (32, 32, 64, 128, 256, 256, 128, 96, 96)
+
+
+class MinkUNet(nn.Module):
+    def __init__(self, num_classes: int, cs: Tuple[int, ...] = CS, in_channels: int = 4):
+        super().__init__()
+        self.cs = cs
+        self.stem = nn.Sequential(
+            SubMConv3(in_channels, cs[0]), MaskedBatchNorm(cs[0]), nn.ReLU(True),
+            SubMConv3(cs[0], cs[0]), MaskedBatchNorm(cs[0]), nn.ReLU(True),
+        )
+        enc = [(cs[0], cs[1]), (cs[1], cs[2]), (cs[2], cs[3]), (cs[3], cs[4])]
+        for i, (cin, cout) in enumerate(enc):
+            stage = nn.Sequential(DownBlock(cin, cin), ResidualBlock(cin, cout), ResidualBlock(cout, cout))
+            self.add_module(f"stage{i + 1}", stage)
+        dec = [(cs[4], cs[5], cs[3]), (cs[5], cs[6], cs[2]), (cs[6], cs[7], cs[1]), (cs[7], cs[8], cs[0])]
+        for j, (cin, cout, cskip) in enumerate(dec):
+            up = nn.ModuleList(
+                [
+                    UpBlock(cin, cout),
+                    nn.Sequential(ResidualBlock(cout + cskip, cout), ResidualBlock(cout, cout)),
+                ]
+            )
+            self.add_module(f"up{j + 1}", up)
+        self.classifier = nn.Sequential(TorchLinear(cs[8], num_classes))
+
+    def forward(self, feats: torch.Tensor, plan: UNetPlan):
+        """feats [B, cap0, in_channels] -> (logits [B, cap0, C], feats [B, cap0, cs[8]]);
+        logits are zero on invalid level-0 rows."""
+        lv, dn = plan.levels, plan.downs
+
+        x = conv_bn(self.stem[0], self.stem[1], feats, lv[0], relu=True)
+        x = conv_bn(self.stem[3], self.stem[4], x, lv[0], relu=True)
+        skips = [x]
+        for i in range(4):
+            down, res1, res2 = getattr(self, f"stage{i + 1}")
+            x = down(x, dn[i])
+            x = res2(res1(x, lv[i + 1]), lv[i + 1])
+            skips.append(x)
+
+        y = skips[4]
+        for j in range(4):
+            up, res = getattr(self, f"up{j + 1}")
+            level = lv[3 - j]
+            y = torch.cat([up(y, dn[3 - j]), skips[3 - j]], dim=-1)
+            y = res[1](res[0](y, level), level)
+
+        logits = self.classifier(y) * plan.levels[0].valid[..., None]
+        return logits, y
