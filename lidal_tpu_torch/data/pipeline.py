@@ -1,5 +1,5 @@
-"""Eval batch preparation: augment -> voxelize -> plan
-(port of ``lidal_tpu/data/pipeline.py``, eval half).
+"""Batch preparation: augment -> voxelize -> plan
+(port of ``lidal_tpu/data/pipeline.py``).
 
 Frames keep a fixed per-frame capacity and the batch is a leading axis, as in
 the JAX package, so every field compares with it directly.
@@ -25,6 +25,40 @@ def plan_overflow(plan: UNetPlan, uv_num_unique, uv_valid) -> torch.Tensor:
     lvl0 = (uv_num_unique - uv_valid.sum(dim=1)).to(torch.int32)
     rest = [lv.overflow for lv in plan.levels[1:]]
     return torch.stack([lvl0] + rest, dim=1)
+
+
+class TrainBatch(NamedTuple):
+    feats: torch.Tensor  # [B, cap0, 4]
+    labels: torch.Tensor  # [B, cap0] int32 (IGNORE_LABEL on invalid/ignored)
+    plan: UNetPlan
+    pplan: Optional[object]  # SPVCNN point plan; None until SPVCNN is ported
+    overflow: torch.Tensor  # [B, levels] int32 unique voxels dropped per level
+
+
+def prepare_train_batch(
+    generator: Optional[torch.Generator],
+    xyz: torch.Tensor,  # [B, P, 3]
+    sig: torch.Tensor,  # [B, P]
+    valid: torch.Tensor,  # [B, P]
+    labels_p: torch.Tensor,  # [B, P] int32 (already remapped; IGNORE on pad)
+    level_caps: Tuple[int, ...],
+    scale: float = 20.0,
+    full_scale: int = 8192,
+    augment: bool = True,
+) -> TrainBatch:
+    """A voxel's label is its first point's (np.unique keep-first,
+    reference ``sk_dataset.py:167-171``); invalid voxels get IGNORE_LABEL."""
+    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment)
+    plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
+    labels_v = labels_p.gather(1, vf.uv.first_src.long())
+    labels_v = torch.where(vf.uv.valid, labels_v, IGNORE_LABEL).to(torch.int32)
+    return TrainBatch(
+        feats=vf.feats,
+        labels=labels_v,
+        plan=plan,
+        pplan=None,
+        overflow=plan_overflow(plan, vf.uv.num_unique, vf.uv.valid),
+    )
 
 
 class EvalBatch(NamedTuple):

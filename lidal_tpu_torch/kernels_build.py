@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), named
-after a hash of its source and flags under ``lidal_tpu_torch/_build/``.  A
-changed source gets a new hash and is rebuilt; an unchanged one is loaded from
-the existing library.  Every exported C function returns ``cudaGetLastError()``
-after its launch, and the Python wrappers raise when that is not 0.
+after a hash of its source, the shared headers ``csrc/*.cuh`` and the flags
+under ``lidal_tpu_torch/_build/``.  A changed source or header gets a new hash
+and is rebuilt; an unchanged one is loaded from the existing library.  Every
+exported C function returns ``cudaGetLastError()`` after its launch, and the
+Python wrappers raise when that is not 0.
 
 Nothing here runs at import: :func:`load` is called by the kernel wrappers the
 first time a CUDA tensor reaches them.
@@ -52,7 +53,8 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     seconds, report = 0.0, ""
     if not so.exists():

@@ -1,13 +1,16 @@
-"""Sparse network building blocks, eval mode (port of ``lidal_tpu/models/layers.py``).
+"""Sparse network building blocks (port of ``lidal_tpu/models/layers.py``).
 
 Submodules carry the reference torchsparse names (``network/utils.py:105-172``:
 ``net.0`` conv, ``net.1`` BN, ``downsample.0/1``), so one name map serves a
 torchsparse checkpoint and the JAX variables (``runtime/weights.py``).  Conv
 kernels keep the JAX layout ``[K, cin, cout]`` with x-major taps.
 
-In eval mode every conv + BN (+ ReLU) pair runs as one kernel launch: BN folds
-into a per-channel ``(scale, shift)`` applied in the conv's epilogue.  Training
-mode (batch statistics) is not ported yet and raises.
+The module's mode picks the path, as ``train`` does in the JAX package:
+
+* eval: every conv + BN (+ ReLU) pair runs as one kernel launch; BN folds
+  into a per-channel ``(scale, shift)`` applied in the conv's epilogue;
+* train: conv (differentiable, ``ops/conv.py``) -> BN with masked batch
+  statistics -> ReLU, unfused, since BN needs the conv's whole output first.
 """
 
 from __future__ import annotations
@@ -17,20 +20,24 @@ import math
 import torch
 from torch import nn
 
-from lidal_tpu_torch.ops.conv import down_conv_bn_batched, subm_conv_bn_batched, up_conv_bn_batched
+from lidal_tpu_torch.ops.conv import (
+    down_conv_batched,
+    down_conv_bn_batched,
+    subm_conv_batched,
+    subm_conv_bn_batched,
+    up_conv_batched,
+    up_conv_bn_batched,
+)
 from lidal_tpu_torch.ops.kernel_map import K2, K3, DownPlan, LevelPlan
-
-
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only eval mode is ported; call model.eval()"
-        )
 
 
 class _SparseConv(nn.Module):
     """A conv weight ``kernel [K, cin, cout]`` with the torch kaiming_uniform(a=sqrt(5))
-    fan-in bound 1/sqrt(K * cin), as the JAX ``conv_kernel_init``."""
+    fan-in bound 1/sqrt(K * cin), as the JAX ``conv_kernel_init``.
+
+    ``epilogue = (scale, shift, relu)`` fuses the eval-BN affine (+ ReLU +
+    validity mask) into the conv kernel's output store; without it the conv
+    is the differentiable one."""
 
     taps = 1
 
@@ -47,7 +54,9 @@ class SubMConv3(_SparseConv):
 
     taps = K3
 
-    def forward(self, x: torch.Tensor, level: LevelPlan, epilogue) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: LevelPlan, epilogue=None) -> torch.Tensor:
+        if epilogue is None:
+            return subm_conv_batched(x, self.kernel, level.nbr3)
         a, b, relu = epilogue
         return subm_conv_bn_batched(x, self.kernel, level.nbr3, a, b, relu)
 
@@ -64,7 +73,9 @@ class DownConv2(_SparseConv):
 
     taps = K2
 
-    def forward(self, x: torch.Tensor, down: DownPlan, epilogue) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, down: DownPlan, epilogue=None) -> torch.Tensor:
+        if epilogue is None:
+            return down_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta)
         a, b, relu = epilogue
         return down_conv_bn_batched(x, self.kernel, down.child, a, b, relu)
 
@@ -74,16 +85,24 @@ class UpConv2(_SparseConv):
 
     taps = K2
 
-    def forward(self, x: torch.Tensor, down: DownPlan, epilogue) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, down: DownPlan, epilogue=None) -> torch.Tensor:
+        if epilogue is None:
+            return up_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta)
         a, b, relu = epilogue
         return up_conv_bn_batched(x, self.kernel, down.parent, down.pdelta, a, b, relu)
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over valid voxels, eval mode: running statistics only.
+    """BatchNorm1d over the valid voxels of the whole batch.
 
-    Parameters and buffers use torch BatchNorm1d's names (``weight``, ``bias``,
-    ``running_mean``, ``running_var``)."""
+    Train mode matches torch semantics (``layers.py:139-161`` of the JAX
+    package): biased variance for normalization, unbiased for the running
+    estimate, ``running = (1 - momentum) * running + momentum * batch``; an
+    all-invalid batch counts as one voxel.  Eval mode uses the running
+    statistics.  Parameters and buffers use torch BatchNorm1d's names
+    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -94,21 +113,39 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def fused_affine(self):
-        """The folded per-channel ``(scale, shift)`` for a conv epilogue."""
-        _eval_only(self)
+        """The folded per-channel eval ``(scale, shift)`` for a conv epilogue."""
+        if self.training:
+            raise RuntimeError("the fused BN affine is an eval-mode path")
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         return a, self.bias - self.running_mean * a
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias
+        if not self.training:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias
+            return y * valid[..., None]
+        m = valid.to(x.dtype)[..., None]
+        dims = tuple(range(x.dim() - 1))
+        cnt = m.sum().clamp_min(1.0)
+        mean = (x * m).sum(dims) / cnt
+        var = ((x - mean).square() * m).sum(dims) / cnt
+        with torch.no_grad():
+            unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y * valid[..., None]
 
 
-def conv_bn(conv: nn.Module, bn: MaskedBatchNorm, x: torch.Tensor, graph, relu: bool) -> torch.Tensor:
-    """conv -> BN (-> ReLU) as one fused kernel launch."""
-    a, b = bn.fused_affine()
-    return conv(x, graph, epilogue=(a, b, relu))
+def conv_bn(conv: nn.Module, bn: MaskedBatchNorm, x: torch.Tensor, graph, valid: torch.Tensor,
+            relu: bool) -> torch.Tensor:
+    """conv -> BN (-> ReLU): one fused kernel launch in eval mode; in train
+    mode the differentiable conv, then BN over ``valid`` (the output level's
+    mask), then ReLU."""
+    if not bn.training:
+        a, b = bn.fused_affine()
+        return conv(x, graph, epilogue=(a, b, relu))
+    y = bn(conv(x, graph), valid)
+    return torch.relu(y) if relu else y
 
 
 class ConvBlock(nn.Module):
@@ -119,8 +156,8 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.net = nn.Sequential(conv, MaskedBatchNorm(conv.cout), nn.ReLU(True))
 
-    def forward(self, x: torch.Tensor, graph) -> torch.Tensor:
-        return conv_bn(self.net[0], self.net[1], x, graph, relu=True)
+    def forward(self, x: torch.Tensor, graph, out_level: LevelPlan) -> torch.Tensor:
+        return conv_bn(self.net[0], self.net[1], x, graph, out_level.valid, relu=True)
 
 
 class DownBlock(ConvBlock):
@@ -141,8 +178,8 @@ class ResidualBlock(nn.Module):
     """conv-BN-ReLU-conv-BN + (identity | 1x1 conv-BN) -> ReLU
     (reference ResidualBlock, ``network/utils.py:142-172``; stride 1).
 
-    Both conv + BN pairs are fused (the first with its ReLU); the 1x1 shortcut
-    is a plain matmul followed by the masked BN."""
+    In eval mode both conv + BN pairs are fused (the first with its ReLU);
+    the 1x1 shortcut is a plain matmul followed by the masked BN."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -155,8 +192,8 @@ class ResidualBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, level: LevelPlan) -> torch.Tensor:
-        y = conv_bn(self.net[0], self.net[1], x, level, relu=True)
-        y = conv_bn(self.net[3], self.net[4], y, level, relu=False)
+        y = conv_bn(self.net[0], self.net[1], x, level, level.valid, relu=True)
+        y = conv_bn(self.net[3], self.net[4], y, level, level.valid, relu=False)
         if self.downsample is None:
             sc = x
         else:

@@ -1,4 +1,4 @@
-"""MinkUNet: sparse 3D U-Net, eval mode (port of ``lidal_tpu/models/minkunet.py``,
+"""MinkUNet: sparse 3D U-Net (port of ``lidal_tpu/models/minkunet.py``,
 reference ``network/minkunet.py:14-122``).
 
 Channel plan cs = [32, 32, 64, 128, 256, 256, 128, 96, 96].  Encoder: stem (2x
@@ -6,6 +6,8 @@ conv3) + 4 stages of {down ks=2 s=2, 2 residual blocks}; decoder: 4 stages of
 {transposed ks=2 s=2, skip-concat, 2 residual blocks}; linear classifier.
 Returns ``(logits, 96-d penultimate features)``.  Submodule names follow the
 reference (``stem.0``, ``stage1.1.net.0``, ``up1.0.net.0``, ``classifier.0``).
+``model.train()`` runs the train-mode layers (differentiable convs, batch
+statistics), ``model.eval()`` the fused inference path (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -57,12 +59,12 @@ class MinkUNet(nn.Module):
         logits are zero on invalid level-0 rows."""
         lv, dn = plan.levels, plan.downs
 
-        x = conv_bn(self.stem[0], self.stem[1], feats, lv[0], relu=True)
-        x = conv_bn(self.stem[3], self.stem[4], x, lv[0], relu=True)
+        x = conv_bn(self.stem[0], self.stem[1], feats, lv[0], lv[0].valid, relu=True)
+        x = conv_bn(self.stem[3], self.stem[4], x, lv[0], lv[0].valid, relu=True)
         skips = [x]
         for i in range(4):
             down, res1, res2 = getattr(self, f"stage{i + 1}")
-            x = down(x, dn[i])
+            x = down(x, dn[i], lv[i + 1])
             x = res2(res1(x, lv[i + 1]), lv[i + 1])
             skips.append(x)
 
@@ -70,7 +72,7 @@ class MinkUNet(nn.Module):
         for j in range(4):
             up, res = getattr(self, f"up{j + 1}")
             level = lv[3 - j]
-            y = torch.cat([up(y, dn[3 - j]), skips[3 - j]], dim=-1)
+            y = torch.cat([up(y, dn[3 - j], level), skips[3 - j]], dim=-1)
             y = res[1](res[0](y, level), level)
 
         logits = self.classifier(y) * plan.levels[0].valid[..., None]

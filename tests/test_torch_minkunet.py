@@ -84,11 +84,30 @@ def test_narrow_minkunet_matches_jax():
 
 
 def test_training_mode_is_refused():
+    """The fused eval-BN epilogue refuses train mode: batch statistics need the
+    conv's whole output first (``test_training_mode_runs`` takes the train path)."""
+    bn = MinkUNet(num_classes=19, cs=NARROW).stem[1]
+    assert bn.training
+    with pytest.raises(RuntimeError):
+        bn.fused_affine()
+    a, b = bn.eval().fused_affine()
+    assert a.shape == b.shape == (NARROW[0],)
+
+
+def test_training_mode_runs():
+    """A fresh model is in train mode: the forward takes the train-mode layers
+    (differentiable convs, batch statistics) and gives finite logits that
+    are zero on invalid voxels and carry gradients to every weight."""
+    torch.manual_seed(0)
     model = MinkUNet(num_classes=19, cs=NARROW)
     xyz, sig, valid, _ = surface_frames(32, b=1)
     eb = prepare_eval_batch(None, *torch_args(xyz, sig, valid), level_caps=OVERFLOW_CAPS, augment=False)
-    with pytest.raises(NotImplementedError):
-        model(eb.feats, eb.plan)
+    logits, feat = model(eb.feats, eb.plan)
+    valid0 = eb.plan.levels[0].valid
+    assert logits.shape == (1, OVERFLOW_CAPS[0], 19) and feat.shape == (1, OVERFLOW_CAPS[0], NARROW[8])
+    assert bool(torch.isfinite(logits).all()) and not logits[~valid0].any() and logits[valid0].abs().sum() > 0
+    logits[valid0].square().mean().backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
 
 def _oracle_frames():
