@@ -27,6 +27,17 @@ class VoxelizedFrame(NamedTuple):
     point_valid: torch.Tensor  # [B, P] bool: input mask & in-grid & not overflowed
 
 
+class AugmentDraws(NamedTuple):
+    """The random parameters of ``b`` augmented frames, on the generator's device."""
+
+    affine: torch.Tensor  # [b, 3, 3] ``(I + 0.1 N) * flip_x @ Rz(theta)``
+    r1: torch.Tensor  # [b, 1, 3] uniform, places the frame inside the grid
+    r2: torch.Tensor  # [b, 1, 3]
+
+    def rows(self, start: int, stop: int) -> "AugmentDraws":
+        return AugmentDraws(*(t[start:stop] for t in self))
+
+
 def _affine(generator: torch.Generator, b: int) -> torch.Tensor:
     """[b, 3, 3] per-frame ``(I + 0.1 N) * flip_x @ Rz(theta)``."""
     dev = generator.device
@@ -43,6 +54,18 @@ def _affine(generator: torch.Generator, b: int) -> torch.Tensor:
     return trans @ rot
 
 
+def sample_augment(generator: torch.Generator, b: int) -> AugmentDraws:
+    """Draw the parameters of ``b`` frames in one go.  A caller that splits the
+    frames into chunks (multi-view inference) draws once and passes
+    ``draws.rows(...)`` to each chunk, so the views do not depend on the
+    chunking."""
+    dev = generator.device
+    affine = _affine(generator, b)
+    r1 = torch.rand((b, 1, 3), generator=generator, device=dev)
+    r2 = torch.rand((b, 1, 3), generator=generator, device=dev)
+    return AugmentDraws(affine, r1, r2)
+
+
 def augment_and_voxelize(
     generator: Optional[torch.Generator],
     xyz: torch.Tensor,  # [B, P, 3] float32 raw sensor coords (padded)
@@ -52,11 +75,16 @@ def augment_and_voxelize(
     scale: float = 20.0,
     full_scale: int = 8192,
     augment: bool = True,
+    draws: Optional[AugmentDraws] = None,
 ) -> VoxelizedFrame:
+    """``draws`` (from :func:`sample_augment`) takes the place of drawing from
+    ``generator`` here."""
     b = xyz.shape[0]
     dev = xyz.device
     if augment:
-        xyz_aug = xyz @ _affine(generator, b).to(dev)
+        if draws is None:
+            draws = sample_augment(generator, b)
+        xyz_aug = xyz @ draws.affine.to(dev)
     else:
         xyz_aug = xyz
 
@@ -68,8 +96,7 @@ def augment_and_voxelize(
     cmax = torch.where(valid[..., None], coords, -big).amax(dim=1, keepdim=True)
     span = float(full_scale) - (cmax - cmin)
     if augment:
-        r1 = torch.rand((b, 1, 3), generator=generator, device=generator.device).to(dev)
-        r2 = torch.rand((b, 1, 3), generator=generator, device=generator.device).to(dev)
+        r1, r2 = draws.r1.to(dev), draws.r2.to(dev)
     else:
         r1 = r2 = torch.full((1, 1, 3), 0.5, device=dev)
     offset = -cmin + torch.clamp_min(span - 0.001, 0.0) * r1 + torch.clamp_max(span + 0.001, 0.0) * r2

@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from lidal_tpu_torch.data.augment import augment_and_voxelize
+from lidal_tpu_torch.data.augment import AugmentDraws, augment_and_voxelize
 from lidal_tpu_torch.ops.kernel_map import UNetPlan, build_unet_plan
 
 IGNORE_LABEL = 255
@@ -79,12 +79,14 @@ def prepare_eval_batch(
     scale: float = 20.0,
     full_scale: int = 8192,
     augment: bool = True,
+    draws: Optional[AugmentDraws] = None,
 ) -> EvalBatch:
     """Eval batches keep the point->voxel inverse for projecting voxel logits
     back to points (reference ``evaluate.py:104-107``).  The reference augments
     in val mode too (``sk_dataset.py:143-161``); ``augment=False`` gives the
-    deterministic frame used by parity tests."""
-    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment)
+    deterministic frame used by parity tests; ``draws`` gives the augmentation
+    parameters instead of drawing them from ``generator``."""
+    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment, draws)
     plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
     return EvalBatch(
         feats=vf.feats,

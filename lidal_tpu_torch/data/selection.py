@@ -27,8 +27,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from lidal_tpu.config import RunConfig
-from lidal_tpu.runtime.paths import Paths, ensure_dir
+from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.data.pipeline import IGNORE_LABEL
 
 

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +33,11 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+_BUILD_LOCKS: dict = {}  # name -> lock: one build per library, whichever thread asks first
+_BUILD_LOCKS_GUARD = threading.Lock()
+# Held by every wrapper while it adds to its LAUNCHES count: the scoring round
+# launches kernels from two threads (inference prefetch and scoring).
+LAUNCH_LOCK = threading.Lock()
 # name -> (seconds spent building, or 0.0 when the library was already built;
 #          the compiler's resource report)
 BUILD_LOG: dict = {}
@@ -52,6 +58,24 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    with _BUILD_LOCKS_GUARD:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _LIBS.get(name) or _build_and_load(name)
+
+
+def load_all(names) -> None:
+    """Build (one ``nvcc`` each, all started together) and load several libraries."""
+    threads = [threading.Thread(target=load, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for n in names:
+        load(n)  # raises here what a thread's build raised
+
+
+def _build_and_load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

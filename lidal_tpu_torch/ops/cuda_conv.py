@@ -105,6 +105,7 @@ def subm_conv(feats, w, nbr, scale=None, shift=None, relu: bool = False) -> torc
             torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES
-    LAUNCHES += 1
+    with kernels_build.LAUNCH_LOCK:
+        LAUNCHES += 1
     kernels_build.check(err, "subm_conv")
     return out

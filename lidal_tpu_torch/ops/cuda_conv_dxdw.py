@@ -132,6 +132,7 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
             torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES
-    LAUNCHES += 1
+    with kernels_build.LAUNCH_LOCK:
+        LAUNCHES += 1
     kernels_build.check(err, "conv_dx_dw")
     return dx, dwg

@@ -79,6 +79,7 @@ def lookup_sorted(t_hi, t_lo, q_hi, q_lo, with_found: bool) -> torch.Tensor:
             t, s // t, n, m, int(with_found), torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES
-    LAUNCHES += 1
+    with kernels_build.LAUNCH_LOCK:
+        LAUNCHES += 1
     kernels_build.check(err, "lookup_sorted")
     return out

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from lidal_tpu.runtime.paths import Paths, ensure_dir
+from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.runtime.train import TrainState
 
 CKPT_NAME = "current_port.pt"

@@ -9,12 +9,12 @@ after the last batch.
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple, Optional
+from typing import Iterable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from lidal_tpu.config import RunConfig
+from lidal_tpu_torch.config import RunConfig
 from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, prepare_eval_batch
 from lidal_tpu_torch.ops.voxelize import append_zero_row, devoxelize_nearest
 from lidal_tpu_torch.utils.iou import confusion_matrix, evaluate as print_iou, per_class_iou
@@ -44,17 +44,21 @@ def run_eval(
     cfg: RunConfig,
     model: torch.nn.Module,
     loader: Iterable[dict],
-    device: torch.device,
-    generator: Optional[torch.Generator],
+    device: Union[torch.device, str] = "cuda",
+    generator: Optional[torch.Generator] = None,
     verbose: bool = False,
 ) -> EvalResult:
-    """Evaluate ``model`` over batch dicts (``xyz`` [B, P, 3], ``sig``, ``valid``,
-    ``labels`` [B, P], optional ``trunc_points``) as ``data/loader.py`` yields them.
+    """Evaluate ``model`` on ``device`` over batch dicts (``xyz`` [B, P, 3],
+    ``sig``, ``valid``, ``labels`` [B, P], optional ``trunc_points``) as
+    ``data/loader.py`` yields them.
 
-    Frames are augmented with draws from ``generator``, as the reference does
-    in val mode.  Capacity overflow (voxels past a level cap, points truncated
+    Frames are augmented with draws from ``generator`` (by default a CPU
+    generator seeded from ``cfg.seed``), as the reference does in val mode.  Capacity overflow (voxels past a level cap, points truncated
     by the loader) is reported after the loop: reading it per batch would wait
     for the device every batch."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device="cpu").manual_seed(cfg.seed)
     data = cfg.data
     c = data.num_classes
     model.eval()

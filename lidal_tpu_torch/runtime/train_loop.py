@@ -20,8 +20,8 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from lidal_tpu.config import RunConfig
-from lidal_tpu.runtime.paths import Paths, ensure_dir
+from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.data import semantic_kitti as sk
 from lidal_tpu_torch.data.loader import FrameBatchLoader
 from lidal_tpu_torch.data.pipeline import prepare_train_batch
@@ -110,7 +110,7 @@ def run_train(
     log_every: int = 50,
     on_step: Optional[Callable] = None,
     *,
-    device: Union[torch.device, str],
+    device: Union[torch.device, str] = "cuda",
 ) -> TrainState:
     """Train one round on ``device``; returns the final :class:`TrainState`.
 

@@ -215,3 +215,77 @@ def test_train_step_backward_kernel_matches_plain(card, monkeypatch):
     for name, want in g_p.items():
         assert bool(torch.isfinite(g[name]).all())
         assert float((g[name] - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30), name
+
+
+def _registered_frames(seed, n_frames, n, extent=12.0):
+    """Frames that see one static world from a moving origin, registered into
+    one coordinate system (CPU tensors [n, 3]): neighbouring frames hold
+    points within 0.1 m of each other."""
+    rng = np.random.default_rng(seed)
+    world = (rng.random((n, 3)) * np.array([extent, extent, 2.0]) - np.array([extent / 2, extent / 2, 1.0])).astype(np.float32)
+    return [torch.from_numpy(world + rng.normal(scale=0.02, size=world.shape).astype(np.float32)) for _ in range(n_frames)]
+
+
+@pytest.mark.cuda
+def test_nn_band_kernel_matches_plain_bit_for_bit(card):
+    """``d2`` and ``row`` of the kernel equal the plain version's on every
+    query, matched or not: the kernel's sum is written without FMA contraction."""
+    from lidal_tpu_torch.active import nn_match
+    from lidal_tpu_torch.ops import cuda_nnband
+
+    n, slots = 6000, 5
+    frames = _registered_frames(61, slots + 1, n)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[n - 40 :] = False
+    grids = nn_match.stack_grids([nn_match.build_grid(f.to(card), valid.to(card), 0.1) for f in frames[1:]])
+    cpu_grids = nn_match.stack_grids([nn_match.build_grid(f, valid, 0.1) for f in frames[1:]])
+    for a, b in zip(grids, cpu_grids):  # build_grid on the card == on the CPU, field by field
+        assert torch.equal(a.cpu(), b)
+    pq = nn_match.prepared_from_grid(nn_match.build_grid(frames[0].to(card), valid.to(card), 0.1))
+    blo, nb = nn_match.band_bounds(grids, pq)
+    before = cuda_nnband.LAUNCHES
+    d2, row = cuda_nnband.nn_band(grids.planar, pq.q_t, blo, nb)
+    assert cuda_nnband.LAUNCHES == before + 1 and d2.is_cuda
+    d2_p, row_p = cuda_nnband.nn_band_plain(grids.planar, pq.q_t, blo, nb)
+    assert torch.equal(d2, d2_p) and torch.equal(row, row_p)
+    matched = (torch.sqrt(d2) <= torch.full((), 0.1, device=card)) & pq.s_ok
+    assert 0.2 < float(matched.float().mean()) < 1.0
+    # the same answer as the CPU's plain version on the CPU's grids
+    pq_c = nn_match.prepared_from_grid(nn_match.build_grid(frames[0], valid, 0.1))
+    d2_c, row_c = cuda_nnband.nn_band(cpu_grids.planar, pq_c.q_t, *nn_match.band_bounds(cpu_grids, pq_c))
+    assert torch.equal(d2.cpu(), d2_c) and torch.equal(row.cpu(), row_c)
+    with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
+        cuda_nnband.nn_band(grids.planar.double(), pq.q_t, blo, nb)
+    with pytest.raises(ValueError):
+        cuda_nnband.nn_band(grids.planar, pq.q_t[:, :300].contiguous(), blo, nb)
+
+
+@pytest.mark.cuda
+def test_nn_band_kernel_edge_cases(card):
+    """An empty band, a table of only BIG rows, an exact tie (lowest row wins)
+    and a pair at 0.1 m -+ 1 ulp."""
+    from lidal_tpu_torch.ops import cuda_nnband
+
+    cap, p = 2048, 256
+    tbl = torch.full((4, 3, cap), cuda_nnband.BIG_COORD)
+    q = torch.zeros((3, p))
+    tbl[1, :, 1030] = torch.tensor([0.05, 0.0, 0.0])
+    tbl[1, :, 3] = torch.tensor([-0.05, 0.0, 0.0])
+    tbl[1, :, 900] = torch.tensor([0.0, 0.05, 0.0])
+    below, above = np.nextafter(np.float32(0.1), np.float32(0)), np.nextafter(np.float32(0.1), np.float32(1))
+    tbl[2, 0, 5], tbl[2, 1:, 5] = float(below), 0.0
+    tbl[3, 0, 5], tbl[3, 1:, 5] = float(above), 0.0
+    blo = torch.zeros((4, 1), dtype=torch.int32)
+    nb = torch.tensor([[0], [2], [1], [1]], dtype=torch.int32)
+    args = [t.to(card) for t in (tbl, q, blo, nb)]
+    d2, row = cuda_nnband.nn_band(*args)
+    d2_p, row_p = cuda_nnband.nn_band_plain(*args)
+    assert torch.equal(d2, d2_p) and torch.equal(row, row_p)
+    assert bool(torch.isinf(d2[0]).all()) and not bool(row[0].any())
+    assert int(row[1, 0]) == 3
+    thresh = torch.full((), 0.1, device=card)
+    assert bool(torch.sqrt(d2[2, 0]) <= thresh) and not bool(torch.sqrt(d2[3, 0]) <= thresh)
+    big = [args[0][:1].contiguous(), args[1], args[2][:1].contiguous(), torch.full((1, 1), 2, dtype=torch.int32, device=card)]
+    d2b, rowb = cuda_nnband.nn_band(*big)
+    assert bool(torch.isfinite(d2b).all()) and not bool(rowb.any())
+    assert torch.equal(d2b, cuda_nnband.nn_band_plain(*big)[0])
