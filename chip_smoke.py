@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MinkUNet eval, train and LiDAL-round paths on an
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's eval, train and LiDAL-round paths, with MinkUNet
+and with SPVCNN, on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -75,16 +75,45 @@ supervoxel files from a coarse numpy grid, and round-1 flags.
 13. ``run_active_round`` for ``r_id = 1`` on that tree, a few train steps at
     full width: trains, evaluates, infers and scores, writes round-2 flags.
 
+Phases 14-18 drive the second model family, SPVCNN (``model_name="SPVCNN"``),
+through the same entry points; they run beside the MinkUNet phase whose batch
+or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
+
+14. ``gather8`` kernel vs its plain version at every (m, n, c) of one
+    full-width SPVCNN forward (B = 4: two trilinear devoxelizes and the 4 + 2
+    child sums of the two point->voxel averages), plus an all-sentinel map
+    and an unsorted map with duplicate and out-of-range targets: bit-equal.
+    Kernel, plain and bound times per shape and per forward; ``library_ms``
+    is ``F.embedding_bag(nbr, feats_ext, per_sample_weights=w8, mode="sum",
+    padding_idx=n)``, the one PyTorch call of the same function.
+15. ``scatter8`` kernel vs its plain version (``index_add_``) at both shapes
+    of one SPVCNN train step (B = 5): within SCATTER_TOL * sum |w8| |dy| per
+    target (the plain version adds with atomics in no fixed order, and a
+    level-4 voxel collects thousands of terms), no further from the plain
+    version in f64 than F64_FACTOR times the f32 plain version is, bit-equal
+    across two runs.  The kernel's time includes building the transposed map
+    (an integer sort), which is also printed alone; ``library_ms`` is the
+    backward of that ``embedding_bag`` call.
+16. the SPVCNN eval slice: ``run_eval`` with ``model_name="SPVCNN"``, one
+    warm-up batch and 3 timed batches; points/s, overflow, launches
+    (``gather8`` 8 per batch); kernel path vs plain path logits as phase 6.
+17. the SPVCNN train slice as phase 8 (``gather8`` 8 and ``scatter8`` 2
+    launches per step, dropout on, per-frame seeds), and the train step of
+    phase 9 with fixed dropout seeds.
+18. ``run_fused_lidal_round`` with SPVCNN on phase 12's tree: prob maps finite
+    with rows summing to 1, some supervoxel selected, frames/s.
+
 The launch counts of the JSON record are those of the main paths (the eval
-run of phase 5, the train run of phase 8, the fused round of phase 12), each
-counted from 0 just before it.  ``bound_ms`` is the least time the card could
+runs of phases 5 and 16, the train runs of phases 8 and 17, the fused rounds
+of phases 12 and 18), each counted from 0 just before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
 counting the work this run's data needs (real (row, tap) pairs of the convs,
 evaluated pairs of ``nn_band``).  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
-lookup), used nowhere in the port.  The last two lines of standard output are
+lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8``), used
+nowhere in the port.  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
@@ -112,9 +141,11 @@ ARGMAX_AGREE = 0.999
 TIMED_STEPS = 5
 DESCENT_STEPS = 10
 F64_FACTOR = 4.0  # a kernel's distance from f64 against the plain version's (phase 7)
+SCATTER_TOL = 1e-4  # scatter8 kernel vs index_add_, share of sum |w8| |dy| per target (phase 15)
 BWD_TOL = 1e-3  # backward kernel vs plain under one forward, share of each gradient's max (phase 9)
 GRAD_WORST = 0.1  # kernel path vs plain path, share of each gradient's max (phase 9)
 LR = 1e-3
+DROPOUT_SEEDS = (11, 12, 13, 14, 15)  # SPVCNN's per-frame dropout seeds where a phase fixes them
 ROUND_FRAMES = 30  # frames of the LiDAL round's sequence (a frame has 24 neighbours)
 ROUND_STEPS = 3  # train steps of phase 13's round
 WORLD_POINTS = 200_000  # points of the static world; each frame sees N_PTS of them
@@ -194,6 +225,31 @@ def nbytes(*tensors) -> int:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8")
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a main path runs)."""
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge, cuda_nnband
+
+    for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband):
+        mod.LAUNCHES = 0
+    cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = 0
+
+
+def read_launches(expected) -> dict:
+    """Every kernel's launch count (just after a main path ran); the kernels
+    named in ``expected`` must have launched."""
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge, cuda_nnband
+
+    counts = dict(zip(KERNELS, (cuda_merge.LAUNCHES, cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES,
+                                cuda_nnband.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES,
+                                cuda_gather8.SCATTER8_LAUNCHES)))
+    never = [k for k in expected if counts[k] == 0]
+    require(not never, f"kernels of the path that never launched: {never} ({counts})")
+    return counts
 
 
 def conv_close(got, want):
@@ -318,23 +374,26 @@ def backward_phase(state, tb):
     return err, k_total, p_total, least
 
 
-def step_split(state, batch, gen, caps, dev):
+def step_split(state, batch, gen, caps, dev, spvcnn=False):
     """Milliseconds of one train step's prepare (h2d + augment + voxelize +
-    plan), forward + loss, backward and optimizer, by CUDA events."""
+    plan, for SPVCNN the point plan too), forward + loss, backward and
+    optimizer, by CUDA events."""
     import torch
 
-    from lidal_tpu_torch.data.pipeline import prepare_train_batch
+    from lidal_tpu_torch.data.pipeline import forward_batch, prepare_train_batch
     from lidal_tpu_torch.runtime.train import cross_entropy_ignore
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     ev[0].record()
     tb = prepare_train_batch(
-        gen, *(torch.as_tensor(batch[k]).to(dev) for k in ("xyz", "sig", "valid", "labels")), level_caps=caps
+        gen, *(torch.as_tensor(batch[k]).to(dev) for k in ("xyz", "sig", "valid", "labels")), level_caps=caps,
+        with_points=spvcnn,
     )
     ev[1].record()
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss = cross_entropy_ignore(state.model(tb.feats, tb.plan)[0], tb.labels)
+    seeds = DROPOUT_SEEDS[: len(tb.feats)] if spvcnn else None
+    loss = cross_entropy_ignore(forward_batch(state.model, tb, seeds)[0], tb.labels)
     ev[2].record()
     loss.backward()
     ev[3].record()
@@ -345,13 +404,12 @@ def step_split(state, batch, gen, caps, dev):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)], tb
 
 
-def train_slice_phase(cfg, dev, caps):
-    """8: run_train through its loader; returns (the trained state, a batch,
-    each kernel's launches in the run)."""
+def train_slice_phase(cfg, dev, caps, tag="8 slice"):
+    """8 (MinkUNet) and 17 (SPVCNN): run_train through its loader; returns (the
+    trained state, a batch, each kernel's launches in the run)."""
     import torch
 
     from lidal_tpu_torch.runtime.paths import Paths
-    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_merge
     from lidal_tpu_torch.runtime import checkpoint as ckpt
     from lidal_tpu_torch.runtime.train import train_step
     from lidal_tpu_torch.runtime.train_loop import build_train_loader, init_state, run_train
@@ -363,16 +421,16 @@ def train_slice_phase(cfg, dev, caps):
         losses.append(float(loss))  # waits for the step to finish
         times.append(time.perf_counter())
 
-    for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw):
-        mod.LAUNCHES = 0
+    spvcnn = cfg.is_spvcnn
+    reset_launches()
     state = run_train(cfg, max_iter=1 + TIMED_STEPS, log_every=1, on_step=on_step, device=dev)
-    launches = {"lookup_sorted": cuda_merge.LAUNCHES, "subm_conv": cuda_conv.LAUNCHES,
-                "conv_dx_dw": cuda_conv_dxdw.LAUNCHES}
+    launches = read_launches(("lookup_sorted", "subm_conv", "conv_dx_dw") + (("gather8", "scatter8") if spvcnn else ()))
     require(state.step == 1 + TIMED_STEPS, f"run_train took {state.step} steps")
-    require(all(v > 0 for v in launches.values()), f"a kernel of the train path never launched: {launches}")
+    per_step = (launches["gather8"] / state.step, launches["scatter8"] / state.step)
+    require(per_step == ((8, 2) if spvcnn else (0, 0)), f"gather8 and scatter8 launched {per_step} times per step")
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     seconds = times[-1] - times[0]
-    print(f"[8 slice] run_train: {TIMED_STEPS} steps of {b_train} x {N_PTS}-point frames after 1 warm-up in "
+    print(f"[{tag}] run_train ({cfg.model_name}): {TIMED_STEPS} steps of {b_train} x {N_PTS}-point frames after 1 warm-up in "
           f"{seconds:.3f} s = {TIMED_STEPS / seconds:.3f} steps/s = {TIMED_STEPS * b_train * N_PTS / seconds:,.0f} "
           f"points/s; losses {[round(x, 4) for x in losses]}; launches {launches}")
 
@@ -383,30 +441,38 @@ def train_slice_phase(cfg, dev, caps):
     trained = state.model.state_dict()
     same = all(torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items())
     require(same and fresh.step == state.step, "the restored model differs from the trained one")
-    print(f"[8 slice] checkpoint {os.path.basename(path)} restores a fresh model equal to the trained one "
+    print(f"[{tag}] checkpoint {os.path.basename(path)} restores a fresh model equal to the trained one "
           f"(step {fresh.step}, {len(trained)} tensors)")
 
     batch = next(iter(build_train_loader(cfg, shuffle=False)))
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    split = np.mean([step_split(fresh, batch, gen, caps, dev)[0] for _ in range(3)], axis=0)
-    _, tb = step_split(fresh, batch, gen, caps, dev)
-    print(f"[8 slice] one step (CUDA events, mean of 3): prepare {split[0]:.1f} ms, forward {split[1]:.1f} ms, "
+    split = np.mean([step_split(fresh, batch, gen, caps, dev, spvcnn)[0] for _ in range(3)], axis=0)
+    _, tb = step_split(fresh, batch, gen, caps, dev, spvcnn)
+    print(f"[{tag}] one step (CUDA events, mean of 3): prepare {split[0]:.1f} ms, forward {split[1]:.1f} ms, "
           f"backward {split[2]:.1f} ms, optimizer {split[3]:.1f} ms; overflow per level "
           f"{tb.overflow.sum(dim=0).tolist()}")
 
-    descent = [float(train_step(fresh, tb)) for _ in range(DESCENT_STEPS)]
+    seeds = DROPOUT_SEEDS[: len(tb.feats)] if spvcnn else None  # SPVCNN: dropout on, the same masks every step
+    descent = [float(train_step(fresh, tb, seeds)) for _ in range(DESCENT_STEPS)]
     require(descent[-1] < descent[0], f"no descent over {DESCENT_STEPS} steps on one batch: {descent}")
-    print(f"[8 slice] {DESCENT_STEPS} steps on one batch: loss {descent[0]:.4f} -> {descent[-1]:.4f}")
+    print(f"[{tag}] {DESCENT_STEPS} steps on one batch: loss {descent[0]:.4f} -> {descent[-1]:.4f}")
     return state, tb, launches
 
 
-def train_step_parity_phase(state, tb):
-    """9: one train step from the same state and batch, kernel path vs plain
-    path, and the backward kernel against its plain version under one forward."""
+def train_step_parity_phase(state, tb, tag="9 train step"):
+    """9 (MinkUNet) and 17 (SPVCNN, fixed dropout seeds): one train step from
+    the same state and batch, kernel path vs plain path, and the backward
+    kernels against their plain versions under one forward."""
     import torch
 
-    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_gather8
     from lidal_tpu_torch.runtime.train import cross_entropy_ignore, make_optimizer
+
+    seeds = DROPOUT_SEEDS[: len(tb.feats)] if tb.pplan is not None else None
+    # SPVCNN's Linear biases sit in front of a BN, which removes the mean: their gradient is zero by
+    # construction and what it holds is rounding noise, so it is held to that and not to a share of its max
+    noise = {n for n, _ in state.model.named_parameters() if n.startswith("point_transforms.") and n.endswith(".0.bias")}
 
     def run(plain_forward, plain_backward):
         model = copy.deepcopy(state.model).train()
@@ -414,30 +480,38 @@ def train_step_parity_phase(state, tb):
         # load_state_dict keeps tensors that are already on the right device:
         # copy them, or one run's step would move the next run's start
         opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-        kernels = cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw
+        kernels = (cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw, cuda_gather8.gather8_forward,
+                   cuda_gather8.scatter8)
         if plain_forward:
             cuda_conv.subm_conv = cuda_conv.subm_conv_plain
+            cuda_gather8.gather8_forward = cuda_gather8.gather8_plain
         if plain_backward:
             cuda_conv_dxdw.conv_dx_dw = cuda_conv_dxdw.conv_dx_dw_plain
+            cuda_gather8.scatter8 = cuda_gather8.scatter8_plain
         try:
             opt.zero_grad(set_to_none=True)
-            loss = cross_entropy_ignore(model(tb.feats, tb.plan)[0], tb.labels)
+            loss = cross_entropy_ignore(forward_batch(model, tb, seeds)[0], tb.labels)
             loss.backward()
         finally:
-            cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw = kernels
+            (cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw, cuda_gather8.gather8_forward,
+             cuda_gather8.scatter8) = kernels
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         stats = {n: b.clone() for n, b in model.named_buffers()}
         opt.step()
         return float(loss.detach()), grads, stats, {n: p.detach().clone() for n, p in model.named_parameters()}
 
     def share_of_max(got, want):
-        return {n: float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30) for n, w in want.items()}
+        return {n: float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for n, w in want.items() if n not in noise}
 
     loss, grads, stats, params = run(False, False)
     loss_p, grads_p, stats_p, params_p = run(True, True)
     _, grads_b, _, _ = run(False, True)  # the kernels' forward, the plain backward
     require(abs(loss - loss_p) <= 1e-5 * abs(loss_p), f"loss {loss} vs plain {loss_p}")
     require(all(bool(g.isfinite().all()) for g in grads.values()), "non-finite gradients")
+    for name in noise:
+        g_b, g_w = float(grads[name].abs().max()), float(grads[name.replace("bias", "weight")].abs().max())
+        require(g_b <= 1e-3 * g_w, f"{name}: gradient {g_b:.2e} beside its weight's {g_w:.2e}, expected rounding noise")
     bwd = share_of_max(grads, grads_b)
     worst = max(bwd, key=bwd.get)
     require(bwd[worst] <= BWD_TOL, f"backward kernel vs plain under one forward: {worst} {bwd[worst]:.2e} of its max")
@@ -456,7 +530,7 @@ def train_step_parity_phase(state, tb):
         far += int((d > 1e-2 * LR).sum())
         total += d.numel()
     require(far <= 1e-3 * total, f"{far} of {total} parameters differ by more than 1e-2 * lr after Adam")
-    print(f"[9 train step] loss: kernels {loss:.7f}, plain {loss_p:.7f}; under one forward the backward kernel's "
+    print(f"[{tag}] loss: kernels {loss:.7f}, plain {loss_p:.7f}; under one forward the backward kernels' "
           f"gradients are within {bwd[worst]:.2e} of each one's max of the plain backward's (tol {BWD_TOL}; "
           f"worst {worst}); whole paths: worst {path[worst_p]:.2e} ({worst_p}, tol {GRAD_WORST}), median "
           f"{float(np.median(list(path.values()))):.2e}; BN statistics max|d| {s_err:.2e}; after Adam {far} of "
@@ -642,7 +716,7 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
     from lidal_tpu_torch.active.nn_match import HashGrid, band_bounds, prepared_from_grid
     from lidal_tpu_torch.data import semantic_kitti as sk
     from lidal_tpu_torch.data.pipeline import pad_points
-    from lidal_tpu_torch.ops import cuda_conv, cuda_merge, cuda_nnband
+    from lidal_tpu_torch.ops import cuda_nnband
     from lidal_tpu_torch.prep.grid import load_grid_points
     from lidal_tpu_torch.runtime.paths import Paths
     from lidal_tpu_torch.runtime.prob_inference import frame_generator, make_multiview_fn, run_prob_inference
@@ -680,18 +754,16 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
         res_a = lidal_runner.run_lidal_round(cfg, device=dev)
         t_score = time.perf_counter() - t0
         # (b) fused: the main path of this slice
-        for mod in (cuda_merge, cuda_conv, cuda_nnband):
-            mod.LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         res_b = lidal_runner.run_fused_lidal_round(
             cfg_f, model, lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
             frame_index=frame_index, device=dev,
         )
         t_fused = time.perf_counter() - t0
-        launches = {"lookup_sorted": cuda_merge.LAUNCHES, "subm_conv": cuda_conv.LAUNCHES, "nn_band": cuda_nnband.LAUNCHES}
+        launches = read_launches(("lookup_sorted", "subm_conv", "nn_band"))
     finally:
         lidal.select = select
-    require(all(v > 0 for v in launches.values()), f"a kernel of the fused round never launched: {launches}")
     require(launches["nn_band"] == ROUND_FRAMES, f"nn_band launched {launches['nn_band']} times for {ROUND_FRAMES} frames")
 
     # identical artifacts, scores and selections
@@ -791,6 +863,308 @@ def active_round_phase(cfg, dev):
           f"{sum(int((f == 2).sum()) for f in flags)} pseudo-labelled in the round-2 flags; {seconds:.1f} s in all")
 
 
+def dense_map_inputs(m, rows, c, dev, targets=None):
+    """(values f32 [rows, c], nbr int32 [m, 8], w8 f32 [m, 8]) of a map with no
+    sentinel: row i's 8 targets lie near ``i * targets // m``, as the corners
+    of a point's ancestor voxel lie near it in a sorted voxel table."""
+    import torch
+
+    targets = rows if targets is None else targets
+    g = torch.Generator().manual_seed(SEED + 9)
+    base = torch.arange(m, dtype=torch.int64) * targets // m
+    delta = torch.tensor([0, 1, 2, 3, 30, 31, 32, 33])
+    nbr = (base[:, None] + delta[None, :]).clamp_max(targets - 1).to(torch.int32)
+    values = torch.randn((rows, c), generator=g)
+    return values.to(dev), nbr.to(dev), torch.rand((m, 8), generator=g).to(dev)
+
+
+def gather8_phase(model, eb):
+    """14: every gather8 call of one SPVCNN forward against its plain version,
+    bit for bit, and edge cases.  Returns the kernel's record fields."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.ops import cuda_gather8
+
+    captured, calls = {}, {}
+    kernel, plain = cuda_gather8.gather8_forward, cuda_gather8.gather8_plain
+
+    def recorder(feats, nbr, w8):
+        key = (nbr.shape[0], feats.shape[0], feats.shape[1])
+        calls[key] = calls.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (feats.clone(), nbr.clone(), w8.clone())
+        return kernel(feats, nbr, w8)
+
+    cuda_gather8.gather8_forward = recorder
+    try:
+        with torch.inference_mode():
+            forward_batch(model, eb)
+    finally:
+        cuda_gather8.gather8_forward = kernel
+    require(sum(calls.values()) == 8, f"{sum(calls.values())} gather8 calls in one forward, not 8")
+
+    k_total = p_total = lib_total = 0.0
+    least = Bound()
+    with torch.inference_mode():
+        for key in sorted(captured):
+            feats, nbr, w8 = args = captured[key]
+            m, n, c = key
+            out = kernel(*args)
+            want = plain(*args)
+            require(torch.equal(out, want) and bool(out.isfinite().all()),
+                    f"gather8 {key}: {int((out != want).sum())} values differ from the plain version")
+            real = (nbr >= 0) & (nbr < n)
+            pairs = int(real.sum())
+            rows = int(torch.unique(nbr[real]).numel())  # table rows this map reads
+            b_ms = least.add(nbytes(nbr, w8, out) + 4.0 * rows * c, 2.0 * pairs * c, calls=calls[key])
+            # the one library call of the same function, on a table with the zero row appended
+            fx = torch.cat([feats, feats.new_zeros((1, c))])
+            lib = F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n)
+            require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), f"gather8 {key}: embedding_bag computes another function")
+            del want, lib
+            k_ms = cuda_ms(lambda: kernel(*args))
+            p_ms = cuda_ms(lambda: plain(*args), reps=3)
+            lib_ms = cuda_ms(lambda: F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n), reps=3)
+            k_total += calls[key] * k_ms
+            p_total += calls[key] * p_ms
+            lib_total += calls[key] * lib_ms
+            print(f"[14 gather8] m={m} n={n} c={c} x{calls[key]}: bit-equal to the plain version; kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.3f} ms, embedding_bag {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs on {rows} table "
+                  f"rows, weights {'all 1' if bool((w8 == 1).all()) else 'trilinear'})")
+            del out, fx
+        # edge cases: a map of sentinels only; targets in no order, twice in a row, out of range
+        dev = eb.feats.device
+        g = torch.Generator().manual_seed(SEED + 8)
+        feats = torch.randn((3000, 256), generator=g).to(dev)
+        nbr = torch.randint(0, 3000, (20000, 8), generator=g, dtype=torch.int32)
+        nbr[torch.rand((20000, 8), generator=g) > 0.8] = 3000
+        nbr[::7, 3] = nbr[::7, 1]
+        nbr[5::11] = 3000
+        nbr[2, 0], nbr[3, 1] = -1, 3005
+        nbr, w8 = nbr.to(dev), torch.randn((20000, 8), generator=g).to(dev)
+        out = kernel(feats, nbr, w8)
+        require(torch.equal(out, plain(feats, nbr, w8)) and not bool(out[5::11].any()), "gather8 on an unsorted map")
+        sent = torch.full_like(nbr, 3000)
+        out = kernel(feats, sent, w8)
+        require(not bool(out.any()) and torch.equal(out, plain(feats, sent, w8)), "gather8 on an all-sentinel map")
+        # The synthetic frames overflow the coarse caps, so few points keep a level-4 or level-2
+        # ancestor and the two trilinear maps above are mostly sentinels.  The same shapes with a
+        # full map (every point 8 real corners near its ancestor's row), as frames that fit would give:
+        for (m, n, c) in [k for k in sorted(captured) if k[0] > k[1]]:
+            feats, nbr, w8 = dense_map_inputs(m, n, c, dev)
+            out = kernel(feats, nbr, w8)
+            require(torch.equal(out, plain(feats, nbr, w8)), f"gather8 on a full map {m, n, c}")
+            k_ms = cuda_ms(lambda: kernel(feats, nbr, w8))
+            b_ms = 1e3 * nbytes(feats, nbr, w8, out) / PEAK_BYTES
+            print(f"[14 gather8] full map m={m} n={n} c={c} ({8 * m // n} pairs per table row): bit-equal; kernel "
+                  f"{k_ms:.3f} ms, bound {b_ms:.3f} ms")
+            del feats, nbr, w8, out
+    print(f"[14 gather8] {len(captured)} shapes, 8 calls per forward, all bit-equal; edge cases bit-equal: unsorted "
+          f"columns with duplicate and out-of-range targets, all-sentinel rows and map; per forward: kernel "
+          f"{k_total:.2f} ms, plain {p_total:.1f} ms, embedding_bag {lib_total:.2f} ms, bound {least.total:.3f} ms "
+          f"(by {least.by})")
+    return {"max_abs_err": 0.0, "ms": k_total, "plain_ms": p_total, "bound_ms": least.total, "bound_by": least.by,
+            "library_ms": lib_total}
+
+
+def scatter8_phase(state, tb):
+    """15: both scatter8 calls of one SPVCNN train step against the plain
+    version.  Returns the kernel's record fields."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidal_tpu_torch.ops import cuda_gather8
+    from lidal_tpu_torch.runtime.train import train_step
+
+    captured = {}
+    kernel, plain = cuda_gather8.scatter8, cuda_gather8.scatter8_plain
+
+    def recorder(dy, nbr, w8, n):
+        captured[(dy.shape[0], n, dy.shape[1])] = (dy.clone(), nbr.clone(), w8.clone(), n)
+        return kernel(dy, nbr, w8, n)
+
+    cuda_gather8.scatter8 = recorder
+    try:
+        train_step(state, tb, DROPOUT_SEEDS[: len(tb.feats)])
+    finally:
+        cuda_gather8.scatter8 = kernel
+    require(len(captured) == 2, f"{len(captured)} scatter8 shapes in one train step, not 2")
+
+    err = k_total = p_total = lib_total = 0.0
+    least = Bound()
+    for key in sorted(captured):
+        dy, nbr, w8, n = args = captured[key]
+        m, _, c = key
+        got = kernel(*args)
+        require(torch.equal(got, kernel(*args)), f"scatter8 {key}: two runs differ")
+        want = plain(*args)
+        abs_sum = plain(dy.abs(), nbr, w8.abs(), n)
+        d = (got - want).abs()
+        require(bool(got.isfinite().all()) and bool((d <= SCATTER_TOL * abs_sum).all()),
+                f"scatter8 {key}: max |kernel - plain| {float(d.max())}")
+        ref = plain(dy.double(), nbr, w8.double(), n)
+        e_k, e_p = float((got.double() - ref).abs().max()), float((want.double() - ref).abs().max())
+        require(e_k <= F64_FACTOR * e_p + 1e-6 * float(abs_sum.max()),
+                f"scatter8 {key}: {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+        e = float(d.max())
+        err = max(err, e)
+        real = (nbr >= 0) & (nbr < n)
+        pairs = int(real.sum())
+        rows = int(real.any(dim=1).sum())  # dy rows with a real tap: what this map reads
+        fan = torch.diff(cuda_gather8.build_transpose(nbr, n)[1])
+        b_ms = least.add(nbytes(nbr, w8, got) + 4.0 * rows * c, 2.0 * pairs * c)
+        del ref, abs_sum, want, d
+        k_ms = cuda_ms(lambda: kernel(*args))
+        t_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
+        p_ms = cuda_ms(lambda: plain(*args), reps=3)
+        # the library call of the same function: the backward of embedding_bag (atomics)
+        fx = torch.zeros((n + 1, c), device=dy.device, requires_grad=True)
+        bag = F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n)
+        lib = torch.autograd.grad(bag, fx, dy, retain_graph=True)[0][:n]
+        require(torch.allclose(lib, got, rtol=1e-3, atol=1e-3 * float(got.abs().max())),
+                f"scatter8 {key}: the backward of embedding_bag computes another function")
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(bag, fx, dy, retain_graph=True), reps=3)
+        del bag, fx, lib
+        k_total += k_ms
+        p_total += p_ms
+        lib_total += lib_ms
+        print(f"[15 scatter8] m={m} n={n} c={c}: max|d|={e:.2e} (tol {SCATTER_TOL} of sum |w8||dy|), from f64 {e_k:.1e} "
+              f"(plain {e_p:.1e}), bit-equal across runs; kernel {k_ms:.3f} ms of which the transposed map "
+              f"{t_ms:.3f} ms, plain {p_ms:.3f} ms, embedding_bag backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms; "
+              f"{pairs} real pairs from {rows} rows, per target mean {float(fan.float().mean()):.0f}, max {int(fan.max())}")
+    # as in phase 14: the same shapes with a full map (a level-4 voxel then collects 512 pairs)
+    for (m, n, c) in sorted(captured):
+        dy, nbr, w8 = dense_map_inputs(m, m, c, state.model.classifier[0].weight.device, targets=n)
+        got = kernel(dy, nbr, w8, n)
+        require(torch.equal(got, kernel(dy, nbr, w8, n)), f"scatter8 on a full map {m, n, c}: two runs differ")
+        want, abs_sum = plain(dy, nbr, w8, n), plain(dy.abs(), nbr, w8.abs(), n)
+        require(bool(((got - want).abs() <= SCATTER_TOL * abs_sum).all()), f"scatter8 on a full map {m, n, c}")
+        del want, abs_sum
+        k_ms = cuda_ms(lambda: kernel(dy, nbr, w8, n))
+        t_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
+        b_ms = 1e3 * nbytes(dy, nbr, w8, got) / PEAK_BYTES
+        print(f"[15 scatter8] full map m={m} n={n} c={c} ({8 * m // n} pairs per target): within tolerance, bit-equal "
+              f"across runs; kernel {k_ms:.3f} ms of which the transposed map {t_ms:.3f} ms, bound {b_ms:.3f} ms")
+        del dy, nbr, w8, got
+    print(f"[15 scatter8] 2 calls per train step: kernel {k_total:.2f} ms, plain {p_total:.2f} ms, embedding_bag "
+          f"backward {lib_total:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": k_total, "plain_ms": p_total, "bound_ms": least.total, "bound_by": least.by,
+            "library_ms": lib_total}
+
+
+def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward_tag):
+    """5 and 6 (MinkUNet), 16 (SPVCNN): run_eval over the timed batches, where
+    one batch's time goes, and the whole forward on the kernel path against
+    the plain path.  Returns each kernel's launches in the timed run."""
+    import torch
+
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.ops import cuda_conv, cuda_gather8, cuda_merge
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+
+    spvcnn = cfg.is_spvcnn
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    run_eval(cfg, model, batches[:1], dev, gen)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = run_eval(cfg, model, batches[1:], dev, gen)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches(("lookup_sorted", "subm_conv") + (("gather8",) if spvcnn else ()))
+    seconds = start.elapsed_time(end) / 1e3
+    require(launches["gather8"] == (8 * TIMED_BATCHES if spvcnn else 0) and launches["scatter8"] == 0,
+            f"gather8 launched {launches['gather8']} times in {TIMED_BATCHES} batches")
+    require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
+    require(0.0 <= res.miou <= 1.0 and int(res.confusion.sum()) > 0, f"mIoU {res.miou}")
+    print(f"[{slice_tag}] run_eval ({cfg.model_name}): {TIMED_BATCHES} batches x {B} frames x {N_PTS} points in "
+          f"{seconds:.3f} s = {res.points / seconds:,.0f} points/s; overflow per level {res.overflow.tolist()}; "
+          f"mIoU {res.miou:.4f} (random weights); launches {launches}")
+
+    # where one batch's time goes (CUDA events around each stage)
+    eb = prepare(batches[1], SEED, spvcnn)
+    with torch.inference_mode():
+        t_prep = cuda_ms(lambda: prepare(batches[1], SEED, spvcnn), reps=3)
+        t_fwd = cuda_ms(lambda: forward_batch(model, eb), reps=3)
+        logits, feats = forward_batch(model, eb)
+    print(f"[{slice_tag}] one batch: prepare (augment+voxelize+plan{'+point plan' if spvcnn else ''}) {t_prep:.1f} ms, "
+          f"forward {t_fwd:.1f} ms")
+
+    # whole forward: kernel path vs plain path
+    kernels = cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward
+    cuda_merge.lookup_sorted = cuda_merge.lookup_sorted_plain
+    cuda_conv.subm_conv = cuda_conv.subm_conv_plain
+    cuda_gather8.gather8_forward = cuda_gather8.gather8_plain
+    try:
+        eb_p = prepare(batches[1], SEED, spvcnn)
+        with torch.inference_mode():
+            logits_p, _ = forward_batch(model, eb_p)
+    finally:
+        cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward = kernels
+    for lk, lp in zip(eb.plan.levels, eb_p.plan.levels):
+        require(torch.equal(lk.nbr3, lp.nbr3), "rulebooks of the kernel and plain paths differ")
+    if spvcnn:
+        for a, b in zip(eb.pplan, eb_p.pplan):
+            require(all(torch.equal(x, y) for x, y in zip(a, b)), "point plans of the kernel and plain paths differ")
+    require(logits.shape == (B, caps[0], cfg.data.num_classes) and feats.shape == (B, caps[0], 96), "shapes")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    valid0 = eb.plan.levels[0].valid
+    require(not bool(logits[~valid0].any()), "logits on invalid rows")
+    logit_err = float((logits - logits_p).abs().max())
+    require(torch.allclose(logits, logits_p, atol=LOGIT_TOL, rtol=LOGIT_TOL), f"logits differ by {logit_err}")
+    agree = float((logits.argmax(-1) == logits_p.argmax(-1))[valid0].float().mean())
+    require(agree >= ARGMAX_AGREE, f"argmax agreement {agree}")
+    print(f"[{forward_tag}] kernel vs plain path: max|d logits| {logit_err:.2e} (tol {LOGIT_TOL}), argmax agreement "
+          f"{agree:.6f} over {int(valid0.sum())} valid voxels; logits std {float(logits[valid0].std()):.3f}")
+    return launches
+
+
+def spvcnn_round_phase(cfg_mink, dev, n_sv):
+    """18: run_fused_lidal_round with SPVCNN on the round tree.  Returns each
+    kernel's launches in it."""
+    from lidal_tpu_torch.active import lidal_runner
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    cfg = dataclasses.replace(cfg_mink, model_name="SPVCNN")
+    # flags are kept per model: SPVCNN's round starts from the same round-1 labels
+    shutil.copytree(Paths(cfg_mink).sv_flag_dir("00", r_id=1), Paths(cfg).sv_flag_dir("00", r_id=1))
+    model = init_state(cfg, dev).model.eval()
+    randomise_bn(model, SEED + 7)
+    files = sk.list_frames(cfg.data_root, cfg.data.train_split)
+    frame_index = {sk.frame_id(p): i for i, p in enumerate(files)}
+    by_id = {sk.frame_id(p): p for p in files}
+    reset_launches()
+    t0 = time.perf_counter()
+    res = lidal_runner.run_fused_lidal_round(
+        cfg, model, lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
+        frame_index=frame_index, device=dev,
+    )
+    seconds = time.perf_counter() - t0
+    launches = read_launches(("lookup_sorted", "subm_conv", "nn_band", "gather8"))
+    require(launches["nn_band"] == ROUND_FRAMES, f"nn_band launched {launches['nn_band']} times for {ROUND_FRAMES} frames")
+    prev = Paths(lidal_runner._prev_cfg(cfg))
+    worst_sum = 0.0
+    for i in range(ROUND_FRAMES):
+        prob = np.load(os.path.join(prev.prob_dir("00"), f"{i:06d}.npy"))
+        require(prob.shape == (N_PTS, cfg.data.num_classes) and bool(np.isfinite(prob).all()), f"prob of frame {i}")
+        worst_sum = max(worst_sum, float(np.abs(prob.sum(1) - 1.0).max()))
+        pred = np.load(os.path.join(prev.pred_dir("00"), f"{i:06d}.npy"))
+        require(np.array_equal(pred, prob.argmax(1)), f"pred of frame {i}")
+        flags = np.load(os.path.join(Paths(cfg).sv_flag_dir("00"), f"{i:06d}.npy"))
+        require(bool(np.isin(flags, (0, 1, 2)).all()), f"sv_flag of frame {i}")
+    require(worst_sum <= PROB_SUM_TOL, f"prob rows sum to 1 within {worst_sum}")
+    require(len(res.sv_flags) == n_sv and len(res.al_added) > 0, "no supervoxel was selected")
+    print(f"[18 round] run_fused_lidal_round (SPVCNN): {ROUND_FRAMES} frames x {cfg.inf_reps} views in {seconds:.2f} s = "
+          f"{ROUND_FRAMES / seconds:.3f} frames/s; prob rows sum to 1 within {worst_sum:.1e}; selected "
+          f"{len(res.al_added)} supervoxels for labels and {len(res.sl_added)} for pseudo labels; launches {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -801,11 +1175,11 @@ def main() -> None:
     from lidal_tpu_torch import kernels_build
     from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
     from lidal_tpu_torch.models.minkunet import MinkUNet
+    from lidal_tpu_torch.models.spvcnn import SPVCNN
     from lidal_tpu_torch.ops import cuda_conv, cuda_merge
     from lidal_tpu_torch.ops.hashing import SENTINEL_KEY, key64
     from lidal_tpu_torch.ops.kernel_map import rulebook_streams
     from lidal_tpu_torch.prep.grid import prepare_sk_grids
-    from lidal_tpu_torch.runtime.evaluate import run_eval
     from lidal_tpu_torch.runtime.train_loop import init_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -820,7 +1194,7 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
 
     # ---- 2. build ----------------------------------------------------------------
-    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band")
+    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band", "gather8")
     t0 = time.perf_counter()
     kernels_build.load_all(sources)
     print(f"[2 build] {len(sources)} sources, one nvcc each, started together: {time.perf_counter() - t0:.1f} s")
@@ -835,11 +1209,11 @@ def main() -> None:
     batches = [make_batch(rng, SK_CONFIG.point_cap) for _ in range(1 + TIMED_BATCHES)]
     b0 = batches[1]
 
-    def prepare(batch, seed):
+    def prepare(batch, seed, with_points=False):
         return prepare_eval_batch(
             torch.Generator(device="cpu").manual_seed(seed),
             *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid")),
-            level_caps=caps,
+            level_caps=caps, with_points=with_points,
         )
 
     eb = prepare(b0, SEED)
@@ -945,60 +1319,27 @@ def main() -> None:
           f"bound {conv_bound.total:.2f} ms (by {conv_bound.by})")
     del captured
 
-    # ---- 5. the slice: run_eval ----------------------------------------------------
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    run_eval(cfg, model, batches[:1], dev, gen)  # warm-up
-    torch.cuda.synchronize()
-    cuda_merge.LAUNCHES = 0
-    cuda_conv.LAUNCHES = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    res = run_eval(cfg, model, batches[1:], dev, gen)
-    end.record()
-    torch.cuda.synchronize()
-    launches = {"lookup_sorted": cuda_merge.LAUNCHES, "subm_conv": cuda_conv.LAUNCHES}
-    seconds = start.elapsed_time(end) / 1e3
-    require(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
-    require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
-    require(0.0 <= res.miou <= 1.0 and int(res.confusion.sum()) > 0, f"mIoU {res.miou}")
-    print(f"[5 slice] run_eval: {TIMED_BATCHES} batches x {B} frames x {N_PTS} points in {seconds:.3f} s = "
-          f"{res.points / seconds:,.0f} points/s; overflow per level {res.overflow.tolist()}; "
-          f"mIoU {res.miou:.4f} (random weights); launches {launches}")
-
-    # where one batch's time goes (CUDA events around each stage)
-    with torch.inference_mode():
-        t_prep = cuda_ms(lambda: prepare(b0, SEED), reps=3)
-        t_fwd = cuda_ms(lambda: model(eb.feats, eb.plan), reps=3)
-    print(f"[5 slice] one batch: prepare (augment+voxelize+plan) {t_prep:.1f} ms, forward {t_fwd:.1f} ms")
-
-    # ---- 6. whole forward: kernel path vs plain path -----------------------------------
-    plain_lookup = cuda_merge.lookup_sorted
-    cuda_merge.lookup_sorted = cuda_merge.lookup_sorted_plain
-    cuda_conv.subm_conv = cuda_conv.subm_conv_plain
-    try:
-        eb_p = prepare(b0, SEED)
-        with torch.inference_mode():
-            logits_p, _ = model(eb_p.feats, eb_p.plan)
-    finally:
-        cuda_merge.lookup_sorted = plain_lookup
-        cuda_conv.subm_conv = kernel_conv
-    for lk, lp in zip(eb.plan.levels, eb_p.plan.levels):
-        require(torch.equal(lk.nbr3, lp.nbr3), "rulebooks of the kernel and plain paths differ")
-    with torch.inference_mode():
-        logits, feats = model(eb.feats, eb.plan)
-    require(logits.shape == (B, caps[0], SK_CONFIG.num_classes) and feats.shape == (B, caps[0], 96), "shapes")
-    require(bool(torch.isfinite(logits).all()), "non-finite logits")
-    valid0 = eb.plan.levels[0].valid
-    logit_err = float((logits - logits_p).abs().max())
-    require(torch.allclose(logits, logits_p, atol=LOGIT_TOL, rtol=LOGIT_TOL), f"logits differ by {logit_err}")
-    agree = float((logits.argmax(-1) == logits_p.argmax(-1))[valid0].float().mean())
-    require(agree >= ARGMAX_AGREE, f"argmax agreement {agree}")
-    print(f"[6 forward] kernel vs plain path: max|d logits| {logit_err:.2e} (tol {LOGIT_TOL}), argmax agreement "
-          f"{agree:.6f} over {int(valid0.sum())} valid voxels; logits std {float(logits[valid0].std()):.3f}")
-
-    # ---- 7-9. training ---------------------------------------------------------------
-    del model, eb, eb_p, logits, logits_p, feats
+    # ---- 5, 6. the eval slice and the whole forward -------------------------------------------
+    del eb
+    launches = eval_slice_phase(cfg, model, batches, prepare, dev, caps, "5 slice", "6 forward")
+    del model
     torch.cuda.empty_cache()
+
+    # ---- 14, 16. SPVCNN: the gather8 kernel and the eval slice ------------------------------
+    cfg_spv = RunConfig(dataset_name="SK", model_name="SPVCNN")
+    torch.manual_seed(SEED)
+    spvcnn = SPVCNN(num_classes=SK_CONFIG.num_classes).eval()
+    randomise_bn(spvcnn, SEED + 1)
+    spvcnn = spvcnn.to(dev)
+    eb_s = prepare(b0, SEED, with_points=True)
+    gather8 = gather8_phase(spvcnn, eb_s)
+    del eb_s
+    torch.cuda.empty_cache()
+    launches_16 = eval_slice_phase(cfg_spv, spvcnn, batches, prepare, dev, caps, "16 slice", "16 forward")
+    del spvcnn
+    torch.cuda.empty_cache()
+
+    # ---- 7-9, 15, 17. training --------------------------------------------------------------
     root = tempfile.mkdtemp(prefix="lidal_sk_")
     try:
         data = dataclasses.replace(SK_CONFIG, train_split=("00",))
@@ -1022,6 +1363,22 @@ def main() -> None:
         trained, tb8, train_launches = train_slice_phase(cfg_train, dev, caps)
         train_step_parity_phase(trained, tb8)
         del trained, tb8
+        torch.cuda.empty_cache()
+
+        cfg_train_spv = dataclasses.replace(cfg_train, model_name="SPVCNN")
+        train_state = init_state(cfg_train_spv, dev)
+        b15 = make_batch(rng, SK_CONFIG.point_cap, data.batch_size)
+        tb15 = prepare_train_batch(
+            torch.Generator(device="cpu").manual_seed(SEED + 5),
+            *(torch.as_tensor(b15[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
+            level_caps=caps, with_points=True,
+        )
+        scatter8 = scatter8_phase(train_state, tb15)
+        del train_state, tb15, b15
+        torch.cuda.empty_cache()
+        trained, tb17, launches_17 = train_slice_phase(cfg_train_spv, dev, caps, tag="17 slice")
+        train_step_parity_phase(trained, tb17, tag="17 train step")
+        del trained, tb17
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1047,35 +1404,45 @@ def main() -> None:
         nn_band = nn_band_phase(cfg_round, dev)
         round_launches = lidal_slice_phase(cfg_round, root, dev, n_sv)
         active_round_phase(cfg_round, dev)
+        launches_18 = spvcnn_round_phase(cfg_round, dev, n_sv)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    for name in ("lookup_sorted", "subm_conv"):
-        launches[name] += train_launches[name] + round_launches[name]
+    # every main path's run, each counted from 0 just before it
+    total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18))
+             for k in KERNELS}
 
     record = {
         "kernels": [
             {
                 "name": "lookup_sorted", "route": "cuda", "source": "lidal_tpu_torch/csrc/merge_lookup.cu",
-                "replaces": "lidal_tpu/ops/pallas_merge.py:211", "launches": launches["lookup_sorted"],
+                "replaces": "lidal_tpu/ops/pallas_merge.py:211", "launches": total["lookup_sorted"],
                 "max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms,
                 "bound_ms": lookup_bound.total, "bound_by": lookup_bound.by, "library_ms": lookup_lib_ms,
             },
             {
                 "name": "subm_conv", "route": "cuda", "source": "lidal_tpu_torch/csrc/subm_conv.cu",
-                "replaces": "lidal_tpu/ops/pallas_conv.py:387", "launches": launches["subm_conv"],
+                "replaces": "lidal_tpu/ops/pallas_conv.py:387", "launches": total["subm_conv"],
                 "max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain_ms,
                 "bound_ms": conv_bound.total, "bound_by": conv_bound.by, "library_ms": None,
             },
             {
                 "name": "conv_dx_dw", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw.cu",
-                "replaces": "lidal_tpu/ops/pallas_conv.py:299", "launches": train_launches["conv_dx_dw"],
+                "replaces": "lidal_tpu/ops/pallas_conv.py:299", "launches": total["conv_dx_dw"],
                 "max_abs_err": dxdw_err, "ms": dxdw_ms, "plain_ms": dxdw_plain_ms,
                 "bound_ms": dxdw_bound.total, "bound_by": dxdw_bound.by, "library_ms": None,
             },
             {
                 "name": "nn_band", "route": "cuda", "source": "lidal_tpu_torch/csrc/nn_band.cu",
-                "replaces": "lidal_tpu/ops/pallas_nnband.py:158", "launches": round_launches["nn_band"],
+                "replaces": "lidal_tpu/ops/pallas_nnband.py:158", "launches": total["nn_band"],
                 "library_ms": None, **nn_band,
+            },
+            {
+                "name": "gather8", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": total["gather8"], **gather8,
+            },
+            {
+                "name": "scatter8", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:300", "launches": total["scatter8"], **scatter8,
             },
         ]
     }

@@ -1,7 +1,8 @@
 """Command implementations wiring the run loops, data and checkpoints (port of
-``lidal_tpu/cli/commands.py``: SemanticKITTI, MinkUNet, LiDAL).
+``lidal_tpu/cli/commands.py``: SemanticKITTI, MinkUNet or SPVCNN, LiDAL).
 
-Every command runs on ``device`` (default: the CUDA card).  The nuScenes
+Every command runs on ``device`` (default: the CUDA card) and builds the model
+family ``cfg.model_name`` names (``runtime/train_loop.build_model``).  The nuScenes
 branch of ``_dataset_frames``, ``prep_command``, ``import_torch_command`` and
 the scoring metrics other than LiDAL are not ported yet.
 """

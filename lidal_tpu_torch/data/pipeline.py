@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from lidal_tpu_torch.data.augment import AugmentDraws, augment_and_voxelize
+from lidal_tpu_torch.ops.devoxelize import PointPlan, build_point_plan
 from lidal_tpu_torch.ops.kernel_map import UNetPlan, build_unet_plan
 
 IGNORE_LABEL = 255
@@ -31,7 +32,7 @@ class TrainBatch(NamedTuple):
     feats: torch.Tensor  # [B, cap0, 4]
     labels: torch.Tensor  # [B, cap0] int32 (IGNORE_LABEL on invalid/ignored)
     plan: UNetPlan
-    pplan: Optional[object]  # SPVCNN point plan; None until SPVCNN is ported
+    pplan: Optional[PointPlan]  # the SPVCNN transfer maps; None for MinkUNet
     overflow: torch.Tensor  # [B, levels] int32 unique voxels dropped per level
 
 
@@ -45,9 +46,11 @@ def prepare_train_batch(
     scale: float = 20.0,
     full_scale: int = 8192,
     augment: bool = True,
+    with_points: bool = False,
 ) -> TrainBatch:
     """A voxel's label is its first point's (np.unique keep-first,
-    reference ``sk_dataset.py:167-171``); invalid voxels get IGNORE_LABEL."""
+    reference ``sk_dataset.py:167-171``); invalid voxels get IGNORE_LABEL.
+    ``with_points`` adds the SPVCNN point plan."""
     vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment)
     plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
     labels_v = labels_p.gather(1, vf.uv.first_src.long())
@@ -56,7 +59,7 @@ def prepare_train_batch(
         feats=vf.feats,
         labels=labels_v,
         plan=plan,
-        pplan=None,
+        pplan=build_point_plan(plan) if with_points else None,
         overflow=plan_overflow(plan, vf.uv.num_unique, vf.uv.valid),
     )
 
@@ -64,7 +67,7 @@ def prepare_train_batch(
 class EvalBatch(NamedTuple):
     feats: torch.Tensor  # [B, cap0, 4]
     plan: UNetPlan
-    pplan: Optional[object]  # SPVCNN point plan; None until SPVCNN is ported
+    pplan: Optional[PointPlan]  # the SPVCNN transfer maps; None for MinkUNet
     inverse: torch.Tensor  # [B, P] point -> voxel (sentinel cap0)
     point_valid: torch.Tensor  # [B, P]
     overflow: torch.Tensor  # [B, levels] int32 unique voxels dropped per level
@@ -80,22 +83,34 @@ def prepare_eval_batch(
     full_scale: int = 8192,
     augment: bool = True,
     draws: Optional[AugmentDraws] = None,
+    with_points: bool = False,
 ) -> EvalBatch:
     """Eval batches keep the point->voxel inverse for projecting voxel logits
     back to points (reference ``evaluate.py:104-107``).  The reference augments
     in val mode too (``sk_dataset.py:143-161``); ``augment=False`` gives the
     deterministic frame used by parity tests; ``draws`` gives the augmentation
-    parameters instead of drawing them from ``generator``."""
+    parameters instead of drawing them from ``generator``; ``with_points`` adds
+    the SPVCNN point plan."""
     vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment, draws)
     plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
     return EvalBatch(
         feats=vf.feats,
         plan=plan,
-        pplan=None,
+        pplan=build_point_plan(plan) if with_points else None,
         inverse=vf.uv.inverse,
         point_valid=vf.point_valid,
         overflow=plan_overflow(plan, vf.uv.num_unique, vf.uv.valid),
     )
+
+
+def forward_batch(model: torch.nn.Module, batch, dropout_seeds=None):
+    """``(logits, feats)`` of ``model`` on a :class:`TrainBatch` or
+    :class:`EvalBatch`: MinkUNet takes the features and the plan; a batch
+    prepared ``with_points`` is SPVCNN's, which also takes the point plan and,
+    in train mode, one dropout seed per frame."""
+    if batch.pplan is None:
+        return model(batch.feats, batch.plan)
+    return model(batch.feats, batch.plan, batch.pplan, dropout_seeds)
 
 
 def pad_points(xyz, sig, labels, point_cap: int):

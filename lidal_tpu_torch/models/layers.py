@@ -16,8 +16,11 @@ The module's mode picks the path, as ``train`` does in the JAX package:
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lidal_tpu_torch.ops.conv import (
@@ -204,3 +207,46 @@ class ResidualBlock(nn.Module):
 # nn.Linear's default init is the uniform(-1/sqrt(fan_in)) bound the JAX
 # TorchLinear reproduces for both weight and bias; its layout is [out, in].
 TorchLinear = nn.Linear
+
+
+class PointTransform(nn.Sequential):
+    """Linear -> BatchNorm1d over the valid points -> ReLU on point features
+    (reference ``network/spvcnn.py:85-101``; submodules ``0`` and ``1`` as
+    there).  The Linear is a plain matrix product, as in the JAX package."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(TorchLinear(cin, cout), MaskedBatchNorm(cout), nn.ReLU(True))
+
+    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self[1](self[0](x), valid))
+
+
+class PerFrameDropout(nn.Module):
+    """Dropout whose mask is drawn per FRAME from that frame's own seed.
+
+    ``seeds`` holds one integer per frame of ``x [B, ...]``.  Frame b's mask
+    comes from a generator on ``x``'s device seeded from ``(seeds[b], site)``,
+    so it depends neither on the frame's batch mates nor on its place in the
+    batch (the property the JAX package gets from per-frame keys; the bits
+    themselves differ between the two frameworks).  ``site`` tells the
+    model's dropout sites apart.  Without seeds it is ``F.dropout`` over the
+    whole batch from torch's global generator.  Identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]], site: int) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if seeds is None:
+            return F.dropout(x, self.rate, training=True)
+        if len(seeds) != x.shape[0]:
+            raise ValueError(f"{len(seeds)} dropout seeds for {x.shape[0]} frames")
+        keep = 1.0 - self.rate
+        masks = []
+        for seed in seeds:
+            mixed = np.random.SeedSequence([int(seed), site]).generate_state(1, np.uint64)[0]
+            g = torch.Generator(device=x.device).manual_seed(int(mixed) & (2**63 - 1))
+            masks.append(torch.rand(x.shape[1:], generator=g, device=x.device) < keep)
+        return torch.where(torch.stack(masks), x / keep, 0.0)

@@ -54,26 +54,32 @@ class MinkUNet(nn.Module):
             self.add_module(f"up{j + 1}", up)
         self.classifier = nn.Sequential(TorchLinear(cs[8], num_classes))
 
+    def _stem(self, feats: torch.Tensor, plan: UNetPlan) -> torch.Tensor:
+        lv0 = plan.levels[0]
+        x = conv_bn(self.stem[0], self.stem[1], feats, lv0, lv0.valid, relu=True)
+        return conv_bn(self.stem[3], self.stem[4], x, lv0, lv0.valid, relu=True)
+
+    def _stage(self, i: int, x: torch.Tensor, plan: UNetPlan) -> torch.Tensor:
+        """Encoder stage i (1-4): level i - 1 -> level i."""
+        down, res1, res2 = getattr(self, f"stage{i}")
+        level = plan.levels[i]
+        return res2(res1(down(x, plan.downs[i - 1], level), level), level)
+
+    def _up(self, j: int, y: torch.Tensor, skip: torch.Tensor, plan: UNetPlan) -> torch.Tensor:
+        """Decoder stage j (1-4): level 5 - j -> level 4 - j, ``skip`` concatenated."""
+        up, res = getattr(self, f"up{j}")
+        level = plan.levels[4 - j]
+        y = torch.cat([up(y, plan.downs[4 - j], level), skip], dim=-1)
+        return res[1](res[0](y, level), level)
+
     def forward(self, feats: torch.Tensor, plan: UNetPlan):
         """feats [B, cap0, in_channels] -> (logits [B, cap0, C], feats [B, cap0, cs[8]]);
         logits are zero on invalid level-0 rows."""
-        lv, dn = plan.levels, plan.downs
-
-        x = conv_bn(self.stem[0], self.stem[1], feats, lv[0], lv[0].valid, relu=True)
-        x = conv_bn(self.stem[3], self.stem[4], x, lv[0], lv[0].valid, relu=True)
-        skips = [x]
-        for i in range(4):
-            down, res1, res2 = getattr(self, f"stage{i + 1}")
-            x = down(x, dn[i], lv[i + 1])
-            x = res2(res1(x, lv[i + 1]), lv[i + 1])
-            skips.append(x)
-
+        skips = [self._stem(feats, plan)]
+        for i in range(1, 5):
+            skips.append(self._stage(i, skips[-1], plan))
         y = skips[4]
-        for j in range(4):
-            up, res = getattr(self, f"up{j + 1}")
-            level = lv[3 - j]
-            y = torch.cat([up(y, dn[3 - j], level), skips[3 - j]], dim=-1)
-            y = res[1](res[0](y, level), level)
-
+        for j in range(1, 5):
+            y = self._up(j, y, skips[4 - j], plan)
         logits = self.classifier(y) * plan.levels[0].valid[..., None]
         return logits, y

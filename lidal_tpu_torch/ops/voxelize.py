@@ -88,6 +88,27 @@ def unique_voxels(coords: torch.Tensor, valid: torch.Tensor, cap_out: int) -> Un
     return UniqueVoxels(*(t.reshape(lead + t.shape[1:]) for t in out))
 
 
+def voxelize_mean(point_feats: torch.Tensor, inverse: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Average point features into their voxels (torchsparse ``F.spvoxelize``
+    over ``idx_query`` / ``counts``, reference ``network/utils.py:20-25``),
+    one frame.
+
+    Args:
+      point_feats: [n, c] float features; rows of invalid points may be
+        anything, their ``inverse`` must be the sentinel ``cap_out``.
+      inverse: [n] int32 point -> voxel (sentinel = ``counts.shape[0]``).
+      counts: [cap_out] int32 valid points per voxel.
+
+    Returns [cap_out, c] mean features (zero where the voxel is empty).  The
+    sum is an ``index_add_``; on a card its order, and so the last bits of
+    the result, can change from run to run.
+    """
+    cap_out = counts.shape[0]
+    sums = point_feats.new_zeros((cap_out + 1, point_feats.shape[-1]))
+    sums.index_add_(0, inverse.long(), point_feats)
+    return sums[:cap_out] / counts.clamp_min(1).to(point_feats.dtype)[:, None]
+
+
 def devoxelize_nearest(voxel_feats_ext: torch.Tensor, inverse: torch.Tensor) -> torch.Tensor:
     """Project voxel features [..., cap_out + 1, C] to points [..., P, C] by the
     voxelization inverse; the extra zero row at ``cap_out`` is the sentinel slot."""

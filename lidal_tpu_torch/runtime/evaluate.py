@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from lidal_tpu_torch.config import RunConfig
-from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, prepare_eval_batch
+from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, forward_batch, prepare_eval_batch
 from lidal_tpu_torch.ops.voxelize import append_zero_row, devoxelize_nearest
 from lidal_tpu_torch.utils.iou import confusion_matrix, evaluate as print_iou, per_class_iou
 
@@ -53,9 +53,11 @@ def run_eval(
     ``data/loader.py`` yields them.
 
     Frames are augmented with draws from ``generator`` (by default a CPU
-    generator seeded from ``cfg.seed``), as the reference does in val mode.  Capacity overflow (voxels past a level cap, points truncated
-    by the loader) is reported after the loop: reading it per batch would wait
-    for the device every batch."""
+    generator seeded from ``cfg.seed``), as the reference does in val mode.
+    ``cfg.is_spvcnn`` says whether ``model`` takes the point plan.  Capacity
+    overflow (voxels past a level cap, points truncated by the loader) is
+    reported after the loop: reading it per batch would wait for the device
+    every batch."""
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device="cpu").manual_seed(cfg.seed)
@@ -76,8 +78,9 @@ def run_eval(
                 level_caps=data.level_caps,
                 scale=data.scale,
                 full_scale=data.full_scale,
+                with_points=cfg.is_spvcnn,
             )
-            logits, _ = model(eb.feats, eb.plan)
+            logits, _ = forward_batch(model, eb)
             labels = torch.as_tensor(batch["labels"], device=device)
             conf += batch_confusion(logits, eb.inverse, eb.point_valid, labels, c)
             points += valid.sum()

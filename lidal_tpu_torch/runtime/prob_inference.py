@@ -33,7 +33,7 @@ import torch
 
 from lidal_tpu_torch.config import RunConfig
 from lidal_tpu_torch.data.augment import sample_augment
-from lidal_tpu_torch.data.pipeline import pad_points, prepare_eval_batch
+from lidal_tpu_torch.data.pipeline import forward_batch, pad_points, prepare_eval_batch
 from lidal_tpu_torch.runtime.evaluate import project_logits_to_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 
@@ -84,8 +84,9 @@ def make_multiview_fn(cfg: RunConfig, model: torch.nn.Module, with_feat: Optiona
                 None, xyz_r, sig_r, val_r,
                 level_caps=data.level_caps, scale=data.scale, full_scale=data.full_scale,
                 augment=augment, draws=draws.rows(c0, c0 + chunk) if augment else None,
+                with_points=cfg.is_spvcnn,
             )
-            logits, feat = model(eb.feats, eb.plan)
+            logits, feat = forward_batch(model, eb)
             prob = torch.softmax(project_logits_to_points(logits, eb.inverse).float(), dim=-1).sum(dim=0)
             prob_sum = prob if prob_sum is None else prob_sum + prob
             if with_feat:

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, TrainBatch
+from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, TrainBatch, forward_batch
 
 
 @dataclass
@@ -43,14 +43,15 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     return (nll * mask).sum() / mask.sum().clamp_min(1)
 
 
-def train_step(state: TrainState, batch: TrainBatch) -> torch.Tensor:
+def train_step(state: TrainState, batch: TrainBatch, dropout_seeds=None) -> torch.Tensor:
     """One optimizer step on ``batch``: forward in train mode, loss, backward,
-    Adam.  Returns the loss (detached, on the batch's device; reading it
+    Adam.  ``dropout_seeds`` (SPVCNN): one integer per frame for the dropout
+    masks.  Returns the loss (detached, on the batch's device; reading it
     waits for the device)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad(set_to_none=True)
-    logits, _ = model(batch.feats, batch.plan)
+    logits, _ = forward_batch(model, batch, dropout_seeds)
     loss = cross_entropy_ignore(logits, batch.labels)
     loss.backward()
     opt.step()

@@ -33,14 +33,16 @@ from lidal_tpu_torch.data.selection import (
     train_files_frame_level,
 )
 from lidal_tpu_torch.models.minkunet import MinkUNet
+from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.runtime import checkpoint as ckpt
 from lidal_tpu_torch.runtime.train import TrainState, make_optimizer, train_step
 
 
 def build_model(cfg: RunConfig) -> MinkUNet:
-    if cfg.is_spvcnn:
-        raise NotImplementedError("SPVCNN is not ported yet; the port trains MinkUNet")
-    return MinkUNet(num_classes=cfg.data.num_classes)
+    """The model family ``cfg.model_name`` names (SPVCNN is a MinkUNet trunk
+    with a point branch)."""
+    cls = SPVCNN if cfg.is_spvcnn else MinkUNet
+    return cls(num_classes=cfg.data.num_classes)
 
 
 def make_sk_read_fn(cfg: RunConfig, sv_flag_by_frame=None, sv_info_by_frame=None, pseudo_by_frame=None):
@@ -114,10 +116,10 @@ def run_train(
 ) -> TrainState:
     """Train one round on ``device``; returns the final :class:`TrainState`.
 
-    The batch is ``cfg.data.batch_size`` frames.  Augmentation draws from a
-    CPU ``torch.Generator`` seeded from ``cfg.seed``.  ``on_step(step, loss)``
-    gets the loss as a device tensor; the log line reads it every
-    ``log_every`` steps."""
+    The batch is ``cfg.data.batch_size`` frames.  Augmentation and SPVCNN's
+    per-frame dropout seeds draw from a CPU ``torch.Generator`` seeded from
+    ``cfg.seed``.  ``on_step(step, loss)`` gets the loss as a device tensor;
+    the log line reads it every ``log_every`` steps."""
     device = torch.device(device)
     data = cfg.data
     paths = Paths(cfg)
@@ -152,8 +154,12 @@ def run_train(
             level_caps=data.level_caps,
             scale=data.scale,
             full_scale=data.full_scale,
+            with_points=cfg.is_spvcnn,
         )
-        loss = train_step(state, tb)
+        # SPVCNN's dropout: one seed per frame, so a frame's masks do not
+        # depend on its batch mates (models/layers.PerFrameDropout)
+        seeds = torch.randint(0, 2**62, (len(tb.feats),), generator=gen).tolist() if cfg.is_spvcnn else None
+        loss = train_step(state, tb, seeds)
         if b.get("trunc_points", 0):
             print(f"WARNING: point_cap truncated {b['trunc_points']} points this batch")
         step = state.step

@@ -1,4 +1,4 @@
-"""Carry JAX MinkUNet variables and Adam state into the port.
+"""Carry JAX MinkUNet / SPVCNN variables and Adam state into the port.
 
 :func:`minkunet_state_dict_from_jax` maps the flax ``{"params",
 "batch_stats"}`` tree of ``lidal_tpu.models.MinkUNet`` (numpy leaves) onto
@@ -8,6 +8,9 @@ cout]`` with x-major taps, so a torchsparse checkpoint loads through the same
 map: ``minkunet_state_dict_from_jax(convert_minkunet_state_dict(sd))``
 (``lidal_tpu/runtime/import_torch.py``, which imports numpy only).  The flax
 module names follow ``import_torch.py:203-249``.
+:func:`spvcnn_state_dict_from_jax` does the same for ``lidal_tpu.models.SPVCNN``:
+the trunk plus ``PointTransform_{i}`` -> ``point_transforms.{i}`` (the Linear
+weight transposed to torch's ``[out, in]``, ``import_torch.py:184-200``).
 
 :func:`adam_state_from_jax` maps optax Adam's ``ScaleByAdamState(count, mu,
 nu)`` through the same names onto ``torch.optim.Adam``'s per-parameter
@@ -25,7 +28,7 @@ import torch
 from lidal_tpu_torch.runtime.train import make_optimizer
 
 
-def _walk_minkunet(params, stats: Optional[dict], put) -> None:
+def _walk_variables(params, stats: Optional[dict], put) -> None:
     """Call ``put(torch_name, value)`` for every parameter of the flax tree
     (and every BN statistic when ``stats`` is given)."""
 
@@ -70,6 +73,14 @@ def _walk_minkunet(params, stats: Optional[dict], put) -> None:
         residual(f"up{j + 1}.1.1", f"ResidualBlock_{8 + 2 * j + 1}")
     put("classifier.0.weight", np.asarray(params["TorchLinear_0"]["w"]).T)
     put("classifier.0.bias", params["TorchLinear_0"]["b"])
+    # SPVCNN's point branch; a MinkUNet tree has none of these
+    for i in range(3):
+        name = f"PointTransform_{i}"
+        if name not in params:
+            break
+        put(f"point_transforms.{i}.0.weight", np.asarray(params[name]["TorchLinear_0"]["w"]).T)
+        put(f"point_transforms.{i}.0.bias", params[name]["TorchLinear_0"]["b"])
+        bn(f"point_transforms.{i}.1", params[name]["MaskedBatchNorm_0"], sub(sub(stats, name), "MaskedBatchNorm_0"))
 
 
 def _to_torch(tree, stats=None) -> Dict[str, torch.Tensor]:
@@ -78,11 +89,17 @@ def _to_torch(tree, stats=None) -> Dict[str, torch.Tensor]:
     def put(name, value):
         out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
 
-    _walk_minkunet(tree, stats, put)
+    _walk_variables(tree, stats, put)
     return out
 
 
 def minkunet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    return _to_torch(variables["params"], variables["batch_stats"])
+
+
+def spvcnn_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    if "PointTransform_0" not in variables["params"]:
+        raise ValueError("the variables hold no point transforms: not an SPVCNN tree")
     return _to_torch(variables["params"], variables["batch_stats"])
 
 
@@ -91,7 +108,8 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module) -> dict:
     holding the JAX Adam state ``opt_state`` (``optax.adam``: a chain whose
     first element is ``ScaleByAdamState(count, mu, nu)``); load it with
     ``optimizer.load_state_dict``.  ``mu``/``nu`` take the parameter names of
-    :func:`minkunet_state_dict_from_jax` (the classifier weight transposed)."""
+    :func:`minkunet_state_dict_from_jax` or :func:`spvcnn_state_dict_from_jax`,
+    whichever ``model`` is (Linear weights transposed)."""
     adam = opt_state[0]
     mu, nu = _to_torch(adam.mu), _to_torch(adam.nu)
     step = float(np.asarray(adam.count))

@@ -13,16 +13,25 @@ no TF32); the backward's dwg within 1e-4 * max(1, plain_abs), where plain_abs
 is the plain version on |src| and |f| (a reordered f32 sum over every row);
 a forward's logits within 1e-4 on these small frames; a train step's
 gradients with the backward kernel within 1e-4 of each gradient's max of
-the plain backward's, under one forward.
+the plain backward's, under one forward.  ``gather8`` is bit-equal to its
+plain version (the same products and sums in the same order, no FMA);
+``scatter8`` within 1e-5 of ``sum |w8| |dy|`` per target of its plain version
+(``index_add_``, atomics in no fixed order on a card), no further from the plain
+version in f64 than 4 times the f32 plain version is, and bit-equal across
+two runs.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
+from lidal_tpu_torch.data.pipeline import forward_batch
 from lidal_tpu_torch.models.minkunet import MinkUNet
-from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_dxdw, cuda_merge
+from lidal_tpu_torch.models.spvcnn import SPVCNN
+from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
 from lidal_tpu_torch.ops.kernel_map import rulebook_streams
 
@@ -70,6 +79,11 @@ def test_wrappers_refuse_devices_they_have_no_path_for():
     with pytest.raises(ValueError):
         cuda_conv_dxdw.conv_dx_dw(src, torch.empty((27, 32, 4), device="meta"),
                                   torch.empty((8, 27), dtype=torch.int32, device="meta"), f)
+    nbr8, w8 = torch.empty((8, 8), dtype=torch.int32, device="meta"), torch.empty((8, 8), device="meta")
+    with pytest.raises(ValueError):
+        cuda_gather8.gather8_forward(f, nbr8, w8)
+    with pytest.raises(ValueError):
+        cuda_gather8.scatter8(f, nbr8, w8, 8)
 
 
 @pytest.mark.cuda
@@ -289,3 +303,103 @@ def test_nn_band_kernel_edge_cases(card):
     d2b, rowb = cuda_nnband.nn_band(*big)
     assert bool(torch.isfinite(d2b).all()) and not bool(rowb.any())
     assert torch.equal(d2b, cuda_nnband.nn_band_plain(*big)[0])
+
+
+def _random_map(rng, m, n, density=0.8):
+    """[m, 8] targets in no order, duplicates within a row, all-sentinel rows, an
+    index below 0 and one past the sentinel."""
+    nbr = rng.integers(0, n, size=(m, 8)).astype(np.int32)
+    nbr[rng.random((m, 8)) > density] = n
+    nbr[::7, 3] = nbr[::7, 1]
+    nbr[5::11] = n
+    nbr[2, 0], nbr[3, 1] = -1, n + 5
+    return torch.from_numpy(nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c", [(5000, 300, 256), (777, 2000, 128), (64, 64, 4), (300, 7, 1024)])
+def test_gather8_kernel_bit_equal_to_plain(card, m, n, c):
+    rng = np.random.default_rng(m)
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card)
+    nbr = _random_map(rng, m, n).to(card)
+    w8 = torch.from_numpy(rng.standard_normal((m, 8)).astype(np.float32)).to(card)
+    before = cuda_gather8.GATHER8_LAUNCHES
+    got = cuda_gather8.gather8_forward(feats, nbr, w8)
+    torch.cuda.synchronize()
+    assert cuda_gather8.GATHER8_LAUNCHES == before + 1
+    assert torch.equal(got, cuda_gather8.gather8_plain(feats, nbr, w8))
+    assert not got[5::11].any()  # all-sentinel rows are exactly zero
+    with pytest.raises(ValueError):
+        cuda_gather8.gather8_forward(feats[:, :3].contiguous(), nbr, w8)  # c % 4
+    with pytest.raises(ValueError):
+        cuda_gather8.gather8_forward(feats, nbr.long(), w8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c", [(20000, 40, 256), (5000, 3000, 128), (64, 64, 4), (300, 7, 1024)])
+def test_scatter8_kernel_matches_plain_and_is_deterministic(card, m, n, c):
+    rng = np.random.default_rng(n)
+    dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
+    nbr = _random_map(rng, m, n).to(card)  # (20000, 40): 3200 pairs a target on average
+    w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
+    before = cuda_gather8.SCATTER8_LAUNCHES
+    got = cuda_gather8.scatter8(dy, nbr, w8, n)
+    torch.cuda.synchronize()
+    assert cuda_gather8.SCATTER8_LAUNCHES == before + 1
+    assert torch.equal(got, cuda_gather8.scatter8(dy, nbr, w8, n))  # no atomics: the same bits
+    plain = cuda_gather8.scatter8_plain(dy, nbr, w8, n)
+    abs_sum = cuda_gather8.scatter8_plain(dy.abs(), nbr, w8.abs(), n)
+    assert bool(((got - plain).abs() <= 1e-5 * abs_sum + 1e-12).all())
+    ref = cuda_gather8.scatter8_plain(dy.double(), nbr, w8.double(), n)
+    e_k, e_p = float((got.double() - ref).abs().max()), float((plain.double() - ref).abs().max())
+    assert e_k <= 4.0 * e_p + 1e-6 * float(abs_sum.max())
+
+
+@pytest.mark.cuda
+def test_gather8_function_backward_is_the_scatter_kernel(card):
+    rng = np.random.default_rng(3)
+    n, m, c = 500, 4000, 64
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card).requires_grad_(True)
+    nbr, w8 = _random_map(rng, m, n).to(card), torch.rand((m, 8), device=card)
+    cot = torch.randn((m, c), device=card)
+    before = cuda_gather8.SCATTER8_LAUNCHES
+    (cuda_gather8.gather8(feats, nbr, w8) * cot).sum().backward()
+    assert cuda_gather8.SCATTER8_LAUNCHES == before + 1
+    assert torch.equal(feats.grad, cuda_gather8.scatter8(cot, nbr, w8, n))
+
+
+@pytest.mark.cuda
+def test_spvcnn_kernel_path_matches_plain_path(card, monkeypatch):
+    """Eval logits, and one train step's gradients, of a narrow SPVCNN: the
+    point branch's and the backward's kernels against their plain versions.
+    The conv forward stays the kernel's, so both runs see the same ReLU masks
+    (``gather8`` is bit-equal to its plain version)."""
+    torch.manual_seed(0)
+    model = SPVCNN(num_classes=19, cs=(32, 32, 64, 64, 64, 64, 64, 32, 32)).to(card)
+    xyz, sig, valid = (t.to(card) for t in _frames(53))
+    labels = torch.randint(0, 19, valid.shape, dtype=torch.int32, device=card)
+    tb = prepare_train_batch(None, xyz, sig, valid, labels, level_caps=CAPS, augment=False, with_points=True)
+
+    def run():
+        with torch.inference_mode():
+            logits_eval = forward_batch(model.eval(), tb)[0]
+        trained = copy.deepcopy(model).train()  # the train forward moves the BN statistics
+        logits, _ = forward_batch(trained, tb, dropout_seeds=[1, 2])
+        logits.square().mean().backward()
+        return logits_eval, {n: p.grad.clone() for n, p in trained.named_parameters()}
+
+    counts = cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES
+    logits, grads = run()
+    assert cuda_gather8.GATHER8_LAUNCHES == counts[0] + 16  # 8 per forward, train and eval
+    assert cuda_gather8.SCATTER8_LAUNCHES == counts[1] + 2
+    monkeypatch.setattr(cuda_conv_dxdw, "conv_dx_dw", cuda_conv_dxdw.conv_dx_dw_plain)
+    monkeypatch.setattr(cuda_gather8, "gather8_forward", cuda_gather8.gather8_plain)
+    monkeypatch.setattr(cuda_gather8, "scatter8", cuda_gather8.scatter8_plain)
+    logits_p, grads_p = run()
+    assert torch.equal(logits, logits_p)
+    for name, g in grads_p.items():
+        if name.startswith("point_transforms.") and name.endswith(".0.bias"):
+            # in front of a BN, which removes the mean: a zero gradient by construction, rounding noise in fact
+            assert float(g.abs().max()) <= 1e-3 * float(grads_p[name.replace("bias", "weight")].abs().max()), name
+            continue
+        assert float((grads[name] - g).abs().max()) <= 1e-3 * max(float(g.abs().max()), 1e-6), name

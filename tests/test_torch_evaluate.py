@@ -1,7 +1,8 @@
 """Port parity of the whole eval slice (``lidal_tpu_torch/runtime/evaluate.py``):
 raw points -> prepare_eval_batch -> MinkUNet -> projection -> confusion ->
 mIoU, JAX package vs port on the same frames and weights; plus ``run_eval``
-over a list of loader-style batch dicts."""
+over a list of loader-style batch dicts.  The same for SPVCNN
+(``model_name="SPVCNN"``: the batch carries the point plan)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,12 +13,15 @@ import torch
 from lidal_tpu.config import DataConfig, RunConfig
 from lidal_tpu.data.pipeline import prepare_eval_batch as jax_prepare_eval_batch
 from lidal_tpu.models import MinkUNet as JaxMinkUNet
+from lidal_tpu.models.spvcnn import SPVCNN as JaxSPVCNN
 from lidal_tpu.runtime import evaluate as jax_evaluate
 from lidal_tpu.utils import iou as jax_iou
 from lidal_tpu_torch.data.pipeline import prepare_eval_batch
+from lidal_tpu_torch.data.pipeline import forward_batch
 from lidal_tpu_torch.models.minkunet import MinkUNet
+from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.runtime.evaluate import batch_confusion, project_logits_to_points, run_eval
-from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax
+from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax, spvcnn_state_dict_from_jax
 from lidal_tpu_torch.utils import iou
 from tests.test_torch_frames import OVERFLOW_CAPS, surface_frames, torch_args
 from tests.test_torch_minkunet import NARROW, _randomise_bn
@@ -117,3 +121,49 @@ def test_run_eval_over_batch_dicts(narrow_models, capsys):
     out = capsys.readouterr().out
     assert res.overflow.sum() > 0 and "WARNING: capacity overflow" in out
     assert f"mean IOU {res.miou}" in out  # the reference-format table
+
+
+def test_spvcnn_eval_slice_confusion_equals_jax_and_run_eval_takes_the_point_plan():
+    xyz, sig, valid, labels = surface_frames(45, b=2, n=950)
+    eb_j = jax_prepare_eval_batch(
+        jax.random.split(jax.random.PRNGKey(0), 2), jnp.asarray(xyz), jnp.asarray(sig),
+        jnp.asarray(valid), level_caps=OVERFLOW_CAPS, with_points=True, augment=False,
+    )
+    jmodel = JaxSPVCNN(num_classes=19, cs=NARROW)
+    variables = jax.jit(jmodel.init, static_argnames="train")(
+        jax.random.PRNGKey(3), eb_j.feats, eb_j.plan, eb_j.pplan, train=False
+    )
+    variables = _randomise_bn(variables, np.random.default_rng(4))
+    logits_j, _ = jax.jit(jmodel.apply, static_argnames="train")(
+        variables, eb_j.feats, eb_j.plan, eb_j.pplan, train=False
+    )
+    conf_j = np.asarray(jax_evaluate.batch_confusion(logits_j, eb_j.inverse, eb_j.point_valid, jnp.asarray(labels), 19))
+
+    model = SPVCNN(num_classes=19, cs=NARROW)
+    model.load_state_dict(spvcnn_state_dict_from_jax(variables), strict=True)
+    model.eval()
+    eb = prepare_eval_batch(None, *torch_args(xyz, sig, valid), level_caps=OVERFLOW_CAPS, augment=False, with_points=True)
+    with torch.inference_mode():
+        logits, _ = forward_batch(model, eb)
+    conf = batch_confusion(logits, eb.inverse, eb.point_valid, torch.from_numpy(labels), 19).numpy()
+    # equal class decisions need every valid voxel's top-2 margin above twice
+    # the logits' distance, itself within the 1e-4 of test_torch_spvcnn.py
+    dist = np.abs(logits.numpy() - np.asarray(logits_j)).max()
+    top2 = np.sort(np.asarray(logits_j), axis=-1)[..., -2:]
+    margin = (top2[..., 1] - top2[..., 0])[np.asarray(eb_j.plan.levels[0].valid)]
+    assert dist <= 1e-4 and margin.min() > 2 * dist, (dist, margin.min())
+    assert conf.sum() == int(np.asarray(eb_j.point_valid).sum()) > 0
+    np.testing.assert_array_equal(conf, conf_j)
+
+    # run_eval: cfg.is_spvcnn prepares the batch with its point plan
+    data = DataConfig(name="SK", num_classes=19, point_cap=1024, level_caps=OVERFLOW_CAPS)
+    cfg = RunConfig(model_name="SPVCNN", data_override=data)
+    assert cfg.is_spvcnn
+    batch = {"xyz": xyz, "sig": sig, "valid": valid, "labels": labels}
+    res = run_eval(cfg, model, [batch], "cpu", torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(5)
+    with torch.inference_mode():
+        eb = prepare_eval_batch(gen, *torch_args(xyz, sig, valid), level_caps=OVERFLOW_CAPS, with_points=True)
+        want = batch_confusion(forward_batch(model, eb)[0], eb.inverse, eb.point_valid, torch.from_numpy(labels), 19)
+    np.testing.assert_array_equal(res.confusion, want.numpy())
+    assert res.points == int(valid.sum())

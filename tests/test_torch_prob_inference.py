@@ -9,7 +9,9 @@ of f32 sums in another order, as ``tests/test_torch_minkunet.py``), pred equal
 wherever the top-2 probabilities are more than 1e-3 apart.  View-chunk
 invariance within 1e-6 (the view sum is taken in another order, and a conv
 row's f32 sum may depend on the batch it runs in); order and repeat
-invariance bit-equal (one generator per frame from its global index).
+invariance bit-equal (one generator per frame from its global index).  One
+SPVCNN case (``model_name="SPVCNN"``) holds prob, pred and outfeat to the same
+tolerances.
 """
 
 import dataclasses
@@ -23,13 +25,15 @@ import torch
 
 from lidal_tpu.data.pipeline import prepare_eval_batch as jax_prepare_eval_batch
 from lidal_tpu.models import MinkUNet as JaxMinkUNet
+from lidal_tpu.models.spvcnn import SPVCNN as JaxSPVCNN
 from lidal_tpu.runtime import evaluate as jax_evaluate
 from lidal_tpu.runtime import prob_inference as jax_prob
 from lidal_tpu_torch.config import DataConfig, RunConfig
 from lidal_tpu_torch.models.minkunet import MinkUNet
+from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.runtime import prob_inference
 from lidal_tpu_torch.runtime.paths import Paths
-from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax
+from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax, spvcnn_state_dict_from_jax
 from tests.test_torch_frames import OVERFLOW_CAPS, surface_frames
 from tests.test_torch_minkunet import NARROW, _randomise_bn
 
@@ -190,3 +194,53 @@ def test_saved_artifacts_and_writer_failure(models, tmp_path, monkeypatch):
     cfg1 = dataclasses.replace(_cfg(tmp_path / "failing"), r_id=1)
     with pytest.raises(OSError, match="injected"):
         prob_inference.run_prob_inference(cfg1, model, [0, 1, 2], **kw)
+
+
+def test_spvcnn_multiview_outputs_match_jax_composition(tmp_path):
+    """``model_name="SPVCNN"``: every view is prepared with its point plan."""
+    xyz0, sig0, valid0, _ = surface_frames(61, b=1)
+    eb0 = jax_prepare_eval_batch(
+        jax.random.split(jax.random.PRNGKey(0), 1), jnp.asarray(xyz0), jnp.asarray(sig0), jnp.asarray(valid0),
+        level_caps=OVERFLOW_CAPS, with_points=True, augment=False,
+    )
+    jmodel = JaxSPVCNN(num_classes=19, cs=NARROW)
+    variables = jax.jit(jmodel.init, static_argnames="train")(
+        jax.random.PRNGKey(3), eb0.feats, eb0.plan, eb0.pplan, train=False
+    )
+    variables = _randomise_bn(variables, np.random.default_rng(4))
+    model = SPVCNN(num_classes=19, cs=NARROW)
+    model.load_state_dict(spvcnn_state_dict_from_jax(variables), strict=True)
+
+    frames = _frames(66, 2)
+    cfg = _cfg(tmp_path, r_id=0, label_unit="fr", model_name="SPVCNN")
+    got = prob_inference.run_prob_inference(
+        cfg, model, [0, 1], read_fn=lambda i: frames[i] + (None,), frame_id_fn=lambda i: ("00", f"{i:06d}"),
+        save=False, device="cpu", augment=False,
+    )
+    apply = jax.jit(jmodel.apply, static_argnames="train")
+    for i, (xyz, sig) in enumerate(frames):
+        n = len(xyz)
+        pad = np.zeros((1, P, 3), np.float32)
+        pad[0, :n] = xyz
+        psig = np.zeros((1, P), np.float32)
+        psig[0, :n] = sig
+        eb = jax_prepare_eval_batch(
+            jax.random.split(jax.random.PRNGKey(0), 1), jnp.asarray(pad), jnp.asarray(psig),
+            jnp.asarray(np.arange(P)[None] < n), level_caps=OVERFLOW_CAPS, with_points=True, augment=False,
+        )
+        logits, feat = apply(variables, eb.feats, eb.plan, eb.pplan, train=False)
+        want = np.asarray(jax.nn.softmax(jax_evaluate.project_logits_to_points(logits[0], eb.inverse[0]), axis=-1))[:n]
+        want_feat = np.asarray(jax_evaluate.project_logits_to_points(feat[0], eb.inverse[0]))[:n]
+        prob, pred, outfeat = got[("00", f"{i:06d}")]
+        np.testing.assert_allclose(prob, want, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(outfeat, want_feat, rtol=0, atol=1e-4)
+        top2 = np.sort(want, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 1e-3
+        assert clear.mean() > 0.9
+        np.testing.assert_array_equal(pred[clear], want.argmax(1)[clear])
+    # a model without the point branch cannot take these batches
+    with pytest.raises(TypeError):
+        prob_inference.run_prob_inference(
+            cfg, MinkUNet(num_classes=19, cs=NARROW), [0], read_fn=lambda i: frames[i] + (None,),
+            frame_id_fn=lambda i: ("00", f"{i:06d}"), save=False, device="cpu", augment=False,
+        )

@@ -9,7 +9,9 @@ npys.  Held: ``sv_flag`` files, selections and the supervoxel statistics
 identical between the JAX package and the port (scores agree to 1e-5,
 ``tests/test_torch_lidal.py``; selection is numpy host code copied line for
 line); in the port, the fused round's prob / pred npys, flags and selections
-identical to the staged round's.
+identical to the staged round's.  The same with ``model_name="SPVCNN"``: the
+fused round equals the staged one, the JAX package scores the port's SPVCNN
+prob maps to the same flags, and ``run_active_round`` chains the stages.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from lidal_tpu_torch.active import lidal_runner
 from lidal_tpu_torch.cli import commands
 from lidal_tpu_torch.data import semantic_kitti as sk
 from lidal_tpu_torch.models.minkunet import MinkUNet
+from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.runtime import checkpoint as ckpt, round as port_round
 from lidal_tpu_torch.runtime.paths import Paths
 from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
@@ -241,13 +244,9 @@ def test_worker_thread_builds_no_autograd_graph(prepared, tmp_path):
     assert len(seen) >= FRAMES and all(mode and not grad for mode, grad in seen)
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_run_active_round_chains_the_stages(prepared, tmp_path, fused):
-    """``run_active_round`` for r_id = 1: train -> evaluate -> (fused |
-    inference + score); the round-2 flags appear and earlier labels are kept."""
-    root, jcfg = prepared
+def _check_active_round(root, jcfg, tmp_path, fused, **cfg_kw):
     cfg = port_cfg(_relocated(jcfg, _copy_tree(root, tmp_path / "tree")), r_id=1, inf_reps=2, view_chunk=2,
-                   fused_round=fused, max_iter=2, seed=3)
+                   fused_round=fused, max_iter=2, seed=3, **cfg_kw)
     for s in SEQS:
         shutil.copytree(Paths(cfg).sv_flag_dir(s, r_id=0), Paths(cfg).sv_flag_dir(s, r_id=1))
     logs = []
@@ -262,6 +261,70 @@ def test_run_active_round_chains_the_stages(prepared, tmp_path, fused):
     assert sum(int(((after[k] == 1) & (before[k] != 1)).sum()) for k in before) > 0
     for s in SEQS:
         assert len(os.listdir(Paths(cfg).prob_dir(s))) == FRAMES  # the round-1 model's prob maps
+    return cfg
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_run_active_round_chains_the_stages(prepared, tmp_path, fused):
+    """``run_active_round`` for r_id = 1: train -> evaluate -> (fused |
+    inference + score); the round-2 flags appear and earlier labels are kept."""
+    root, jcfg = prepared
+    _check_active_round(root, jcfg, tmp_path, fused)
+
+
+def test_run_active_round_with_spvcnn(prepared, tmp_path):
+    """The same chain with ``model_name="SPVCNN"``: every stage builds,
+    restores and calls the point-branch model."""
+    root, jcfg = prepared
+    cfg = _check_active_round(root, jcfg, tmp_path, True, model_name="SPVCNN")
+    saved = torch.load(ckpt.ckpt_path(Paths(cfg).ckpt_dir()), weights_only=True)
+    assert "point_transforms.0.0.weight" in saved["model_state"] and saved["iteration"] == 2
+
+
+def test_spvcnn_fused_round_matches_staged_and_the_jax_flags(prepared, tmp_path):
+    """An SPVCNN round: fused == staged in the port, and the JAX package's
+    scoring of the port's SPVCNN prob maps writes the same ``sv_flag`` files."""
+    root, jcfg = prepared
+    torch.manual_seed(7)
+    model = SPVCNN(num_classes=N_CLASSES, cs=NARROW).eval()
+    kw = dict(r_id=2, inf_reps=2, view_chunk=1, model_name="SPVCNN")
+    cfg_s = port_cfg(_relocated(jcfg, _copy_tree(root, tmp_path / "staged")), **kw)
+    cfg_f = port_cfg(_relocated(jcfg, _copy_tree(root, tmp_path / "fused")), **kw)
+    jcfg_j = dataclasses.replace(_relocated(jcfg, _copy_tree(root, tmp_path / "jax")), r_id=2, model_name="SPVCNN")
+    for cfg, paths_cls in ((cfg_s, Paths), (cfg_f, Paths), (jcfg_j, JaxPaths)):
+        for s in SEQS:
+            shutil.copytree(paths_cls(cfg).sv_flag_dir(s, r_id=0), paths_cls(cfg).sv_flag_dir(s, r_id=1))
+
+    files = sk.list_frames(cfg_s.data_root, SEQS)
+    inf_cfg = lidal_runner._prev_cfg(cfg_s)
+    run_prob_inference(inf_cfg, model, files, lambda p: sk.read_frame(p, with_labels=False), sk.frame_id, device="cpu")
+    staged = lidal_runner.run_lidal_round(cfg_s, device="cpu")
+    fused = lidal_runner.run_fused_lidal_round(cfg_f, model, _read_raw(cfg_f), device="cpu")
+    for a, b in zip(staged, fused):
+        np.testing.assert_array_equal(a, b)
+    assert len(staged.al_added) > 0
+    flags_s, flags_f = _flag_files(Paths(cfg_s)), _flag_files(Paths(cfg_f))
+    ps, pf = Paths(inf_cfg), Paths(lidal_runner._prev_cfg(cfg_f))
+    assert os.sep + "SPVCNN" + os.sep in ps.prob_dir("00")
+    for s in SEQS:
+        assert len(os.listdir(pf.prob_dir(s))) == FRAMES
+        for name in sorted(os.listdir(ps.prob_dir(s))):
+            np.testing.assert_array_equal(
+                np.load(os.path.join(ps.prob_dir(s), name)), np.load(os.path.join(pf.prob_dir(s), name))
+            )
+
+    # the JAX package on the port's prob maps
+    pj = JaxPaths(dataclasses.replace(jcfg_j, r_id=1))
+    for s in SEQS:
+        shutil.copytree(ps.prob_dir(s), pj.prob_dir(s))
+    want = jax_run_lidal_round(jcfg_j, devices=jax.devices()[:1])
+    for g, w in zip(staged, want):
+        np.testing.assert_array_equal(g, w)
+    flags_j = _flag_files(JaxPaths(jcfg_j))
+    assert flags_j.keys() == flags_s.keys() == flags_f.keys() and len(flags_s) == len(SEQS) * FRAMES
+    for k in flags_j:
+        np.testing.assert_array_equal(flags_s[k], flags_j[k])
+        np.testing.assert_array_equal(flags_f[k], flags_j[k])
 
 
 def test_commands_refuse_what_is_not_ported(tmp_path):

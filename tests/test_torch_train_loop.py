@@ -6,7 +6,8 @@ synthetic mini-SemanticKITTI of ``tests/synth.py`` at ``TEST_CAPS``:
   modes equal ``lidal_tpu``'s, and the round-0 bootstrap writes the same flags;
 * the loaders yield equal batches, and a failing reader raises in the consumer;
 * ``run_train`` writes its checkpoint, a second call resumes the step count,
-  and round 1 warm-starts from ``0r`` with a fresh optimizer;
+  and round 1 warm-starts from ``0r`` with a fresh optimizer; the same loop
+  with ``model_name="SPVCNN"`` trains, checkpoints and resumes an SPVCNN;
 * (slow) train -> checkpoint -> ``run_eval`` learns a separable 2-class set.
 """
 
@@ -177,6 +178,43 @@ def test_run_train_checkpoints_resumes_and_warm_starts(mini_root, capsys):
     state1 = train_loop.run_train(cfg1, max_iter=1, device="cpu")
     assert state1.step == 1 and os.path.exists(ckpt.ckpt_path(Paths(cfg1).ckpt_dir()))
     assert Paths(cfg1).ckpt_dir().endswith(os.path.join("Mink", "full"))
+
+
+def test_spvcnn_run_train_checkpoints_and_resumes(mini_root):
+    """``model_name="SPVCNN"``: ``run_train`` builds the SPVCNN, prepares its
+    batches with the point plan, draws per-frame dropout seeds, and the
+    checkpoint round-trips the point branch."""
+    from lidal_tpu_torch.models.spvcnn import SPVCNN
+
+    cfg = mini_cfg(mini_root, r_id=0, label_unit="fr", max_iter=2, ckpt_every=2, model_name="SPVCNN")
+    _label_first_frames(cfg, 2)
+    steps = []
+    state = train_loop.run_train(cfg, on_step=lambda s, loss: steps.append((s, float(loss))), device="cpu")
+    assert isinstance(state.model, SPVCNN) and state.model.dropout.rate == 0.3
+    assert state.step == 2 and all(np.isfinite(loss) and loss > 0 for _, loss in steps)
+    path = ckpt.ckpt_path(Paths(cfg).ckpt_dir())
+    assert Paths(cfg).ckpt_dir().endswith(os.path.join("SPVCNN", "0r")) and os.path.exists(path)
+    saved = torch.load(path, weights_only=True)
+    assert saved["iteration"] == 2
+    assert {f"point_transforms.{i}.1.running_var" for i in range(3)} <= set(saved["model_state"])
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(saved["model_state"][k], v), k
+
+    # a fresh state restores to the trained one, Adam moments of the point branch included
+    fresh = train_loop.init_state(dataclasses.replace(cfg, seed=cfg.seed + 1), torch.device("cpu"))
+    assert not torch.equal(fresh.model.point_transforms[0][0].weight, state.model.point_transforms[0][0].weight)
+    assert ckpt.restore_checkpoint(Paths(cfg).ckpt_dir(), fresh) is not None and fresh.step == 2
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(v, state.model.state_dict()[k]), k
+    n_params = len(list(fresh.model.parameters()))
+    assert len(fresh.optimizer.state_dict()["state"]) == n_params
+
+    # the same round resumes and goes on
+    steps.clear()
+    state = train_loop.run_train(cfg, max_iter=3, on_step=lambda s, loss: steps.append(s), device="cpu")
+    assert state.step == 3 and steps == [3]
+    # a MinkUNet run of the same round has its own checkpoint directory
+    assert Paths(dataclasses.replace(cfg, model_name="Mink")).ckpt_dir() != Paths(cfg).ckpt_dir()
 
 
 @pytest.mark.slow
