@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's eval, train and LiDAL-round paths, with MinkUNet
-and with SPVCNN, on an NVIDIA GPU.
+and with SPVCNN, its three probe entry points and every selection metric, on
+an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -103,14 +104,51 @@ or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
 18. ``run_fused_lidal_round`` with SPVCNN on phase 12's tree: prob maps finite
     with rows summing to 1, some supervoxel selected, frames/s.
 
+Phases 19-22 hold the three bf16 probe kernels (operands rounded to bf16, f32
+sums, ``mma.sync``) and drive the probe entry points; they run beside the phase
+whose maps they share (19 and 20 after 4, 21 and 22 after 7).
+
+19. ``conv_gather_first``, unpipelined and pipelined, vs its plain version at
+    the six shapes of ``tools/probe_conv_v3`` (its maps and data) and at three
+    convs of the B = 4 forward's real maps (the widest K = 27, a down and an up
+    conv): |kernel - plain| <= PROBE_TOL * (|bf16 feats| @ |bf16 w|) elementwise
+    (products of bf16 values are exact in f32, so only the order of the f32
+    sums differs), ``pipelined`` bit-equal to not, bit-equal across two runs;
+    ms of the wrapper (casts included) for both, of the kernel alone on packed
+    operands, of the plain version and of the f32 ``subm_conv`` kernel, and
+    the bound.
+20. ``conv_byte_planes`` bit-equal to ``conv_gather_first`` at the two shapes of
+    ``tools/probe_int8_gather``, on an all-sentinel map and on an unsorted map
+    with out-of-range indices; ms of both kernels on packed operands.
+21. ``conv_dx_dw_fused`` in its three modes at the three shapes of
+    ``tools/probe_dxdw_features`` and at every shape of phase 7's train step: dx
+    and dw within PROBE_TOL of the abs-sum form of the plain version,
+    ``dx_zero_dw`` gives zeros, dx equal in all modes, dw bit-equal across two
+    runs, neither further from the plain version in f64 than F64_FACTOR times
+    the f32 plain version is; ms per mode beside the f32 ``conv_dx_dw`` kernel,
+    the plain version and the bound, per shape and per train step.
+22. the three probes through their entry points (``main()`` of
+    ``lidal_tpu_torch.tools.probe_conv_v3``, ``probe_int8_gather`` and
+    ``probe_dxdw_features``): their own checks pass and each kernel launched.
+23. on phase 12's tree: the previous round's prob / pred / outfeat maps
+    of the 30 frames by ``run_prob_inference`` (SCORE_VIEWS views), then
+    ``score_command`` for ENT, MAR, CONF, SEGENT, CSET and RAND (frame level, on
+    SCORE_SEQS sequences that all point at those 30 frames' maps, so that 1 %
+    of the frame entries is a frame) and for ReDAL and RAND (supervoxel level,
+    on the one sequence): each once on the card and once on the CPU with equal
+    flag files, the expected number of frames or points added, the three
+    device scores within 1e-6 of the CPU's, seconds per metric.
+
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5 and 16, the train runs of phases 8 and 17, the fused rounds
-of phases 12 and 18), each counted from 0 just before it.  ``bound_ms`` is the least time the card could
+of phases 12 and 18, the probes' run of phase 22), each counted from 0 just
+before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
 counting the work this run's data needs (real (row, tap) pairs of the convs,
-evaluated pairs of ``nn_band``).  ``library_ms`` times one PyTorch call that
+evaluated pairs of ``nn_band``); the bf16 probe kernels are held to the bf16
+tensor-core rate of 989 TFLOP/s and to the bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
 lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8``), used
 nowhere in the port.  The last two lines of standard output are
@@ -151,12 +189,17 @@ ROUND_STEPS = 3  # train steps of phase 13's round
 WORLD_POINTS = 200_000  # points of the static world; each frame sees N_PTS of them
 SV_CELL = 10.0  # metres: side of the coarse grid cells that stand in for supervoxels
 PROB_SUM_TOL = 1e-4
+PROBE_TOL = 1e-5  # bf16 probe kernels vs their plain versions, share of the abs-sum (phases 19-21)
+SCORE_VIEWS = 2  # views of phase 23's inference (the scorers read maps; their depth is no concern of theirs)
+SCORE_SEQS = 4  # sequences of phase 23's frame-level tree, all pointing at the ROUND_FRAMES frames' maps
+SCORE_TOL = 1e-6  # a frame's device score on the card vs on the CPU (phase 23)
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 FLOP/s outside the tensor
 # cores; integer compares are taken at half the f32 rate (64 INT32 lanes per SM
 # against 128 FP32 lanes)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I32 = PEAK_F32 / 2
+PEAK_BF16 = 989e12  # dense bf16 on the tensor cores
 # raw SemanticKITTI ids of 19 distinct train classes (car, bicycle, ..., traffic-sign)
 RAW_IDS = np.array([10, 11, 15, 18, 20, 30, 31, 32, 40, 44, 48, 49, 50, 51, 70, 71, 72, 80, 81], np.uint32)
 
@@ -227,26 +270,31 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8")
+KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8",
+           "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused")
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 (just before a main path runs)."""
-    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge, cuda_nnband
+    from lidal_tpu_torch.ops import (cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8,
+                                     cuda_merge, cuda_nnband)
 
-    for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband):
+    for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband, cuda_conv_dxdw_fused):
         mod.LAUNCHES = 0
     cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = 0
+    cuda_conv_bf16.GATHER_FIRST_LAUNCHES = cuda_conv_bf16.BYTE_PLANES_LAUNCHES = 0
 
 
 def read_launches(expected) -> dict:
     """Every kernel's launch count (just after a main path ran); the kernels
     named in ``expected`` must have launched."""
-    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge, cuda_nnband
+    from lidal_tpu_torch.ops import (cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8,
+                                     cuda_merge, cuda_nnband)
 
     counts = dict(zip(KERNELS, (cuda_merge.LAUNCHES, cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES,
                                 cuda_nnband.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES,
-                                cuda_gather8.SCATTER8_LAUNCHES)))
+                                cuda_gather8.SCATTER8_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES,
+                                cuda_conv_bf16.BYTE_PLANES_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES)))
     never = [k for k in expected if counts[k] == 0]
     require(not never, f"kernels of the path that never launched: {never} ({counts})")
     return counts
@@ -309,7 +357,8 @@ def write_sk_tree(root, rng, n_frames):
 def backward_phase(state, tb):
     """7: every conv_dx_dw call of one train step against its plain version.
     Returns (max |kernel - plain|, kernel ms per step, plain ms per step, the
-    step's Bound over the real (row, tap) pairs)."""
+    step's Bound over the real (row, tap) pairs, the step's distinct calls as
+    {shape key: arguments}, {shape key: calls per step}, {shape key: kernel ms})."""
     import torch
 
     from lidal_tpu_torch.ops import cuda_conv_dxdw
@@ -332,6 +381,7 @@ def backward_phase(state, tb):
         cuda_conv_dxdw.conv_dx_dw = kernel
     err = k_total = p_total = 0.0
     least = Bound()
+    kernel_ms = {}
     for key in sorted(captured):
         args = captured[key]
         src, w2, nbr, f, need_dx = args
@@ -363,6 +413,7 @@ def backward_phase(state, tb):
         err = max(err, e)
         k_ms = cuda_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args), reps=3)
+        kernel_ms[key] = k_ms
         k_total += calls[key] * k_ms
         p_total += calls[key] * p_ms
         k, c_src, c_dst, c_f, m, n, _ = key
@@ -371,7 +422,7 @@ def backward_phase(state, tb):
               f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs)")
     print(f"[7 backward] {len(captured)} shapes, {sum(calls.values())} calls per train step; per step: "
           f"kernel {k_total:.1f} ms, plain {p_total:.1f} ms, bound {least.total:.2f} ms (by {least.by})")
-    return err, k_total, p_total, least
+    return err, k_total, p_total, least, captured, calls, kernel_ms
 
 
 def step_split(state, batch, gen, caps, dev, spvcnn=False):
@@ -1165,6 +1216,339 @@ def spvcnn_round_phase(cfg_mink, dev, n_sv):
     return launches
 
 
+def bf16_rows_bytes(nbr, n, row_bytes):
+    """(real (row, tap) pairs, bytes of the table rows the map names)."""
+    import torch
+
+    real = (nbr >= 0) & (nbr < n)
+    return int(real.sum()), int(torch.unique(nbr[real]).numel()) * row_bytes
+
+
+def gather_first_phase(real_convs, dev):
+    """19: conv_gather_first, both ``pipelined`` values, against its plain
+    version at the probe's six shapes and on three real maps of the forward.
+    Returns the kernel's record fields (summed over the probe's shapes)."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16 as cb
+    from lidal_tpu_torch.tools import probe_conv_v3
+
+    rng = np.random.default_rng(0)  # the probe's generator: the same maps and data, in its order of draws
+    cases = []
+    for n, cin, cout, label in probe_conv_v3.SHAPES:
+        nbr = torch.from_numpy(probe_conv_v3.make_nbr(rng, n, 27, max(300, n // 40))).to(dev)
+        feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)).to(dev)
+        cases.append((f"probe {label}", feats, w, nbr, True))
+    cases += [(label, *args, False) for label, args in real_convs.items()]
+
+    err = 0.0
+    total = {"ms": 0.0, "piped": 0.0, "packed": 0.0, "plain_ms": 0.0, "f32": 0.0}
+    least = Bound()
+    with torch.inference_mode():
+        for label, feats, w, nbr, of_probe in cases:
+            (n, cin), (m, k), cout = feats.shape, nbr.shape, w.shape[2]
+            got = cb.conv_gather_first(feats, w, nbr)
+            piped = cb.conv_gather_first(feats, w, nbr, pipelined=True)
+            want = cb.conv_gather_first_plain(feats, w, nbr)
+            abs_sum = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
+            d = (got - want).abs()
+            require(bool(got.isfinite().all()) and bool((d <= PROBE_TOL * abs_sum).all()),
+                    f"conv_gather_first {label}: max |kernel - plain| {float(d.max())}")
+            require(torch.equal(piped, got), f"conv_gather_first {label}: pipelined differs from unpipelined")
+            require(torch.equal(cb.conv_gather_first(feats, w, nbr), got) and
+                    torch.equal(cb.conv_gather_first(feats, w, nbr, pipelined=True), got),
+                    f"conv_gather_first {label}: two runs differ")
+            e, share = float(d.max()), float((d / abs_sum.clamp_min(1e-30)).max())
+            del want, abs_sum, d, piped
+            table, wt = cb.pack_table(feats), cb.pack_weights(w)
+            pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * table.shape[1])
+            b = (least if of_probe else Bound()).add(row_bytes + nbytes(wt, nbr, got), 2.0 * pairs * cin * cout, PEAK_BF16)
+            ms = {
+                "ms": cuda_ms(lambda: cb.conv_gather_first(feats, w, nbr)),
+                "piped": cuda_ms(lambda: cb.conv_gather_first(feats, w, nbr, pipelined=True)),
+                "packed": cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr)),
+                "packed_piped": cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr, pipelined=True)),
+                "plain_ms": cuda_ms(lambda: cb.conv_gather_first_plain(feats, w, nbr), reps=3),
+                "f32": cuda_ms(lambda: cuda_conv.subm_conv(feats, w, nbr)),
+            }
+            if of_probe:
+                err = max(err, e)
+                for key in total:
+                    total[key] += ms[key]
+            print(f"[19 gather-first] {label}: K={k} cin={cin} cout={cout} m={m} n={n}: max|d|={e:.2e} = {share:.1e} of the "
+                  f"abs-sum (tol {PROBE_TOL}), pipelined bit-equal, bit-equal across runs; wrapper {ms['ms']:.3f} ms, "
+                  f"pipelined {ms['piped']:.3f} ms, kernel alone {ms['packed']:.3f} / {ms['packed_piped']:.3f} ms, plain "
+                  f"{ms['plain_ms']:.3f} ms, f32 subm_conv kernel {ms['f32']:.3f} ms, bound {b:.3f} ms ({pairs} real pairs)")
+            del got, table, wt
+    print(f"[19 gather-first] the probe's {len(probe_conv_v3.SHAPES)} shapes in all: wrapper {total['ms']:.2f} ms, pipelined "
+          f"{total['piped']:.2f} ms, kernel alone {total['packed']:.2f} ms, plain {total['plain_ms']:.2f} ms, f32 subm_conv "
+          f"kernel {total['f32']:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": None}
+
+
+def byte_planes_phase(dev):
+    """20: conv_byte_planes bit-equal to conv_gather_first at the probe's two
+    shapes and on edge maps.  Returns the kernel's record fields."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv_bf16 as cb
+    from lidal_tpu_torch.tools import probe_int8_gather
+
+    rng = np.random.default_rng(0)  # the probe's generator and order of draws
+    n = probe_int8_gather.N
+    err = k_total = ref_total = p_total = 0.0
+    least = Bound()
+    with torch.inference_mode():
+        for cin, cout in probe_int8_gather.SHAPES:
+            feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(dev)
+            w = torch.from_numpy((0.1 * rng.standard_normal((27, cin, cout))).astype(np.float32)).to(dev)
+            nbr = torch.from_numpy(probe_int8_gather.make_nbr(rng, n, 27, max(300, n // 40))).to(dev)
+            planes, table, wt = cb.to_byte_planes(feats), cb.pack_table(feats), cb.pack_weights(w)
+            require(torch.equal(cb.from_byte_planes(planes), table), "byte planes do not rebuild the bf16 table")
+            ref = cb.conv_gather_first(feats, w, nbr)
+            got = cb.conv_byte_planes(planes, w, nbr)
+            require(torch.equal(got, ref) and bool(got.isfinite().all()),
+                    f"conv_byte_planes c{cin}->{cout}: {int((got != ref).sum())} values differ from conv_gather_first")
+            want = cb.conv_byte_planes_plain(planes, w, nbr)
+            abs_sum = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
+            d = (got - want).abs()
+            require(bool((d <= PROBE_TOL * abs_sum).all()), f"conv_byte_planes c{cin}->{cout}: max |kernel - plain| {float(d.max())}")
+            err = max(err, float(d.max()))
+            unsorted = nbr[torch.randperm(n, generator=torch.Generator().manual_seed(SEED)).to(dev)].contiguous()
+            unsorted[2, 0], unsorted[3, 1] = -1, n + 5
+            require(torch.equal(cb.conv_byte_planes(planes, w, unsorted), cb.conv_gather_first(feats, w, unsorted)),
+                    "conv_byte_planes on an unsorted map with out-of-range indices")
+            sentinel = torch.full_like(nbr, n)
+            zero = cb.conv_byte_planes(planes, w, sentinel)
+            require(not bool(zero.any()) and torch.equal(zero, cb.conv_gather_first(feats, w, sentinel)),
+                    "conv_byte_planes on an all-sentinel map")
+            pairs, row_bytes = bf16_rows_bytes(nbr, n, planes.shape[1])
+            b = least.add(row_bytes + nbytes(wt, nbr, got), 2.0 * pairs * cin * cout, PEAK_BF16)
+            del want, abs_sum, d, zero, unsorted, sentinel
+            k_ms = cuda_ms(lambda: cb.byte_planes_packed(planes, wt, nbr))
+            r_ms = cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr))
+            p_ms = cuda_ms(lambda: cb.conv_byte_planes_plain(planes, w, nbr), reps=3)
+            k_total, ref_total, p_total = k_total + k_ms, ref_total + r_ms, p_total + p_ms
+            print(f"[20 byte planes] c{cin}->{cout} n={n} K=27: bit-equal to conv_gather_first (also on an unsorted map with "
+                  f"out-of-range indices and on an all-sentinel map); on packed operands: byte planes {k_ms:.3f} ms, bf16 "
+                  f"table {r_ms:.3f} ms; plain {p_ms:.3f} ms, bound {b:.3f} ms ({pairs} real pairs)")
+    print(f"[20 byte planes] both shapes: byte planes {k_total:.2f} ms, bf16 table {ref_total:.2f} ms, plain {p_total:.2f} ms, "
+          f"bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": k_total, "plain_ms": p_total, "bound_ms": least.total, "bound_by": least.by,
+            "library_ms": None}
+
+
+def fused_backward_phase(captured, calls, f32_ms, dev):
+    """21: conv_dx_dw_fused in its three modes at the probe's shapes and at
+    every shape of one train step.  Returns the kernel's record fields (mode
+    ``dx_dw``, summed over the probe's shapes)."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv_dxdw, cuda_conv_dxdw_fused as fz
+    from lidal_tpu_torch.tools import probe_dxdw_features as probe
+
+    rng = np.random.default_rng(0)  # the probe's generator and order of draws
+    cases = [("probe", probe.probe_inputs(rng), 1, None)]
+    cases += [(f"probe {label}", probe.step_inputs(rng, *shape), 1, None) for label, *shape in probe.STEP_SHAPES]
+    cases = [(label, tuple(torch.from_numpy(a).to(dev) for a in arrays), c, t) for label, arrays, c, t in cases]
+    cases += [(f"step K={key[0]}", captured[key][:4], calls[key], f32_ms[key]) for key in sorted(captured)]
+
+    err = 0.0
+    probe_total = {mode: 0.0 for mode in fz.MODES} | {"plain": 0.0}
+    step_total = {mode: 0.0 for mode in fz.MODES} | {"f32": 0.0}
+    least, step_least = Bound(), Bound()
+    for label, (src, w2, nbr, f), n_calls, t_f32 in cases:
+        of_probe = label.startswith("probe")
+        (n, c_src), (m, k), c_dst, c_f = src.shape, nbr.shape, w2.shape[2], f.shape[1]
+        dx, dw = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+        dx_a, none = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx")
+        dx_b, zeros = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_zero_dw")
+        require(none is None and torch.equal(dx_a, dx) and torch.equal(dx_b, dx), f"conv_dx_dw_fused {label}: dx differs between modes")
+        require(zeros.shape == dw.shape and not bool(zeros.any()), f"conv_dx_dw_fused {label}: dx_zero_dw must give zeros")
+        del dx_a, dx_b, zeros
+        dx2, dw2 = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+        require(torch.equal(dw, dw2) and torch.equal(dx, dx2), f"conv_dx_dw_fused {label}: two runs differ")
+        del dx2, dw2
+        want = fz.conv_dx_dw_fused_plain(src, w2, nbr, f)
+        bound = fz.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs())
+        ref = cuda_conv_dxdw.conv_dx_dw_plain(src.bfloat16().double(), w2.bfloat16().double(), nbr, f.bfloat16().double())
+        e, notes = 0.0, []
+        for name, got, p, r, b in zip(("dx", "dw"), (dx, dw), want, ref, bound):
+            d = (got - p).abs()
+            require(bool(got.isfinite().all()) and bool((d <= PROBE_TOL * b).all()),
+                    f"conv_dx_dw_fused {label}: {name} max |kernel - plain| {float(d.max())}")
+            e_k, e_p = float((got.double() - r).abs().max()), float((p.double() - r).abs().max())
+            require(e_k <= F64_FACTOR * e_p + 1e-6 * float(b.max()),
+                    f"conv_dx_dw_fused {label}: {name} {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+            e = max(e, float(d.max()))
+            notes.append(f"{name} from f64 {e_k:.1e} (plain {e_p:.1e})")
+        del want, bound, ref
+        pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * c_src)
+        b_ms = (least if of_probe else step_least).add(
+            row_bytes + nbytes(nbr, dx, dw) + 2 * (w2.numel() + f.numel()), 2.0 * pairs * c_src * (c_dst + c_f), PEAK_BF16,
+            calls=n_calls)
+        del dx, dw
+        ms = {mode: cuda_ms(lambda: fz.conv_dx_dw_fused(src, w2, nbr, f, mode), reps=3) for mode in fz.MODES}
+        if of_probe:
+            err = max(err, e)
+            p_ms = cuda_ms(lambda: fz.conv_dx_dw_fused_plain(src, w2, nbr, f), reps=2)
+            for mode in fz.MODES:
+                probe_total[mode] += ms[mode]
+            probe_total["plain"] += p_ms
+            beside = f"plain {p_ms:.3f} ms"
+        else:
+            for mode in fz.MODES:
+                step_total[mode] += n_calls * ms[mode]
+            step_total["f32"] += n_calls * t_f32
+            beside = f"f32 conv_dx_dw kernel {t_f32:.3f} ms"
+        print(f"[21 fused backward] {label}: c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} x{n_calls}: max|d|={e:.2e} (tol "
+              f"{PROBE_TOL} of the abs-sum), {', '.join(notes)}, modes agree on dx, dx_zero_dw gives zeros, bit-equal across "
+              f"runs; dx {ms['dx']:.3f} ms, dx_zero_dw {ms['dx_zero_dw']:.3f} ms, dx_dw {ms['dx_dw']:.3f} ms, {beside}, bound "
+              f"{b_ms:.3f} ms ({pairs} real pairs)")
+    print(f"[21 fused backward] the probe's {1 + len(probe.STEP_SHAPES)} shapes in all: dx {probe_total['dx']:.2f} ms, dx_zero_dw "
+          f"{probe_total['dx_zero_dw']:.2f} ms, dx_dw {probe_total['dx_dw']:.2f} ms, plain {probe_total['plain']:.2f} ms, bound "
+          f"{least.total:.3f} ms (by {least.by})")
+    print(f"[21 fused backward] {len(captured)} shapes, {sum(calls.values())} calls per train step; per step: dx "
+          f"{step_total['dx']:.1f} ms, dx_zero_dw {step_total['dx_zero_dw']:.1f} ms, dx_dw {step_total['dx_dw']:.1f} ms, f32 "
+          f"conv_dx_dw kernel {step_total['f32']:.1f} ms, bound {step_least.total:.2f} ms (by {step_least.by})")
+    return {"max_abs_err": err, "ms": probe_total["dx_dw"], "plain_ms": probe_total["plain"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": None}
+
+
+def probes_phase(dev):
+    """22: the three probes through their entry points; returns each kernel's
+    launches in that run."""
+    from lidal_tpu_torch.tools import probe_conv_v3, probe_dxdw_features, probe_int8_gather
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rows_v3 = probe_conv_v3.main(dev)
+    rows_i8 = probe_int8_gather.main(dev)
+    rows_dx = probe_dxdw_features.main(dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(("conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused"))
+    require(len(rows_v3) == len(probe_conv_v3.SHAPES) and len(rows_i8) == len(probe_int8_gather.SHAPES)
+            and len(rows_dx) == 1 + len(probe_dxdw_features.STEP_SHAPES), "a probe skipped a shape")
+    require(all(r["max_abs_diff"] == 0.0 for r in rows_i8), "the int8 probe's outputs differ")
+    print(f"[22 probes] probe_conv_v3, probe_int8_gather and probe_dxdw_features ran through main() in {seconds:.1f} s, their "
+          f"own checks passed; launches {({k: launches[k] for k in KERNELS[6:]})}")
+    return launches
+
+
+def scoring_phase(cfg_round, root, dev):
+    """23: every selection metric but LiDAL through score_command, on the card
+    and on the CPU, over maps the port's own inference wrote."""
+    import torch
+
+    from lidal_tpu_torch.active import frame_level as fl
+    from lidal_tpu_torch.cli.commands import score_command
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.data.selection import load_sv_info
+    from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
+    from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    seqs = tuple(f"{i:02d}" for i in range(SCORE_SEQS))
+    score_root = os.path.join(root, "Processing_score")
+    base = dataclasses.replace(cfg_round, processing_root=score_root, r_id=1, inf_reps=SCORE_VIEWS)
+    prev = Paths(dataclasses.replace(base, r_id=0, label_unit="fr"))  # what a round-1 scorer reads
+    model = init_state(cfg_round, dev).model.eval()
+    randomise_bn(model, SEED + 7)
+    files = sk.list_frames(cfg_round.data_root, ("00",))
+    t0 = time.perf_counter()
+    run_prob_inference(prev.cfg, model, files, lambda p: sk.read_frame(p, with_labels=False), sk.frame_id, device=dev)
+    t_inf = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    names = [f"{i:06d}" for i in range(ROUND_FRAMES)]
+    for kind_dir in (prev.prob_dir, prev.pred_dir, prev.outfeat_dir):
+        require(sorted(os.listdir(kind_dir("00"))) == [f"{n}.npy" for n in names], f"{kind_dir('00')} misses a frame")
+    outfeat = np.load(os.path.join(prev.outfeat_dir("00"), f"{names[0]}.npy"))
+    require(outfeat.shape == (N_PTS, 96) and bool(np.isfinite(outfeat).all()), f"outfeat {outfeat.shape}")
+
+    # supervoxels: the round tree's own (also as the VCCS partition ReDAL reads); a boundary value per point;
+    # the further sequences are names for the same maps
+    src = Paths(cfg_round)
+    for part in ("KMeans", "VCCS"):
+        os.makedirs(os.path.dirname(prev.supervoxel_dir("00", part)), exist_ok=True)
+        os.symlink(src.supervoxel_dir("00", "KMeans"), prev.supervoxel_dir("00", part))
+    rng = np.random.default_rng(SEED + 10)
+    bdir = ensure_dir(prev.boundary_dir("00"))
+    sv_sizes = []
+    for i, name in enumerate(names):
+        np.save(os.path.join(bdir, f"{name}.npy"), (0.1 * rng.random(N_PTS)).astype(np.float32))
+        n_sv = len(load_sv_info(os.path.join(src.supervoxel_dir("00"), f"{name}.npz"))[1])
+        sv_sizes.append(n_sv)
+        for metric in ("ReDAL", "RAND"):  # round-0 supervoxel flags of both partitions: every third frame labelled
+            np.save(os.path.join(ensure_dir(prev.sv_flag_dir("00", r_id=0, metric=metric)), f"{name}.npy"),
+                    np.full(n_sv, int(i % 3 == 0), np.int32))
+    for seq in seqs[1:]:
+        for d in (prev.prob_dir, prev.pred_dir, prev.outfeat_dir, prev.supervoxel_dir):
+            os.symlink(d("00"), d(seq))
+    flag_dir = ensure_dir(prev.frame_flag_dir(r_id=0))
+    for seq in seqs:
+        np.save(os.path.join(flag_dir, f"{seq}.npy"), np.arange(ROUND_FRAMES) % 10 == 0)
+    n_entries = SCORE_SEQS * ROUND_FRAMES
+    labelled0 = SCORE_SEQS * len(range(0, ROUND_FRAMES, 10))
+    print(f"[23 scoring] run_prob_inference ({SCORE_VIEWS} views) wrote prob, pred and outfeat maps of {ROUND_FRAMES} frames x "
+          f"{N_PTS} points x {cfg_round.data.num_classes} classes in {t_inf:.1f} s; the frame-level tree has {SCORE_SEQS} "
+          f"sequences that all point at those maps: {n_entries} frame entries, {labelled0} labelled")
+
+    # the three device scorers on the card against the same functions on the CPU
+    worst = 0.0
+    for name in names[:3]:
+        prob = torch.from_numpy(np.load(os.path.join(prev.prob_dir("00"), f"{name}.npy")))
+        for fn in (fl.entropy_score, fl.margin_score, fl.least_confidence_score):
+            on_card, on_cpu = float(fn(prob.to(dev))), float(fn(prob))
+            require(np.isfinite(on_card) and abs(on_card - on_cpu) <= SCORE_TOL, f"{fn.__name__} {on_card} on the card, {on_cpu} on the CPU")
+            worst = max(worst, abs(on_card - on_cpu))
+    print(f"[23 scoring] entropy, margin and least-confidence scores of 3 frames: card within {worst:.1e} of the CPU (tol {SCORE_TOL})")
+
+    def read_flags(out_dirs):
+        return {(d, n): np.load(os.path.join(d, n)) for d in out_dirs for n in sorted(os.listdir(d))}
+
+    budget = round(0.01 * cfg_round.data.train_point_num)
+    for metric, unit in [(m, "fr") for m in ("ENT", "MAR", "CONF", "SEGENT", "CSET", "RAND")] + [("ReDAL", "sv"), ("RAND", "sv")]:
+        split = seqs if unit == "fr" else ("00",)
+        cfg = dataclasses.replace(base, metric_name=metric, label_unit=unit,
+                                  data_override=dataclasses.replace(base.data, train_split=split))
+        out_dirs = [Paths(cfg).frame_flag_dir()] if unit == "fr" else [Paths(cfg).sv_flag_dir("00")]
+        runs, seconds = [], []
+        for device in (dev, "cpu"):
+            for d in out_dirs:
+                shutil.rmtree(d, ignore_errors=True)
+            t0 = time.perf_counter()
+            score_command(cfg, device)
+            seconds.append(time.perf_counter() - t0)
+            runs.append(read_flags(out_dirs))
+        on_card, on_cpu = runs
+        require(on_card.keys() == on_cpu.keys() and all(np.array_equal(on_card[k], on_cpu[k]) for k in on_card),
+                f"{metric}/{unit}: the card's flag files differ from the CPU's")
+        if unit == "fr":
+            require(len(on_card) == SCORE_SEQS, f"{metric}: {len(on_card)} flag files")
+            flags = np.concatenate([on_card[k] for k in sorted(on_card)])
+            added = int(flags.sum()) - labelled0
+            require(flags.dtype == bool and flags.shape == (n_entries,) and added == round(0.01 * n_entries),
+                    f"{metric}/fr: {added} frames added to {labelled0}, expected {round(0.01 * n_entries)}")
+            what = f"{added} frame added to {labelled0} of {n_entries}"
+        else:
+            require(len(on_card) == ROUND_FRAMES, f"{metric}: {len(on_card)} flag files")
+            points = 0
+            for i, name in enumerate(names):
+                new = on_card[(out_dirs[0], f"{name}.npy")]
+                require(len(new) == sv_sizes[i] and bool(np.isin(new, (0, 1)).all()) and (i % 3 != 0 or bool(new.all())),
+                        f"{metric}/sv: flags of frame {name}")
+                if i % 3:
+                    point2sv = load_sv_info(os.path.join(src.supervoxel_dir("00"), f"{name}.npz"))[0]
+                    points += int(np.bincount(point2sv[point2sv >= 0], minlength=len(new))[new == 1].sum())
+            require(0 < points <= budget, f"{metric}/sv: {points} points added on a budget of {budget}")
+            what = f"{points} points added on a budget of {budget}"
+        print(f"[23 scoring] score_command {metric}/{unit}: {what}; flag files on the card == on the CPU; "
+              f"{seconds[0]:.2f} s on the card, {seconds[1]:.2f} s on the CPU")
+
+
 def main() -> None:
     import torch
 
@@ -1194,7 +1578,7 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
 
     # ---- 2. build ----------------------------------------------------------------
-    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band", "gather8")
+    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "conv_gather_first", "conv_dx_dw_fused")
     t0 = time.perf_counter()
     kernels_build.load_all(sources)
     print(f"[2 build] {len(sources)} sources, one nvcc each, started together: {time.perf_counter() - t0:.1f} s")
@@ -1317,7 +1701,20 @@ def main() -> None:
     print(f"[4 conv] {len(captured)} shapes, {sum(calls.values())} calls per forward; within "
           f"{CONV_TOL} * max(1, |plain|); per forward: kernel {conv_ms:.1f} ms, plain {conv_plain_ms:.1f} ms, "
           f"bound {conv_bound.total:.2f} ms (by {conv_bound.by})")
+    # three real maps for phase 19: the widest K = 27 conv of level 0, the largest down conv (m < n) and up conv (m > n)
+    picks = {
+        "forward K=27": max((kk for kk in captured if kk[0] == 27), key=lambda kk: (kk[4], kk[1] * kk[2])),
+        "forward down": max((kk for kk in captured if kk[0] == 8 and kk[4] < kk[5]), key=lambda kk: (kk[5], kk[1] * kk[2])),
+        "forward up": max((kk for kk in captured if kk[0] == 8 and kk[4] > kk[5]), key=lambda kk: (kk[4], kk[1] * kk[2])),
+    }
+    real_convs = {label: captured[kk][:3] for label, kk in picks.items()}
     del captured
+
+    # ---- 19, 20. the gather-first bf16 conv kernels ---------------------------------------------
+    gather_first = gather_first_phase(real_convs, dev)
+    del real_convs
+    byte_planes = byte_planes_phase(dev)
+    torch.cuda.empty_cache()
 
     # ---- 5, 6. the eval slice and the whole forward -------------------------------------------
     del eb
@@ -1357,8 +1754,14 @@ def main() -> None:
             *(torch.as_tensor(b7[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
             level_caps=caps,
         )
-        dxdw_err, dxdw_ms, dxdw_plain_ms, dxdw_bound = backward_phase(train_state, tb7)
+        dxdw_err, dxdw_ms, dxdw_plain_ms, dxdw_bound, bwd_calls, bwd_counts, bwd_ms = backward_phase(train_state, tb7)
         del train_state, tb7, b7
+        torch.cuda.empty_cache()
+        # ---- 21, 22. the fused bf16 backward kernel; the probes' entry points ----------------------
+        fused = fused_backward_phase(bwd_calls, bwd_counts, bwd_ms, dev)
+        del bwd_calls
+        torch.cuda.empty_cache()
+        probe_launches = probes_phase(dev)
         torch.cuda.empty_cache()
         trained, tb8, train_launches = train_slice_phase(cfg_train, dev, caps)
         train_step_parity_phase(trained, tb8)
@@ -1405,10 +1808,12 @@ def main() -> None:
         round_launches = lidal_slice_phase(cfg_round, root, dev, n_sv)
         active_round_phase(cfg_round, dev)
         launches_18 = spvcnn_round_phase(cfg_round, dev, n_sv)
+        scoring_phase(cfg_round, root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     # every main path's run, each counted from 0 just before it
-    total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18))
+    total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18,
+                                       probe_launches))
              for k in KERNELS}
 
     record = {
@@ -1443,6 +1848,18 @@ def main() -> None:
             {
                 "name": "scatter8", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
                 "replaces": "lidal_tpu/ops/pallas_gather8.py:300", "launches": total["scatter8"], **scatter8,
+            },
+            {
+                "name": "conv_gather_first", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_gather_first.cu",
+                "replaces": "tools/probe_conv_v3.py:185", "launches": total["conv_gather_first"], **gather_first,
+            },
+            {
+                "name": "conv_byte_planes", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_gather_first.cu",
+                "replaces": "tools/probe_int8_gather.py:140", "launches": total["conv_byte_planes"], **byte_planes,
+            },
+            {
+                "name": "conv_dx_dw_fused", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw_fused.cu",
+                "replaces": "tools/probe_dxdw_features.py:42", "launches": total["conv_dx_dw_fused"], **fused,
             },
         ]
     }

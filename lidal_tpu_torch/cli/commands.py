@@ -1,10 +1,12 @@
 """Command implementations wiring the run loops, data and checkpoints (port of
-``lidal_tpu/cli/commands.py``: SemanticKITTI, MinkUNet or SPVCNN, LiDAL).
+``lidal_tpu/cli/commands.py``: SemanticKITTI, MinkUNet or SPVCNN, every
+selection metric).
 
 Every command runs on ``device`` (default: the CUDA card) and builds the model
-family ``cfg.model_name`` names (``runtime/train_loop.build_model``).  The nuScenes
-branch of ``_dataset_frames``, ``prep_command``, ``import_torch_command`` and
-the scoring metrics other than LiDAL are not ported yet.
+family ``cfg.model_name`` names (``runtime/train_loop.build_model``).  Not
+ported yet, and raising ``NotImplementedError``: the nuScenes branches, the
+``prep`` stages over the native library (supervoxels, vccs, boundary) and
+``import_torch_command``.
 """
 
 from __future__ import annotations
@@ -101,10 +103,48 @@ def fused_score_command(cfg: RunConfig, device: Device = "cuda") -> None:
 
 
 def score_command(cfg: RunConfig, device: Device = "cuda") -> None:
-    if not cfg.metric_name.startswith("LiDAL"):
-        raise NotImplementedError(
-            f"scoring metric {cfg.metric_name!r} is not ported yet: the port scores LiDAL (ROADMAP item 17)"
-        )
-    from lidal_tpu_torch.active.lidal_runner import run_lidal_round
+    m = cfg.metric_name
+    if m.startswith("LiDAL"):
+        from lidal_tpu_torch.active.lidal_runner import run_lidal_round
 
-    run_lidal_round(cfg, verbose=True, device=device)
+        run_lidal_round(cfg, verbose=True, device=device)
+    elif m == "ReDAL":
+        from lidal_tpu_torch.active.redal_runner import run_redal_round
+
+        run_redal_round(cfg, verbose=True)
+    elif cfg.label_unit == "sv" and m == "RAND":
+        from lidal_tpu_torch.active.redal_runner import run_sv_rand_round
+
+        run_sv_rand_round(cfg)
+    else:
+        from lidal_tpu_torch.active.frame_runner import run_frame_metric_round
+
+        run_frame_metric_round(cfg, m, verbose=True, device=device)
+
+
+def prep_command(cfg: RunConfig, stage: str) -> None:
+    """Offline preprocessing on the host: ``grids`` and ``bootstrap`` for
+    SemanticKITTI.  The stages over the native library wait for its port."""
+    if cfg.dataset_name != "SK":
+        raise NotImplementedError("the port prepares SemanticKITTI; nuScenes is not ported yet (ROADMAP item 18)")
+    if stage == "grids":
+        from lidal_tpu_torch.prep.grid import prepare_sk_grids
+
+        prepare_sk_grids(cfg, verbose=True)
+    elif stage == "bootstrap":
+        from lidal_tpu_torch.data import semantic_kitti as sk
+        from lidal_tpu_torch.data.selection import bootstrap_round0
+
+        bootstrap_round0(cfg, {s: sk.list_frames(cfg.data_root, [s]) for s in cfg.data.train_split})
+    elif stage in ("supervoxels", "vccs", "boundary"):
+        raise NotImplementedError(
+            f"prep stage {stage!r} runs over the native library, which is not ported yet (ROADMAP item 18)"
+        )
+    else:
+        raise ValueError(f"unknown prep stage: {stage}")
+
+
+def import_torch_command(cfg: RunConfig, pt_path: str) -> None:
+    raise NotImplementedError(
+        "converting a reference current.pt is not ported yet (ROADMAP item 20: runtime/import_torch.py)"
+    )

@@ -1,0 +1,133 @@
+"""The port's argparse front end (``python -m lidal_tpu_torch.cli``): the same
+subcommands, flags and defaults as ``lidal_tpu.cli`` plus ``--device``, and a
+frame-level round driven end to end on the CPU over
+``tests/synth.make_mini_sk``: prep -> train -> prob-inference -> score -> train
+(``evaluate_command`` is driven by ``tests/test_torch_round.py``)."""
+
+import argparse
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from lidal_tpu.cli import __main__ as jax_cli
+from lidal_tpu_torch import config
+from lidal_tpu_torch.cli import __main__ as cli
+from lidal_tpu_torch.runtime import checkpoint as ckpt
+from lidal_tpu_torch.runtime.paths import Paths
+from tests.synth import make_mini_sk
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAMES = 60  # round(0.01 * 60) = 1 frame per round
+
+
+def _run_args(module):
+    parser = argparse.ArgumentParser()
+    module._add_run_args(parser)
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+def test_flags_and_defaults_equal_the_jax_cli():
+    want, got = _run_args(jax_cli), _run_args(cli)
+    assert set(got) == set(want) | {"device"} and got["device"].default == "cuda"
+    for name, action in want.items():
+        assert (got[name].default, got[name].type, type(got[name])) == (action.default, action.type, type(action)), name
+    args = argparse.Namespace(**{k: a.default for k, a in got.items()})
+    assert cli._cfg(args) == config.RunConfig()  # the flags' defaults are the config's
+
+
+def test_overrides_reach_the_config():
+    parser = argparse.ArgumentParser()
+    cli._add_run_args(parser)
+    args = parser.parse_args(["--metric_name", "ENT", "--label_unit", "fr", "--r_id", "2", "--batch_size", "3",
+                              "--level_caps", "64,32,16,8,4", "--train_seqs", "00,02", "--no_fused_round",
+                              "--reference_parity", "--device", "cpu"])
+    cfg = cli._cfg(args)
+    assert (cfg.metric_name, cfg.label_unit, cfg.r_id, cfg.fused_round, cfg.reference_parity) == ("ENT", "fr", 2, False, True)
+    assert (cfg.data.batch_size, cfg.data.level_caps, cfg.data.train_split) == (3, (64, 32, 16, 8, 4), ("00", "02"))
+    assert args.device == "cpu"
+
+
+@pytest.mark.parametrize("argv", [[], ["nope"], ["prep"], ["import-torch"], ["score", "--r_id", "x"]])
+def test_bad_command_lines_exit(argv):
+    with pytest.raises(SystemExit):
+        cli.main(argv)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["prep", "--stage", "supervoxels"], "ROADMAP item 18"),
+    (["prep", "--stage", "vccs"], "ROADMAP item 18"),
+    (["prep", "--stage", "boundary"], "ROADMAP item 18"),
+    (["prep", "--stage", "grids", "--dataset_name", "NU"], "ROADMAP item 18"),
+    (["import-torch", "--pt_path", "current.pt"], "ROADMAP item 20"),
+])
+def test_unported_subcommands_say_which_item_they_wait_for(tmp_path, monkeypatch, argv, match):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(argv + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown prep stage"):
+        cli.main(["prep", "--stage", "nope"])
+
+
+@pytest.fixture
+def one_thread():
+    """The full-width model on frames of 200 points is hundreds of tiny ops:
+    with one intra-op thread they do not fight the suite's other workers for
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_cli_frame_level_round_on_the_cpu(tmp_path, monkeypatch, one_thread):
+    d = str(tmp_path)
+    make_mini_sk(d, seqs=("00",), frames_per_seq=FRAMES, points=200)
+    monkeypatch.chdir(d)
+    common = [
+        "--dataset_name", "SK", "--model_name", "Mink", "--data_root", "sequences",
+        "--processing_root", "Processing_files", "--checkpoint_root", "check_points",
+        "--train_seqs", "00", "--val_seqs", "00", "--batch_size", "2", "--point_cap", "256",
+        "--level_caps", "256,128,64,32,16", "--label_unit", "fr", "--metric_name", "ENT", "--inf_reps", "1",
+        "--device", "cpu",
+    ]
+    parser = argparse.ArgumentParser()
+    cli._add_run_args(parser)
+    paths = [Paths(cli._cfg(parser.parse_args(common + ["--r_id", str(r)]))) for r in (0, 1)]
+    assert cli.main(["prep", "--stage", "grids"] + common) == 0
+    assert len(os.listdir(paths[0].grid_dir("00"))) == FRAMES
+    assert cli.main(["prep", "--stage", "bootstrap"] + common) == 0
+    flags0 = np.load(os.path.join(paths[0].frame_flag_dir(r_id=0), "00.npy"))
+    assert flags0.shape == (FRAMES,) and flags0.sum() == 1
+
+    assert cli.main(["train", "--max_iter", "1", "--r_id", "0"] + common) == 0
+    assert os.path.exists(ckpt.ckpt_path(paths[0].ckpt_dir()))
+    assert cli.main(["prob-inference", "--r_id", "0"] + common) == 0
+    prob_dir = paths[0].prob_dir("00")
+    assert len(os.listdir(prob_dir)) == FRAMES
+
+    # the selection itself through ``python -m``, as a user runs it
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _REPO
+    env["OMP_NUM_THREADS"] = "1"
+    out = subprocess.run([sys.executable, "-m", "lidal_tpu_torch.cli", "score", "--r_id", "1"] + common,
+                         cwd=d, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    flags1 = np.load(os.path.join(paths[1].frame_flag_dir(), "00.npy"))
+    assert flags1.dtype == bool and flags1[flags0].all() and flags1.sum() == 2
+
+    # the frame it added has the largest mean entropy among the unlabelled
+    def entropy(name):
+        p = np.load(os.path.join(prob_dir, name)).astype(np.float64)
+        return float(-(np.where(p > 0, p * np.log(np.where(p > 0, p, 1.0)), 0.0)).sum(1).mean())
+
+    scores = np.array([entropy(n) for n in sorted(os.listdir(prob_dir))])
+    scores[flags0] = -np.inf
+    assert int(np.flatnonzero(flags1 & ~flags0)[0]) == int(scores.argmax())
+
+    # the next round trains on both frames
+    assert cli.main(["train", "--max_iter", "1", "--r_id", "1"] + common) == 0
+    assert os.path.exists(ckpt.ckpt_path(paths[1].ckpt_dir()))

@@ -18,7 +18,11 @@ plain version (the same products and sums in the same order, no FMA);
 ``scatter8`` within 1e-5 of ``sum |w8| |dy|`` per target of its plain version
 (``index_add_``, atomics in no fixed order on a card), no further from the plain
 version in f64 than 4 times the f32 plain version is, and bit-equal across
-two runs.
+two runs.  The bf16 probe kernels (``conv_gather_first``, ``conv_byte_planes``,
+``conv_dx_dw_fused``) within 1e-5 of the abs-sum form of their plain versions
+(products of bf16 values are exact in f32, so only the order of the f32 sums
+differs); ``pipelined`` bit-equal to not, the byte planes bit-equal to the bf16
+table, and the fused backward's dw bit-equal across two runs.
 """
 
 import copy
@@ -31,7 +35,7 @@ from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batc
 from lidal_tpu_torch.data.pipeline import forward_batch
 from lidal_tpu_torch.models.minkunet import MinkUNet
 from lidal_tpu_torch.models.spvcnn import SPVCNN
-from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_dxdw, cuda_gather8, cuda_merge
+from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8, cuda_merge
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
 from lidal_tpu_torch.ops.kernel_map import rulebook_streams
 
@@ -84,6 +88,13 @@ def test_wrappers_refuse_devices_they_have_no_path_for():
         cuda_gather8.gather8_forward(f, nbr8, w8)
     with pytest.raises(ValueError):
         cuda_gather8.scatter8(f, nbr8, w8, 8)
+    w27, nbr27 = torch.empty((27, 32, 32), device="meta"), torch.empty((8, 27), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        cuda_conv_bf16.conv_gather_first(src, w27, nbr27)
+    with pytest.raises(ValueError):
+        cuda_conv_bf16.conv_byte_planes(torch.empty((8, 64), dtype=torch.int8, device="meta"), w27, nbr27)
+    with pytest.raises(ValueError):
+        cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w27, nbr27, src)
 
 
 @pytest.mark.cuda
@@ -403,3 +414,88 @@ def test_spvcnn_kernel_path_matches_plain_path(card, monkeypatch):
             assert float(g.abs().max()) <= 1e-3 * float(grads_p[name.replace("bias", "weight")].abs().max()), name
             continue
         assert float((grads[name] - g).abs().max()) <= 1e-3 * max(float(g.abs().max()), 1e-6), name
+
+
+def _probe_map(rng, m, n, k, density=0.8, sort=True):
+    """[m, k] int32 map: banded columns (sorted when asked), sentinel n, and,
+    when unsorted, an index below 0 and one past the sentinel."""
+    cols = []
+    for j in range(k):
+        idx = np.arange(m) * n // m + (j - k // 2) * 3 + rng.integers(-5, 6, m)
+        idx = np.where((idx < 0) | (idx >= n) | (rng.random(m) > density), n, idx)
+        cols.append(np.sort(idx) if sort else rng.permutation(idx))
+    nbr = np.stack(cols, 1).astype(np.int32)
+    if not sort:
+        nbr[2, 0], nbr[3, 1] = -1, n + 5
+    return torch.from_numpy(nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,cin,cout,sort", [
+    (5000, 4000, 27, 4, 32, True), (3000, 3000, 27, 32, 32, True), (2500, 2500, 27, 96, 96, False),
+    (777, 1500, 27, 256, 256, True), (4096, 512, 8, 128, 64, False), (64, 64, 27, 384, 128, True),
+])
+def test_gather_first_kernels_match_plain_and_each_other(card, m, n, k, cin, cout, sort):
+    """K7 within 1e-5 of the abs-sum of its plain version; ``pipelined`` and
+    the byte planes bit-equal to it; bit-equal across two runs."""
+    rng = np.random.default_rng(m + cin)
+    feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.standard_normal((k, cin, cout)) * 0.05).astype(np.float32)).to(card)
+    nbr = _probe_map(rng, m, n, k, sort=sort).to(card)
+    counts = cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_bf16.BYTE_PLANES_LAUNCHES
+    got = cuda_conv_bf16.conv_gather_first(feats, w, nbr)
+    torch.cuda.synchronize()
+    piped = cuda_conv_bf16.conv_gather_first(feats, w, nbr, pipelined=True)
+    planes = cuda_conv_bf16.to_byte_planes(feats)
+    from_planes = cuda_conv_bf16.conv_byte_planes(planes, w, nbr)
+    assert (cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_bf16.BYTE_PLANES_LAUNCHES) == (counts[0] + 2, counts[1] + 1)
+    assert got.is_cuda and got.shape == (m, cout) and bool(got.isfinite().all())
+    want = cuda_conv_bf16.conv_gather_first_plain(feats, w, nbr)
+    abs_sum = cuda_conv_bf16.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
+    assert bool(((got - want).abs() <= 1e-5 * abs_sum).all()), float((got - want).abs().max())
+    assert torch.equal(piped, got), "pipelined differs"
+    assert torch.equal(from_planes, got), "byte planes differ"
+    assert torch.equal(cuda_conv_bf16.conv_gather_first(feats, w, nbr), got)
+    assert torch.equal(cuda_conv_bf16.conv_byte_planes_plain(planes, w, nbr), want)
+    sentinel = torch.full_like(nbr, n)
+    assert not cuda_conv_bf16.conv_gather_first(feats, w, sentinel, pipelined=True).any()
+    assert not cuda_conv_bf16.conv_byte_planes(planes, w, sentinel).any()
+    with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
+        cuda_conv_bf16.conv_gather_first(feats.double(), w, nbr)
+    with pytest.raises(ValueError):
+        cuda_conv_bf16.conv_gather_first(feats, w[:, :, : cout - 8].contiguous(), nbr)  # cout % 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,c_src,c_dst,c_f,sort", [
+    (512, 512, 8, 8, 8, 8, True), (9000, 7000, 27, 32, 4, 4, True), (6000, 6000, 27, 96, 128, 128, False),
+    (3000, 2000, 27, 256, 384, 384, True), (5000, 700, 8, 64, 32, 96, False), (100, 300, 8, 128, 256, 64, True),
+])
+def test_fused_backward_kernel_matches_plain_in_its_three_modes(card, m, n, k, c_src, c_dst, c_f, sort):
+    rng = np.random.default_rng(m + c_src)
+    src = torch.from_numpy(rng.standard_normal((n, c_src)).astype(np.float32)).to(card)
+    w2 = torch.from_numpy((rng.standard_normal((k, c_src, c_dst)) / np.sqrt(k * c_src)).astype(np.float32)).to(card)
+    f = torch.from_numpy(rng.standard_normal((m, c_f)).astype(np.float32)).to(card)
+    nbr = _probe_map(rng, m, n, k, sort=sort).to(card)
+    before = cuda_conv_dxdw_fused.LAUNCHES
+    dx, dw = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+    torch.cuda.synchronize()
+    dx2, dw2 = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+    dx_a, none = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx")
+    dx_b, zeros = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_zero_dw")
+    assert cuda_conv_dxdw_fused.LAUNCHES == before + 4
+    want_dx, want_dw = cuda_conv_dxdw_fused.conv_dx_dw_fused_plain(src, w2, nbr, f)
+    abs_dx, abs_dw = cuda_conv_dxdw_fused.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs())
+    assert dx.shape == (m, c_dst) and dw.shape == (k, c_f, c_src) and dx.is_contiguous() and dw.is_contiguous()
+    assert bool(dx.isfinite().all()) and bool(dw.isfinite().all())
+    assert bool(((dx - want_dx).abs() <= 1e-5 * abs_dx).all()), float((dx - want_dx).abs().max())
+    assert bool(((dw - want_dw).abs() <= 1e-5 * abs_dw).all()), float((dw - want_dw).abs().max())
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2), "two runs differ"
+    assert none is None and torch.equal(dx_a, dx) and torch.equal(dx_b, dx)
+    assert zeros.shape == dw.shape and not zeros.any()
+    ref_dx, ref_dw = cuda_conv_dxdw.conv_dx_dw_plain(src.bfloat16().double(), w2.bfloat16().double(), nbr, f.bfloat16().double())
+    for got, p, r, b in ((dx, want_dx, ref_dx, abs_dx), (dw, want_dw, ref_dw, abs_dw)):
+        e_k, e_p = float((got.double() - r).abs().max()), float((p.double() - r).abs().max())
+        assert e_k <= 4.0 * e_p + 1e-6 * float(b.max()), (e_k, e_p)
+    with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
+        cuda_conv_dxdw_fused.conv_dx_dw_fused(src.double(), w2, nbr, f)

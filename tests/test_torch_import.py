@@ -1,5 +1,6 @@
-"""``import lidal_tpu_torch`` and every submodule leaves JAX and the JAX package
-``lidal_tpu`` unloaded and builds no CUDA kernel; ``chip_smoke.py`` names neither.
+"""``import lidal_tpu_torch`` and every submodule leaves JAX, the JAX package
+``lidal_tpu`` and the repository's ``tools`` package unloaded, builds no CUDA
+kernel and runs no probe; ``chip_smoke.py`` names none of them.
 Runs in a subprocess: this suite's conftest imports jax."""
 
 import ast
@@ -20,8 +21,13 @@ assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("
 assert "flax" not in sys.modules
 jax_package = sorted(m for m in sys.modules if m == "lidal_tpu" or m.startswith("lidal_tpu."))
 assert not jax_package, jax_package
+assert "tools" not in sys.modules and not any(m.startswith("tools.") for m in sys.modules)
 assert not kernels_build._LIBS and not kernels_build.BUILD_LOG, "a kernel was built at import"
-for new in ("ops.devoxelize", "ops.cuda_gather8", "models.spvcnn"):
+from lidal_tpu_torch.ops import cuda_conv_bf16, cuda_conv_dxdw_fused
+assert cuda_conv_bf16.GATHER_FIRST_LAUNCHES == cuda_conv_bf16.BYTE_PLANES_LAUNCHES == cuda_conv_dxdw_fused.LAUNCHES == 0
+for new in ("ops.devoxelize", "ops.cuda_gather8", "models.spvcnn", "ops.cuda_conv_bf16", "ops.cuda_conv_dxdw_fused",
+            "tools.timing", "tools.probe_conv_v3", "tools.probe_int8_gather", "tools.probe_dxdw_features",
+            "active.frame_level", "active.frame_runner", "active.redal", "active.redal_runner", "cli.__main__"):
     assert "lidal_tpu_torch." + new in names, new
 print(len(names))
 """
@@ -36,7 +42,8 @@ def test_import_leaves_jax_out_and_builds_nothing(tmp_path):
         [sys.executable, "-c", _SCRIPT], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 38  # every module of the slices was imported
+    assert out.stdout.strip().isdigit(), out.stdout  # a probe that ran at import would have printed
+    assert int(out.stdout.strip()) > 50  # every module of the slices was imported
     after = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else []
     assert after == before
 
@@ -60,11 +67,11 @@ def test_port_and_smoke_script_name_no_jax_module():
     files = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(_REPO, "lidal_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 40
+    assert len(files) >= 52
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "lidal_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "lidal_tpu", "tools"), (path, mod)
     with open(files[0]) as f:
         src = f.read()
     assert "lidal_tpu." not in src.replace("lidal_tpu_torch.", "") and "import jax" not in src
