@@ -14,10 +14,14 @@ Phases (each prints what it found; any failed check raises, exit code != 0):
 2. build: compiles ``lidal_tpu_torch/csrc/*.cu`` with nvcc, one process per
    source, all started together (seconds printed).
 3. lookup kernel vs its plain version on the B x 26 rulebook streams of one
-   SemanticKITTI-scale batch at every level, plus edge streams: bit-equal.
+   SemanticKITTI-scale batch at every level, plus edge streams: bit-equal;
+   per level the tiles whose window took the device-memory branch.
 4. conv kernel vs its plain version at every (K, cin, cout, epilogue, m, n)
    the forward runs: |kernel - plain| <= 1e-4 * max(1, |plain|) elementwise
-   (f32 sums in another order); kernel and plain times (CUDA events).
+   (f32 sums in another order), no further from the plain version in f64 than
+   F64_FACTOR times the f32 plain version is (+ 1e-6 of the abs-sum, as in
+   phase 7), bit-equal on a rerun; kernel and plain times (CUDA events), the
+   f32-FFMA bound and the split-TF32 bound per shape.
 5. the eval slice: ``run_eval`` over B = 4 synthetic SemanticKITTI frames of
    120k points with the full-width MinkUNet (seeded random weights), caps
    ``SK_CONFIG.level_caps``: one warm-up batch, then 3 timed batches; points/s,
@@ -147,8 +151,11 @@ take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
 counting the work this run's data needs (real (row, tap) pairs of the convs,
-evaluated pairs of ``nn_band``); the bf16 probe kernels are held to the bf16
-tensor-core rate of 989 TFLOP/s and to the bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
+evaluated pairs of ``nn_band``); ``subm_conv``, whose products run on the
+tensor cores as three tf32 products each (split TF32, f32 accuracy), is held
+to 495 / 3 TFLOP/s (phase 4 prints its f32-FFMA bound beside it); the bf16
+probe kernels are held to the bf16 tensor-core rate of 989 TFLOP/s and to the
+bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
 lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8``), used
 nowhere in the port.  The last two lines of standard output are
@@ -200,6 +207,8 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I32 = PEAK_F32 / 2
 PEAK_BF16 = 989e12  # dense bf16 on the tensor cores
+PEAK_TF32 = 495e12  # dense tf32 on the tensor cores
+PEAK_SPLIT_TF32 = PEAK_TF32 / 3  # f32-accurate products as three tf32 products (the conv kernel)
 # raw SemanticKITTI ids of 19 distinct train classes (car, bicycle, ..., traffic-sign)
 RAW_IDS = np.array([10, 11, 15, 18, 20, 30, 31, 32, 40, 44, 48, 49, 50, 51, 70, 71, 72, 80, 81], np.uint32)
 
@@ -1549,6 +1558,142 @@ def scoring_phase(cfg_round, root, dev):
               f"{seconds[0]:.2f} s on the card, {seconds[1]:.2f} s on the CPU")
 
 
+def lookup_phase(eb) -> dict:
+    """3: the lookup kernel against its plain version on every level's rulebook
+    streams of one batch and on edge streams; its record entry's numbers."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_merge
+    from lidal_tpu_torch.ops.hashing import SENTINEL_KEY, key64
+    from lidal_tpu_torch.ops.kernel_map import rulebook_streams
+
+    lookup_err = 0
+    lookup_ms = lookup_plain_ms = lookup_lib_ms = 0.0
+    lookup_bound = Bound()
+    for lvl, lv in enumerate(eb.plan.levels):
+        streams = rulebook_streams(lv.coords, lv.valid)
+        for found in (True, False):
+            got = cuda_merge.lookup_sorted(*streams, with_found=found)
+            want = cuda_merge.lookup_sorted_plain(*streams, with_found=found)
+            bad = int((got != want).sum())
+            lookup_err = max(lookup_err, int((got.long() - want.long()).abs().max()))
+            require(bad == 0, f"lookup level {lvl} found={found}: {bad} results differ")
+        k_ms = cuda_ms(lambda: cuda_merge.lookup_sorted(*streams, with_found=True))
+        p_ms = cuda_ms(lambda: cuda_merge.lookup_sorted_plain(*streams, with_found=True))
+        lookup_ms += k_ms
+        lookup_plain_ms += p_ms
+        # the one library call of the same function: torch.searchsorted over int64 keys
+        tk = key64(streams[0], streams[1])
+        qk = key64(streams[2], streams[3]).reshape(tk.shape[0], -1)
+        lib_ms = cuda_ms(lambda: torch.searchsorted(tk, qk))
+        lookup_lib_ms += lib_ms
+        n_queries, n_table = streams[2].numel(), streams[0].shape[1]
+        b_ms = lookup_bound.add(
+            nbytes(*streams) + 4 * n_queries, 2.0 * n_queries * max(1, n_table).bit_length(), PEAK_I32
+        )
+        del tk, qk
+        n_wide, n_tiles = cuda_merge.wide_tiles(*streams)
+        print(f"[3 lookup] level {lvl}: {streams[2].shape[0]} streams x {streams[2].shape[1]} queries "
+              f"on {streams[0].shape[0]} tables, bit-equal (both modes); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"torch.searchsorted on ready int64 keys {lib_ms:.3f} ms, bound {b_ms:.4f} ms; "
+              f"{n_wide} of {n_tiles} tiles searched their window in device memory")
+    t_hi, t_lo, q_hi, q_lo = rulebook_streams(eb.plan.levels[0].coords, eb.plan.levels[0].valid)
+    sent_t = torch.full_like(t_hi, SENTINEL_KEY)
+    dup_hi, dup_lo = q_hi.clone(), q_lo.clone()
+    dup_hi[:, 1::2], dup_lo[:, 1::2] = dup_hi[:, ::2], dup_lo[:, ::2]  # sorted, every key twice
+    edges = {
+        "all-sentinel tables": (sent_t, sent_t, q_hi, q_lo),
+        "all-sentinel queries": (t_hi, t_lo, torch.full_like(q_hi, SENTINEL_KEY), torch.full_like(q_lo, SENTINEL_KEY)),
+        "duplicate queries": (t_hi, t_lo, dup_hi, dup_lo),
+        "zero-width tables": (t_hi[:, :0].contiguous(), t_lo[:, :0].contiguous(), q_hi, q_lo),
+    }
+    for name, streams in edges.items():
+        for found in (True, False):
+            got = cuda_merge.lookup_sorted(*streams, with_found=found)
+            want = cuda_merge.lookup_sorted_plain(*streams, with_found=found)
+            require(torch.equal(got, want), f"lookup edge case {name} found={found}")
+    print(f"[3 lookup] edge streams bit-equal: {', '.join(edges)}")
+    return {"max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms, "bound_ms": lookup_bound.total,
+            "bound_by": lookup_bound.by, "library_ms": lookup_lib_ms}
+
+
+def conv_phase(model, eb):
+    """4: the conv kernel against its plain version (and f64) at every shape of
+    one forward of ``model`` on ``eb``.  Returns its record entry's numbers and
+    three real maps for phase 19."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv
+
+    captured, calls = {}, {}
+    kernel_conv = cuda_conv.subm_conv
+
+    def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
+        key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
+        calls[key] = calls.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu)
+        return kernel_conv(feats, w, nbr, scale, shift, relu)
+
+    cuda_conv.subm_conv = recorder
+    try:
+        with torch.inference_mode():
+            model(eb.feats, eb.plan)
+    finally:
+        cuda_conv.subm_conv = kernel_conv
+
+    conv_err = 0.0
+    conv_ms = conv_plain_ms = 0.0
+    conv_bound_f32, conv_bound = Bound(), Bound()  # FFMA at 67 TFLOP/s; split TF32 at 495 / 3
+    with torch.inference_mode():
+        for key in sorted(captured):
+            args = captured[key]
+            out = cuda_conv.subm_conv(*args)
+            plain = cuda_conv.subm_conv_plain(*args)
+            ok, err = conv_close(out, plain)
+            require(ok, f"conv {key}: max |kernel - plain| {err}")
+            require(torch.equal(out, cuda_conv.subm_conv(*args)), f"conv {key}: differs between two runs")
+            feats, w, nbr, scale, shift, relu = args
+            ref = cuda_conv.subm_conv_plain(feats.double(), w.double(), nbr, scale.double(), shift.double(), relu)
+            abs_sum = cuda_conv.subm_conv_plain(feats.abs(), w.abs(), nbr) * scale.abs()
+            e_k = float((out.double() - ref).abs().max())
+            e_p = float((plain.double() - ref).abs().max())
+            require(e_k <= F64_FACTOR * e_p + 1e-6 * float(abs_sum.max()),
+                    f"conv {key}: {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+            pairs = int((nbr < feats.shape[0]).sum())  # real (row, tap) pairs
+            ops = 2.0 * pairs * key[1] * key[2]
+            f32_ms = conv_bound_f32.add(nbytes(*args[:5], out), ops, calls=calls[key])
+            b_ms = conv_bound.add(nbytes(*args[:5], out), ops, PEAK_SPLIT_TF32, calls=calls[key])
+            del out, plain, ref, abs_sum
+            conv_err = max(conv_err, err)
+            k_ms = cuda_ms(lambda: cuda_conv.subm_conv(*args))
+            p_ms = cuda_ms(lambda: cuda_conv.subm_conv_plain(*args), reps=3)
+            conv_ms += calls[key] * k_ms
+            conv_plain_ms += calls[key] * p_ms
+            k, cin, cout, relu, m, n = key
+            print(f"[4 conv] K={k} cin={cin} cout={cout} relu={int(relu)} m={m} n={n} x{calls[key]}: "
+                  f"max|d|={err:.2e}, from f64 {e_k:.1e} (plain {e_p:.1e}), bit-equal on a rerun; kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.3f} ms, bound f32 {f32_ms:.3f} ms, split TF32 {b_ms:.3f} ms ({pairs} real pairs)")
+        # the no-epilogue form at the widest level-0 shape
+        key = max(captured, key=lambda kk: (kk[4], kk[1] * kk[2]))
+        feats, w, nbr = captured[key][:3]
+        ok, err = conv_close(cuda_conv.subm_conv(feats, w, nbr), cuda_conv.subm_conv_plain(feats, w, nbr))
+        require(ok, f"conv without epilogue {key[:3]}: max |kernel - plain| {err}")
+    print(f"[4 conv] {len(captured)} shapes, {sum(calls.values())} calls per forward; within "
+          f"{CONV_TOL} * max(1, |plain|) and within {F64_FACTOR}x the plain version's distance from f64; per forward: "
+          f"kernel {conv_ms:.2f} ms, plain {conv_plain_ms:.1f} ms, bound f32 {conv_bound_f32.total:.2f} ms "
+          f"(by {conv_bound_f32.by}), split TF32 {conv_bound.total:.2f} ms (by {conv_bound.by})")
+    # three real maps for phase 19: the widest K = 27 conv of level 0, the largest down conv (m < n) and up conv (m > n)
+    picks = {
+        "forward K=27": max((kk for kk in captured if kk[0] == 27), key=lambda kk: (kk[4], kk[1] * kk[2])),
+        "forward down": max((kk for kk in captured if kk[0] == 8 and kk[4] < kk[5]), key=lambda kk: (kk[5], kk[1] * kk[2])),
+        "forward up": max((kk for kk in captured if kk[0] == 8 and kk[4] > kk[5]), key=lambda kk: (kk[4], kk[1] * kk[2])),
+    }
+    real_convs = {label: captured[kk][:3] for label, kk in picks.items()}
+    return {"max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain_ms, "bound_ms": conv_bound.total,
+            "bound_by": conv_bound.by, "library_ms": None}, real_convs
+
+
 def main() -> None:
     import torch
 
@@ -1560,9 +1705,6 @@ def main() -> None:
     from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
     from lidal_tpu_torch.models.minkunet import MinkUNet
     from lidal_tpu_torch.models.spvcnn import SPVCNN
-    from lidal_tpu_torch.ops import cuda_conv, cuda_merge
-    from lidal_tpu_torch.ops.hashing import SENTINEL_KEY, key64
-    from lidal_tpu_torch.ops.kernel_map import rulebook_streams
     from lidal_tpu_torch.prep.grid import prepare_sk_grids
     from lidal_tpu_torch.runtime.train_loop import init_state
 
@@ -1604,111 +1746,14 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # ---- 3. lookup kernel vs plain ------------------------------------------------
-    lookup_err = 0
-    lookup_ms = lookup_plain_ms = lookup_lib_ms = 0.0
-    lookup_bound = Bound()
-    for lvl, lv in enumerate(eb.plan.levels):
-        streams = rulebook_streams(lv.coords, lv.valid)
-        for found in (True, False):
-            got = cuda_merge.lookup_sorted(*streams, with_found=found)
-            want = cuda_merge.lookup_sorted_plain(*streams, with_found=found)
-            bad = int((got != want).sum())
-            lookup_err = max(lookup_err, int((got.long() - want.long()).abs().max()))
-            require(bad == 0, f"lookup level {lvl} found={found}: {bad} results differ")
-        k_ms = cuda_ms(lambda: cuda_merge.lookup_sorted(*streams, with_found=True))
-        p_ms = cuda_ms(lambda: cuda_merge.lookup_sorted_plain(*streams, with_found=True))
-        lookup_ms += k_ms
-        lookup_plain_ms += p_ms
-        # the one library call of the same function: torch.searchsorted over int64 keys
-        tk = key64(streams[0], streams[1])
-        qk = key64(streams[2], streams[3]).reshape(tk.shape[0], -1)
-        lib_ms = cuda_ms(lambda: torch.searchsorted(tk, qk))
-        lookup_lib_ms += lib_ms
-        n_queries, n_table = streams[2].numel(), streams[0].shape[1]
-        b_ms = lookup_bound.add(
-            nbytes(*streams) + 4 * n_queries, 2.0 * n_queries * max(1, n_table).bit_length(), PEAK_I32
-        )
-        del tk, qk
-        print(f"[3 lookup] level {lvl}: {streams[2].shape[0]} streams x {streams[2].shape[1]} queries "
-              f"on {streams[0].shape[0]} tables, bit-equal (both modes); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"torch.searchsorted on ready int64 keys {lib_ms:.3f} ms, bound {b_ms:.4f} ms")
-    t_hi, t_lo, q_hi, q_lo = rulebook_streams(eb.plan.levels[0].coords, eb.plan.levels[0].valid)
-    sent_t = torch.full_like(t_hi, SENTINEL_KEY)
-    dup_hi, dup_lo = q_hi.clone(), q_lo.clone()
-    dup_hi[:, 1::2], dup_lo[:, 1::2] = dup_hi[:, ::2], dup_lo[:, ::2]  # sorted, every key twice
-    edges = {
-        "all-sentinel tables": (sent_t, sent_t, q_hi, q_lo),
-        "all-sentinel queries": (t_hi, t_lo, torch.full_like(q_hi, SENTINEL_KEY), torch.full_like(q_lo, SENTINEL_KEY)),
-        "duplicate queries": (t_hi, t_lo, dup_hi, dup_lo),
-        "zero-width tables": (t_hi[:, :0].contiguous(), t_lo[:, :0].contiguous(), q_hi, q_lo),
-    }
-    for name, streams in edges.items():
-        for found in (True, False):
-            got = cuda_merge.lookup_sorted(*streams, with_found=found)
-            want = cuda_merge.lookup_sorted_plain(*streams, with_found=found)
-            require(torch.equal(got, want), f"lookup edge case {name} found={found}")
-    print(f"[3 lookup] edge streams bit-equal: {', '.join(edges)}")
+    lookup = lookup_phase(eb)
 
     # ---- 4. conv kernel vs plain at every shape of the forward ---------------------
     torch.manual_seed(SEED)
     model = MinkUNet(num_classes=SK_CONFIG.num_classes).eval()
     randomise_bn(model, SEED + 1)
     model = model.to(dev)
-
-    captured, calls = {}, {}
-    kernel_conv = cuda_conv.subm_conv
-
-    def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
-        key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
-        calls[key] = calls.get(key, 0) + 1
-        if key not in captured:
-            captured[key] = (feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu)
-        return kernel_conv(feats, w, nbr, scale, shift, relu)
-
-    cuda_conv.subm_conv = recorder
-    try:
-        with torch.inference_mode():
-            model(eb.feats, eb.plan)
-    finally:
-        cuda_conv.subm_conv = kernel_conv
-
-    conv_err = 0.0
-    conv_ms = conv_plain_ms = 0.0
-    conv_bound = Bound()
-    with torch.inference_mode():
-        for key in sorted(captured):
-            args = captured[key]
-            out = cuda_conv.subm_conv(*args)
-            ok, err = conv_close(out, cuda_conv.subm_conv_plain(*args))
-            pairs = int((args[2] < args[0].shape[0]).sum())  # real (row, tap) pairs
-            b_ms = conv_bound.add(nbytes(*args[:5], out), 2.0 * pairs * key[1] * key[2], calls=calls[key])
-            del out
-            require(ok, f"conv {key}: max |kernel - plain| {err}")
-            conv_err = max(conv_err, err)
-            k_ms = cuda_ms(lambda: cuda_conv.subm_conv(*args))
-            p_ms = cuda_ms(lambda: cuda_conv.subm_conv_plain(*args), reps=3)
-            conv_ms += calls[key] * k_ms
-            conv_plain_ms += calls[key] * p_ms
-            k, cin, cout, relu, m, n = key
-            print(f"[4 conv] K={k} cin={cin} cout={cout} relu={int(relu)} m={m} n={n} x{calls[key]}: "
-                  f"max|d|={err:.2e}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
-                  f"({pairs} real pairs)")
-        # the no-epilogue form at the widest level-0 shape
-        key = max(captured, key=lambda kk: (kk[4], kk[1] * kk[2]))
-        feats, w, nbr = captured[key][:3]
-        ok, err = conv_close(cuda_conv.subm_conv(feats, w, nbr), cuda_conv.subm_conv_plain(feats, w, nbr))
-        require(ok, f"conv without epilogue {key[:3]}: max |kernel - plain| {err}")
-    print(f"[4 conv] {len(captured)} shapes, {sum(calls.values())} calls per forward; within "
-          f"{CONV_TOL} * max(1, |plain|); per forward: kernel {conv_ms:.1f} ms, plain {conv_plain_ms:.1f} ms, "
-          f"bound {conv_bound.total:.2f} ms (by {conv_bound.by})")
-    # three real maps for phase 19: the widest K = 27 conv of level 0, the largest down conv (m < n) and up conv (m > n)
-    picks = {
-        "forward K=27": max((kk for kk in captured if kk[0] == 27), key=lambda kk: (kk[4], kk[1] * kk[2])),
-        "forward down": max((kk for kk in captured if kk[0] == 8 and kk[4] < kk[5]), key=lambda kk: (kk[5], kk[1] * kk[2])),
-        "forward up": max((kk for kk in captured if kk[0] == 8 and kk[4] > kk[5]), key=lambda kk: (kk[4], kk[1] * kk[2])),
-    }
-    real_convs = {label: captured[kk][:3] for label, kk in picks.items()}
-    del captured
+    conv, real_convs = conv_phase(model, eb)
 
     # ---- 19, 20. the gather-first bf16 conv kernels ---------------------------------------------
     gather_first = gather_first_phase(real_convs, dev)
@@ -1820,15 +1865,11 @@ def main() -> None:
         "kernels": [
             {
                 "name": "lookup_sorted", "route": "cuda", "source": "lidal_tpu_torch/csrc/merge_lookup.cu",
-                "replaces": "lidal_tpu/ops/pallas_merge.py:211", "launches": total["lookup_sorted"],
-                "max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms,
-                "bound_ms": lookup_bound.total, "bound_by": lookup_bound.by, "library_ms": lookup_lib_ms,
+                "replaces": "lidal_tpu/ops/pallas_merge.py:211", "launches": total["lookup_sorted"], **lookup,
             },
             {
                 "name": "subm_conv", "route": "cuda", "source": "lidal_tpu_torch/csrc/subm_conv.cu",
-                "replaces": "lidal_tpu/ops/pallas_conv.py:387", "launches": total["subm_conv"],
-                "max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain_ms,
-                "bound_ms": conv_bound.total, "bound_by": conv_bound.by, "library_ms": None,
+                "replaces": "lidal_tpu/ops/pallas_conv.py:387", "launches": total["subm_conv"], **conv,
             },
             {
                 "name": "conv_dx_dw", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw.cu",

@@ -13,8 +13,8 @@
 // may carry a sum to another.  So the two products are separate kernels here
 // (the fused single-gather design is left to the PR that makes this fast):
 //
-// * dx is the forward's gather-GEMM with no epilogue: the tile kernel of
-//   gather_gemm.cuh, which subm_conv.cu launches too.
+// * dx is the forward's gather-GEMM with no epilogue: the split-TF32 tensor-
+//   core tile kernel of gather_gemm.cuh, which subm_conv.cu launches too.
 // * dwg is a reduction over all m rows (655k at level 0 of a B = 5 batch).
 //   The rows are split into S fixed chunks of at most 4096 rows.  A block
 //   owns one (chunk, c_f tile, c_src tile, tap); it walks its chunk in
@@ -35,10 +35,10 @@
 // dwg block reads its tap's column coalesced.  No column is assumed sorted
 // (the up map's parents are not monotonic).
 //
-// What bounds it on an H100: like the forward, f32 FFMA throughput and shared-
-// memory traffic for the wide tiles; for the stem's c_f = 4 the gathered
-// src rows (device-memory bandwidth).  wgmma with bf16 operands, TMA
-// gathers and gathering each row once for both products are later work.
+// What bounds the dwg half on an H100: f32 FFMA throughput and shared-memory
+// traffic for the wide tiles; for the stem's c_f = 4 the gathered src rows
+// (device-memory bandwidth).  Tensor cores for dwg and gathering each row
+// once for both products are later work.
 
 #include "gather_gemm.cuh"
 
@@ -231,10 +231,7 @@ extern "C" int lidal_conv_dx_dw(const void* src, const void* w2, const void* nbr
     const auto* wp = (const float*)w2;
     const auto* np = (const int*)nbr;
     auto* dp = (float*)dx;
-    const cudaError_t err =
-        c_dst % 64 == 0
-            ? gather_gemm::launch<64, 0>(sp, wp, np, nullptr, nullptr, dp, m, n, k, c_src, c_dst, s)
-            : gather_gemm::launch<32, 0>(sp, wp, np, nullptr, nullptr, dp, m, n, k, c_src, c_dst, s);
+    const cudaError_t err = gather_gemm::launch<0>(sp, wp, np, nullptr, nullptr, dp, m, n, k, c_src, c_dst, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)launch_dwg((const float*)src, (const int*)nbr_t, (const float*)f, (float*)dwg,

@@ -6,144 +6,293 @@
 // and, with the epilogue EPI > 0, y = acc * scale + shift, then relu if
 // EPI == 2, then 0 on rows whose taps are all sentinel.
 //
-// Each block owns a BM-row x BN-column output tile.  For every tap it gathers
-// the tile's source rows straight from device memory into shared memory, KC
-// channels at a time (zeros for the sentinel), stages w[k][chunk, cols] beside
-// them, and accumulates a 4x4 f32 register tile per thread with FFMA, each
-// tap's sum apart before it joins the total.  A tap whose rows are all
-// sentinel inside the tile is skipped.
+// f32 accuracy on the tensor cores ("3xTF32"): every f32 operand x is split
+// into big = tf32(x) and small = tf32(x - big), both rounded to nearest, and
+// each product is taken as small_a*big_b + big_a*small_b + big_a*big_b with
+// mma.sync.m16n8k8 (tf32 in, f32 sums); only small_a*small_b (< 2^-22 of the
+// product) is dropped.  The feature and weight values are split in registers
+// as their fragments are loaded.  Values within 2^-11 of the largest finite
+// float overflow in the split.
+//
+// A block of 8 warps owns a BM-row x BN-column output tile: all of cout up to
+// 128 columns (cout = 256 and 384 take 2 and 3 column tiles), so each (row,
+// tap) of the map is gathered once per column tile.  The block lists the taps
+// that name a real row somewhere in the tile (the others are skipped) and
+// walks the flattened reduction (active tap, input channel) in stages of KS
+// columns: KS = 64 when cin % 64 == 0 (and the tile fits twice in an SM's
+// shared memory), else 32; at the stem's cin = 4 a stage spans 8 taps.  Each
+// stage's 16-byte pieces go straight to shared memory with cp.async (zero-fill
+// for the sentinel and past the end), the gathered rows as A[BM][KS] and the
+// weight rows as B[KS][BN], rows padded so that fragment loads hit 32 distinct
+// banks.  Two stage buffers: stage s + 1 loads while stage s multiplies, one
+// barrier per stage; shared memory and registers are sized for two blocks an
+// SM.
+//
+// Each stage's products are summed apart and join the total with one rounded
+// f32 add (a blocked sum: the tensor cores truncate when they add into a large
+// accumulator).  The output tile goes through shared memory so that the
+// epilogue and the stores run on float4 rows.  No atomics and one fixed order
+// of sums: the same input gives bit-equal output on every run.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace gather_gemm {
 
-constexpr int kThreads = 256;
-constexpr int kKC = 16;    // input channels staged per step
-constexpr int kKMax = 27;  // taps held in shared memory per row
+using namespace cp_async_util;
 
-template <int BN, int EPI>  // EPI: 0 none, 1 affine, 2 affine + relu
-__global__ void __launch_bounds__(kThreads)
-kernel(const float* __restrict__ feats, const float* __restrict__ w,
-       const int* __restrict__ nbr, const float* __restrict__ scale,
-       const float* __restrict__ shift, float* __restrict__ out, int m, int n, int k, int cin,
-       int cout) {
-  constexpr int TN = BN / 4;        // threads across the column tile
-  constexpr int TM = kThreads / TN;  // threads across the row tile
-  constexpr int BM = TM * 4;        // rows per block
-  constexpr int AP = BM + 4;        // padded stride of the transposed A tile
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kKMax = 27;      // taps held in shared memory per row
+constexpr int kSmemTwoBlocks = 113 * 1024;  // shared memory of a block when two share an SM
 
-  __shared__ int s_nbr[BM * kKMax];  // source row per (row, tap), -1 for sentinel
-  __shared__ int s_tap[kKMax];       // tap has a real source somewhere in the tile
-  __shared__ __align__(16) float s_a[kKC * AP];
-  __shared__ __align__(16) float s_b[kKC * BN];
+// x = big + small + (at most 2^-22 |x|), big and small tf32 operands.  big is x
+// rounded to nearest, ties away from zero (half a tf32 ulp added to the
+// magnitude, the low 13 bits cleared: what cvt.rna.tf32.f32 gives, in two
+// integer operations instead of a conversion); x - big is exact in f32.  small
+// gets half an ulp added and keeps its low bits, which the tensor core drops.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// c[16x8] += a[16x8] b[8x8], tf32 operands, f32 sums.  With g = lane / 4 and
+// t = lane % 4: a holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b holds
+// (t, g), (t + 4, g); c holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 warps, each owning 32 rows x BN / WN columns of the BM x BN tile.
+template <int BN, int KS>
+struct Tile {
+  static constexpr int BM = BN >= 96 ? 64 : 128;  // rows per block
+  static constexpr int WM = BM / 32;              // warps across the rows
+  static constexpr int WN = 8 / WM;               // warps across the columns
+  static constexpr int NT = BN / WN / 8;          // 8-column mma tiles per warp
+  static constexpr int AS = KS + 4;               // A row stride: (4 g + t) % 32 distinct
+  static constexpr int BS = BN + 8;               // B row stride: (8 t + g) % 32 distinct
+  static constexpr int OS = BN + 4;               // output tile row stride
+  static constexpr int STAGE = BM * AS + KS * BS;  // floats per stage buffer
+  static constexpr int HEADER = (BM * kKMax + BM + 32) * 4;  // s_nbr, s_row, s_act (bytes)
+  static constexpr int SMEM = HEADER + 2 * STAGE * 4;  // two stage buffers
+  static_assert(BN % (8 * WN) == 0 && BM * OS <= 2 * STAGE && HEADER % 16 == 0, "tile shape");
+};
+
+template <int BN, int KS, int EPI>  // EPI: 0 none, 1 affine, 2 affine + relu
+__global__ void __launch_bounds__(kThreads, 2)
+kernel(const float* __restrict__ feats, const float* __restrict__ w, const int* __restrict__ nbr,
+       const float* __restrict__ scale, const float* __restrict__ shift, float* __restrict__ out,
+       int m, int n, int k, int cin, int cout) {
+  using T = Tile<BN, KS>;
+  constexpr int BM = T::BM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_nbr = reinterpret_cast<int*>(smem);  // source row per (row, tap), -1 for the sentinel
+  int* s_row = s_nbr + BM * kKMax;            // row has a real tap
+  int* s_act = s_row + BM;                    // active taps in order; [kKMax] = how many
+  float* stages = reinterpret_cast<float*>(smem + T::HEADER);
 
   const int tid = threadIdx.x;
-  const int tx = tid % TN;
-  const int ty = tid / TN;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int wm = warp % T::WM;
+  const int wn = warp / T::WM;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
 
-  if (tid < kKMax) s_tap[tid] = 0;
+  if (tid < 32) s_act[tid] = 0;
+  for (int r = tid; r < BM; r += kThreads) s_row[r] = 0;
   __syncthreads();
   for (int e = tid; e < BM * k; e += kThreads) {
     const int r = e / k;
     const int v = row0 + r < m ? nbr[(long long)row0 * k + e] : n;
     const bool real = (unsigned)v < (unsigned)n;
     s_nbr[e] = real ? v : -1;
-    if (real) s_tap[e - r * k] = 1;
+    if (real) {
+      s_act[e - r * k] = 1;
+      s_row[r] = 1;
+    }
   }
   __syncthreads();
+  if (tid == 0) {  // the flags become the list of active taps, in tap order
+    int count = 0;
+    for (int t = 0; t < k; ++t)
+      if (s_act[t]) s_act[count++] = t;
+    s_act[kKMax] = count;
+  }
+  __syncthreads();
+  const int depth = s_act[kKMax] * cin;  // flattened reduction length over the active taps
+  const int nstages = (depth + KS - 1) / KS;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // Stage `s` into buffer `buf`: A[r][c] = feats[src(r, tap)][ch], B[c][j] =
+  // w[tap][ch][col0 + j] for the reduction columns c of the stage.
+  auto stage_in = [&](int s, int buf) {
+    float* sa = stages + buf * T::STAGE;
+    float* sb = sa + BM * T::AS;
+    {
+      constexpr int PA = KS / 4;  // 16-byte pieces per gathered row
+      const int p = tid % PA;
+      const int kk = s * KS + p * 4;
+      const bool live = kk < depth;
+      const int j = live ? kk / cin : 0;
+      const float* base = feats + (kk - j * cin);
+      const int* srcs = s_nbr + s_act[j];
+      for (int r = tid / PA; r < BM; r += kThreads / PA) {
+        const int src = srcs[r * k];
+        const bool real = live && src >= 0;
+        cp_async16(sa + r * T::AS + p * 4, real ? base + (long long)src * cin : feats, real);
+      }
+    }
+    constexpr int PB = BN / 4;         // 16-byte pieces per weight row
+    constexpr int RB = kThreads / PB;  // weight rows per pass
+    if (tid < RB * PB) {
+      const int q = tid % PB;
+      int c = tid / PB;
+      int kk = s * KS + c;
+      int j = kk / cin;  // the (active tap, channel) of row c, carried from pass to pass
+      int ch = kk - j * cin;
+      for (; c < KS; c += RB, kk += RB) {
+        const bool live = kk < depth;
+        const float* src = w + ((long long)s_act[live ? j : 0] * cin + ch) * cout + col0 + q * 4;
+        cp_async16(sb + c * T::BS + q * 4, live ? src : w, live);
+        for (ch += RB; ch >= cin; ch -= cin) ++j;
+      }
+    }
+    cp_async_commit();
+  };
 
-  for (int tap = 0; tap < k; ++tap) {
-    if (!s_tap[tap]) continue;  // uniform across the block
-    const float* wk = w + (long long)tap * cin * cout;
-    float part[4][4];  // this tap's sum, joining acc after it: a blocked sum
+  float acc[2][T::NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-    for (int c0 = 0; c0 < cin; c0 += kKC) {
-      // gather BM source rows x kKC channels, stored channel-major
-      for (int e = tid; e < BM * kKC / 4; e += kThreads) {
-        const int r = e / (kKC / 4);
-        const int c = (e % (kKC / 4)) * 4;
-        const int src = s_nbr[r * k + tap];
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (src >= 0 && c0 + c < cin)
-          v = *reinterpret_cast<const float4*>(feats + (long long)src * cin + c0 + c);
-        s_a[(c + 0) * AP + r] = v.x;
-        s_a[(c + 1) * AP + r] = v.y;
-        s_a[(c + 2) * AP + r] = v.z;
-        s_a[(c + 3) * AP + r] = v.w;
+    for (int t = 0; t < T::NT; ++t)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][t][v] = 0.f;
+
+  if (nstages > 0) stage_in(0, 0);
+  for (int s = 0; s < nstages; ++s) {
+    const int buf = s & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage s has landed, and every warp is done with stage s - 1
+    if (s + 1 < nstages) stage_in(s + 1, buf ^ 1);
+    const float* sa = stages + buf * T::STAGE + (wm * 32 + gid) * T::AS + tig;
+    const float* sb = stages + buf * T::STAGE + BM * T::AS + tig * T::BS + wn * (BN / T::WN) + gid;
+    float part[2][T::NT][4];  // this stage's sum, joining acc after it
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < T::NT; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) part[i][t][v] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* a = sa + i * 16 * T::AS + k0;
+        split_tf32(a[0], ab[i][0], as[i][0]);
+        split_tf32(a[8 * T::AS], ab[i][1], as[i][1]);
+        split_tf32(a[4], ab[i][2], as[i][2]);
+        split_tf32(a[8 * T::AS + 4], ab[i][3], as[i][3]);
       }
-      for (int e = tid; e < kKC * BN / 4; e += kThreads) {
-        const int c = e / (BN / 4);
-        const int j = (e % (BN / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c0 + c < cin)
-          v = *reinterpret_cast<const float4*>(wk + (long long)(c0 + c) * cout + col0 + j);
-        *reinterpret_cast<float4*>(&s_b[c * BN + j]) = v;
+#pragma unroll
+      for (int t = 0; t < T::NT; ++t) {
+        const float* b = sb + k0 * T::BS + t * 8;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(b[0], bb0, bs0);
+        split_tf32(b[4 * T::BS], bb1, bs1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // the small products first, then the big one
+          mma_tf32(part[i][t], as[i], bb0, bb1);
+          mma_tf32(part[i][t], ab[i], bs0, bs1);
+          mma_tf32(part[i][t], ab[i], bb0, bb1);
+        }
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&s_a[kk * AP + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&s_b[kk * BN + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-      }
-      __syncthreads();
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+      for (int t = 0; t < T::NT; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][t][v] += part[i][t][v];
   }
 
-  const int col = col0 + tx * 4;
+  // the output tile through shared memory (the stage buffers are free now)
+  __syncthreads();
+  float* so = stages;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (row0 + r >= m) continue;
-    float y[4];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = acc[i][j];
-    if (EPI > 0) {
-      bool row_ok = false;
-      for (int t = 0; t < k; ++t) row_ok |= s_nbr[r * k + t] >= 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = y[j] * scale[col + j] + shift[col + j];
-        if (EPI == 2) v = fmaxf(v, 0.f);
-        y[j] = row_ok ? v : 0.f;
-      }
+    for (int t = 0; t < T::NT; ++t) {
+      const int r = wm * 32 + i * 16 + gid;
+      const int c = wn * (BN / T::WN) + t * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(so + r * T::OS + c) = make_float2(acc[i][t][0], acc[i][t][1]);
+      *reinterpret_cast<float2*>(so + (r + 8) * T::OS + c) = make_float2(acc[i][t][2], acc[i][t][3]);
     }
-    *reinterpret_cast<float4*>(out + (long long)(row0 + r) * cout + col) =
-        make_float4(y[0], y[1], y[2], y[3]);
+  __syncthreads();
+  constexpr int PR = BN / 4;
+  for (int e = tid; e < BM * PR; e += kThreads) {
+    const int r = e / PR;
+    const int c = (e - r * PR) * 4;
+    if (row0 + r >= m) continue;
+    float4 y = *reinterpret_cast<const float4*>(so + r * T::OS + c);
+    if (EPI > 0) {
+      const float* sc = scale + col0 + c;
+      const float* sh = shift + col0 + c;
+      y = make_float4(y.x * sc[0] + sh[0], y.y * sc[1] + sh[1], y.z * sc[2] + sh[2], y.w * sc[3] + sh[3]);
+      if (EPI == 2) y = make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f), fmaxf(y.w, 0.f));
+      if (!s_row[r]) y = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    *reinterpret_cast<float4*>(out + (long long)(row0 + r) * cout + col0 + c) = y;
   }
 }
 
+template <int BN, int KS, int EPI>
+cudaError_t launch_tile(const float* feats, const float* w, const int* nbr, const float* scale,
+                        const float* shift, float* out, int m, int n, int k, int cin, int cout,
+                        cudaStream_t stream) {
+  using T = Tile<BN, KS>;
+  static_assert(T::SMEM <= kSmemTwoBlocks, "two blocks an SM");
+  auto kern = kernel<BN, KS, EPI>;
+  // more than 48 KB of shared memory is dynamic and has to be asked for
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + T::BM - 1) / T::BM, cout / BN);
+  kern<<<grid, kThreads, T::SMEM, stream>>>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout);
+  return cudaGetLastError();
+}
+
 template <int BN, int EPI>
+cudaError_t launch_cols(const float* feats, const float* w, const int* nbr, const float* scale,
+                        const float* shift, float* out, int m, int n, int k, int cin, int cout,
+                        cudaStream_t stream) {
+  if constexpr (Tile<BN, 64>::SMEM <= kSmemTwoBlocks) {
+    if (cin % 64 == 0) return launch_tile<BN, 64, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+  }
+  return launch_tile<BN, 32, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+}
+
+// The widest column tile that divides cout (128, 96, 64 or 32), and stages of
+// 64 reduction columns when cin % 64 == 0 and two such blocks fit an SM (not
+// at BN = 64, whose tile has 128 rows), else 32.
+template <int EPI>
 cudaError_t launch(const float* feats, const float* w, const int* nbr, const float* scale,
                    const float* shift, float* out, int m, int n, int k, int cin, int cout,
                    cudaStream_t stream) {
-  constexpr int BM = (kThreads / (BN / 4)) * 4;
-  const dim3 grid((m + BM - 1) / BM, cout / BN);
-  kernel<BN, EPI><<<grid, kThreads, 0, stream>>>(feats, w, nbr, scale, shift, out, m, n, k, cin,
-                                                 cout);
-  return cudaGetLastError();
+  if (cout % 128 == 0) return launch_cols<128, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+  if (cout % 96 == 0) return launch_cols<96, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+  if (cout % 64 == 0) return launch_cols<64, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+  return launch_cols<32, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
 }
 
 // True when the kernel takes these sizes: k <= 27, cin % 4 == 0, cout % 32 == 0.

@@ -1,26 +1,17 @@
 // Pieces shared by the bf16 tensor-core kernels (conv_gather_first.cu and
-// conv_dx_dw_fused.cu): 16-byte asynchronous copies into shared memory and the
-// warp-level m16n8k16 product.
+// conv_dx_dw_fused.cu): 16-byte asynchronous copies into shared memory
+// (cp_async.cuh) and the warp-level m16n8k16 product.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace mma_bf16_util {
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most N of this thread's committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using namespace cp_async_util;
 
 // c[16x8] += a[16x16] b[16x8], bf16 operands, f32 sums.  With g = lane / 4 and
 // t = lane % 4: a holds rows g, g + 8 at columns 2t, 2t + 1 and 2t + 8, 2t + 9

@@ -11,17 +11,20 @@
 // kernel itself is gather_gemm.cuh, which conv_dx_dw.cu shares.
 //
 // The TPU kernel gathers with one-hot matmuls over banded DMA blocks, because
-// Mosaic cannot index VMEM dynamically; none of that carries over.  Here each
-// block owns a BM-row x BN-column output tile.  For every tap it gathers the
-// tile's source rows straight from device memory into shared memory, KC
-// channels at a time (zeros for the sentinel), stages w[k][chunk, cols] beside
-// them, and accumulates a 4x4 f32 register tile per thread with FFMA.
+// Mosaic cannot index VMEM dynamically; none of that carries over.  Here a
+// block owns a row tile and all of cout up to 128 columns, gathers each
+// (row, tap) of its tile once per column tile with cp.async into shared
+// memory, two stages in flight, and multiplies on the tensor cores in split
+// TF32 (three tf32 products per f32 product), which keeps f32 accuracy.
 //
-// What bounds it on an H100: f32 FFMA issue and shared-memory reads (no TF32
-// tensor cores, the port is f32 throughout).  A tap whose rows are all
-// sentinel inside the tile is skipped, which removes the padded tail of each
-// frame and absent neighbours.  wgmma with bf16 operands, TMA gathers and
-// double buffering are left to later work.
+// What bounds it on an H100: the split-TF32 products (495 / 3 TFLOP/s) at
+// the wide convs, and the gathered bytes at the stem (cin = 4, 16 bytes a
+// (row, tap)).  The f32 FFMA rate (67 TFLOP/s) no longer applies; the design
+// answers the product bound with the tensor cores and the gather with
+// asynchronous copies that overlap the products, each row fetched once per
+// column tile.  Dense tiles do the products of sentinel (row, tap) pairs of
+// an active tap as well, so the rate counted on real pairs is lower.
+// wgmma (operands K-major in swizzled shared memory) is left to later work.
 
 #include "gather_gemm.cuh"
 
@@ -44,13 +47,9 @@ extern "C" int lidal_subm_conv(const void* feats, const void* w, const void* nbr
   const auto* sh = (const float*)shift;
   auto* o = (float*)out;
   const auto s = (cudaStream_t)stream;
-  const bool wide = cout % 64 == 0;
-  switch (epilogue * 2 + (wide ? 1 : 0)) {
-    case 0: return (int)launch<32, 0>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    case 1: return (int)launch<64, 0>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    case 2: return (int)launch<32, 1>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    case 3: return (int)launch<64, 1>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    case 4: return (int)launch<32, 2>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    default: return (int)launch<64, 2>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
+  switch (epilogue) {
+    case 0: return (int)launch<0>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
+    case 1: return (int)launch<1>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
+    default: return (int)launch<2>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
   }
 }

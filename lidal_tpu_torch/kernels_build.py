@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+_FUNCTIONS: dict = {}  # (library, symbol) -> ctypes function with its argument types set
 _BUILD_LOCKS: dict = {}  # name -> lock: one build per library, whichever thread asks first
 _BUILD_LOCKS_GUARD = threading.Lock()
 # Held by every wrapper while it adds to its LAUNCHES count: the scoring round
@@ -62,6 +63,18 @@ def load(name: str) -> ctypes.CDLL:
         lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
     with lock:
         return _LIBS.get(name) or _build_and_load(name)
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built first if needed),
+    taking ``argtypes`` and returning an int, set up once and then reused."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
 
 
 def load_all(names) -> None:

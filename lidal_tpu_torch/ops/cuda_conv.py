@@ -92,10 +92,9 @@ def subm_conv(feats, w, nbr, scale=None, shift=None, relu: bool = False) -> torc
     if m == 0:
         return out
     epilogue = 0 if scale is None else (2 if relu else 1)
-    lib = kernels_build.load("subm_conv")
-    fn = lib.lidal_subm_conv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "subm_conv", "lidal_subm_conv", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(feats.device):
         err = fn(
             feats.data_ptr(), w.data_ptr(), nbr.data_ptr(),

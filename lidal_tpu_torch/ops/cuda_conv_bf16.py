@@ -116,10 +116,9 @@ def _launch(table, wt, nbr, planes: bool, pipelined: bool) -> torch.Tensor:
     out = torch.empty((m, cout), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    lib = kernels_build.load("conv_gather_first")
-    fn = lib.lidal_conv_gather_first
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "conv_gather_first", "lidal_conv_gather_first", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(dev):
         err = fn(table.data_ptr(), wt.data_ptr(), nbr.data_ptr(), out.data_ptr(), m, n, k, cin, cout,
                  int(planes), int(pipelined), torch.cuda.current_stream().cuda_stream)

@@ -120,10 +120,9 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
     dwg = torch.empty((k, c_f, c_src), dtype=torch.float32, device=dev)
     ws = torch.empty((chunks, k, c_f, c_src), dtype=torch.float32, device=dev) if chunks > 1 else dwg
     nbr_t = nbr.t().contiguous()
-    lib = kernels_build.load("conv_dx_dw")
-    fn = lib.lidal_conv_dx_dw
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "conv_dx_dw", "lidal_conv_dx_dw", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(dev):
         err = fn(
             src.data_ptr(), w2.data_ptr(), nbr.data_ptr(), nbr_t.data_ptr(), f.data_ptr(),

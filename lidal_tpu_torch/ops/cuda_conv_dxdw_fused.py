@@ -124,10 +124,9 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
     dx = torch.zeros((m, cd), dtype=torch.float32, device=dev)  # the kernel adds into it
     dw = torch.empty((k, cf, cs), dtype=torch.float32, device=dev) if mode != "dx" else None
     ws = torch.empty((chunks, k, cf, cs), dtype=torch.float32, device=dev) if with_dw and chunks > 1 else dw
-    lib = kernels_build.load("conv_dx_dw_fused")
-    fn = lib.lidal_conv_dx_dw_fused
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "conv_dx_dw_fused", "lidal_conv_dx_dw_fused", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(dev):
         err = fn(
             src_b.data_ptr(), w2t.data_ptr(), nbr_t.data_ptr(), f_t.data_ptr() if with_dw else None,

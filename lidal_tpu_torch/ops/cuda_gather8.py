@@ -91,10 +91,9 @@ def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) ->
     out = torch.empty((m, c), dtype=torch.float32, device=feats.device)
     if m * c == 0:
         return out
-    lib = kernels_build.load("gather8")
-    fn = lib.lidal_gather8
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "gather8", "lidal_gather8", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(feats.device):
         err = fn(feats.data_ptr(), nbr.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, c,
                  torch.cuda.current_stream().cuda_stream)
@@ -155,10 +154,9 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> t
     if n * c == 0:
         return out
     order, offsets = build_transpose(nbr, n)
-    lib = kernels_build.load("gather8")
-    fn = lib.lidal_scatter8
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "gather8", "lidal_scatter8", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(dy.device):
         err = fn(dy.data_ptr(), w8.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, c,
                  torch.cuda.current_stream().cuda_stream)

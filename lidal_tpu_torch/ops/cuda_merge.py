@@ -2,7 +2,10 @@
 
 Replaces ``lidal_tpu/ops/pallas_merge.py:merge_rank_pallas``.  A CUDA tensor
 launches the kernel; a CPU tensor takes :func:`lookup_sorted_plain`, the
-``torch.searchsorted`` formulation the kernel is tested against.
+``torch.searchsorted`` formulation the kernel is tested against.  The kernel
+searches each tile of a stream's queries inside the table rows between the
+tile's min and max key; :func:`wide_tiles` counts the tiles whose window is too
+wide for its shared-memory stage.
 """
 
 from __future__ import annotations
@@ -28,6 +31,14 @@ def _check(t_hi, t_lo, q_hi, q_lo) -> tuple:
     s, m = q_hi.shape
     if t == 0 or s % t != 0:
         raise ValueError(f"{s} query streams cannot share {t} tables evenly")
+    return t, n, s, m
+
+
+def _check_cuda(t_hi, t_lo, q_hi, q_lo) -> tuple:
+    t, n, s, m = _check(t_hi, t_lo, q_hi, q_lo)
+    for name, x in (("t_hi", t_hi), ("t_lo", t_lo), ("q_hi", q_hi), ("q_lo", q_lo)):
+        if x.device != q_hi.device or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {q_hi.device}")
     return t, n, s, m
 
 
@@ -62,17 +73,13 @@ def lookup_sorted(t_hi, t_lo, q_hi, q_lo, with_found: bool) -> torch.Tensor:
         return lookup_sorted_plain(t_hi, t_lo, q_hi, q_lo, with_found)
     if q_hi.device.type != "cuda":
         raise ValueError(f"lookup_sorted runs on CPU or CUDA tensors, got {q_hi.device}")
-    t, n, s, m = _check(t_hi, t_lo, q_hi, q_lo)
-    for name, x in (("t_hi", t_hi), ("t_lo", t_lo), ("q_hi", q_hi), ("q_lo", q_lo)):
-        if x.device != q_hi.device or x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous int32 tensor on {q_hi.device}")
+    t, n, s, m = _check_cuda(t_hi, t_lo, q_hi, q_lo)
     out = torch.empty((s, m), dtype=torch.int32, device=q_hi.device)
     if s * m == 0:
         return out
-    lib = kernels_build.load("merge_lookup")
-    fn = lib.lidal_lookup_sorted
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "merge_lookup", "lidal_lookup_sorted", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(q_hi.device):
         err = fn(
             t_hi.data_ptr(), t_lo.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(), out.data_ptr(),
@@ -83,3 +90,24 @@ def lookup_sorted(t_hi, t_lo, q_hi, q_lo, with_found: bool) -> torch.Tensor:
         LAUNCHES += 1
     kernels_build.check(err, "lookup_sorted")
     return out
+
+
+def wide_tiles(t_hi, t_lo, q_hi, q_lo) -> tuple:
+    """(tiles whose window is searched in device memory, all tiles) of the
+    kernel's launch on these CUDA tensors (same arguments as
+    :func:`lookup_sorted`); the window code is the kernel's own."""
+    if q_hi.device.type != "cuda":
+        raise ValueError(f"wide_tiles counts the CUDA kernel's tiles, got {q_hi.device}")
+    t, n, s, m = _check_cuda(t_hi, t_lo, q_hi, q_lo)
+    count = torch.zeros(2, dtype=torch.int32, device=q_hi.device)
+    if s * m:
+        fn = kernels_build.function(
+            "merge_lookup", "lidal_lookup_wide_tiles", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        )
+        with torch.cuda.device(q_hi.device):
+            err = fn(
+                t_hi.data_ptr(), t_lo.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(), count.data_ptr(),
+                t, s // t, n, m, torch.cuda.current_stream().cuda_stream,
+            )
+        kernels_build.check(err, "lookup wide_tiles")
+    return int(count[0]), int(count[1])

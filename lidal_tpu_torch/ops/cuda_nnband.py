@@ -108,10 +108,9 @@ def nn_band(tbl, q_t, blo, nb) -> Tuple[torch.Tensor, torch.Tensor]:
     row = torch.empty((s, p), dtype=torch.int32, device=tbl.device)
     if s * p == 0:
         return d2, row
-    lib = kernels_build.load("nn_band")
-    fn = lib.lidal_nn_band
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels_build.function(
+        "nn_band", "lidal_nn_band", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
     with torch.cuda.device(tbl.device):
         err = fn(
             tbl.data_ptr(), q_t.data_ptr(), blo.data_ptr(), nb.data_ptr(), d2.data_ptr(), row.data_ptr(),

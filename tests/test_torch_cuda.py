@@ -8,8 +8,10 @@ This module imports no JAX, so it also runs where only PyTorch is installed:
 card the ``cuda`` tests skip; the device check itself runs everywhere.
 
 Tolerances: lookups are bit-equal; a conv output and the backward's dx within
-1e-4 * max(1, |plain|) (f32 sums of up to 27 * 384 products in another order,
-no TF32); the backward's dwg within 1e-4 * max(1, plain_abs), where plain_abs
+1e-4 * max(1, |plain|) (f32 sums of up to 27 * 384 products in another order;
+the kernel's products are split TF32, three tf32 products per f32 product,
+no further from f64 than 4 times the f32 plain version plus 1e-6 of the
+abs-sum, and bit-equal on reruns); the backward's dwg within 1e-4 * max(1, plain_abs), where plain_abs
 is the plain version on |src| and |f| (a reordered f32 sum over every row);
 a forward's logits within 1e-4 on these small frames; a train step's
 gradients with the backward kernel within 1e-4 of each gradient's max of
@@ -119,28 +121,88 @@ def test_lookup_kernel_matches_plain(plan_on):
     assert cuda_merge.LAUNCHES == before + 2 * len(cases)
 
 
+def _table_streams(keys, streams, dev):
+    """(t_hi, t_lo, q_hi, q_lo) on ``dev`` from int64 keys: a table [T, n] and
+    query streams [S, m]; (hi, lo) = (key // 2**16, key % 2**16 - 2**15) keeps
+    the order, and the key -1 stands for the sentinel."""
+    def pair(k):
+        k = np.asarray(k, np.int64)
+        hi = np.where(k < 0, SENTINEL_KEY, k // 2**16).astype(np.int32)
+        lo = np.where(k < 0, SENTINEL_KEY, k % 2**16 - 2**15).astype(np.int32)
+        return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    return (*pair(keys), *pair(streams))
+
+
+def _sentinel_tail(keys, tail):
+    return np.concatenate([keys, np.full(keys.shape[:-1] + (tail,), -1, np.int64)], -1)
+
+
 @pytest.mark.cuda
-def test_conv_kernel_matches_plain(plan_on):
-    rng = np.random.default_rng(5)
+def test_lookup_kernel_window_branches(card):
+    """The windowed lookup on streams built for each of its branches, both
+    modes bit-equal to the plain version: a sorted offset stream with m not a
+    multiple of the tile (every window in shared memory); an unsorted stream;
+    one table searched by 26 streams; sparse queries, and a tile whose
+    queries have one huge key gap, whose windows span far more table rows
+    than the shared stage holds; a table with one huge key gap; all-sentinel
+    tiles and tables."""
+    rng = np.random.default_rng(9)
+    ragged = 5 * 1024 + 37  # not a multiple of the kernel's 1024-query tile
+    dense = np.sort(rng.choice(4 * ragged, ragged, replace=False)).astype(np.int64) * 3 + 100
+    table = _sentinel_tail(dense[None], 500)
+    offset = _sentinel_tail(np.sort(dense + 3 * rng.integers(-1, 2, ragged))[None], 300)
+    unsorted = offset.copy()
+    unsorted[0, :ragged] = rng.permutation(offset[0, :ragged])
+    streams26 = _sentinel_tail(np.stack([np.sort(dense + 3 * d) for d in range(-13, 13)]), 500)
+    big = np.sort(rng.choice(10**6, 40000, replace=False)).astype(np.int64)
+    gapped = np.concatenate([big[:20000], big[20000:] + 10**10])
+    cases = {  # name: (table keys, query streams, some tile takes the device-memory branch)
+        "offset, ragged m": (table, offset, False),
+        "unsorted": (table, unsorted, True),
+        "T = 1, 26 streams": (table, streams26, False),
+        "sparse queries": (big[None], _sentinel_tail((big[::16] + rng.integers(0, 2, 2500))[None], 7), True),
+        "queries with one huge key gap": (big[None], np.concatenate([big[:512], big[-512:]])[None], True),
+        "table with one huge key gap": (gapped[None], np.sort(np.concatenate(
+            [gapped[19400:20600], 10**9 + np.arange(100)]))[None], False),
+        "all-sentinel tiles": (table, np.full((2, 3000), -1, np.int64), False),
+        "all-sentinel table": (np.full((1, 4096), -1, np.int64), offset, False),
+    }
+    before = cuda_merge.LAUNCHES
+    for name, (tk, qk, wide) in cases.items():
+        streams = _table_streams(tk, qk, card)
+        for found in (True, False):
+            got = cuda_merge.lookup_sorted(*streams, with_found=found)
+            assert torch.equal(got, cuda_merge.lookup_sorted_plain(*streams, with_found=found)), (name, found)
+        n_wide, n_tiles = cuda_merge.wide_tiles(*streams)
+        assert (n_wide > 0) == wide and n_wide <= n_tiles, (name, n_wide, n_tiles)
+    assert cuda_merge.LAUNCHES == before + 2 * len(cases)
+
+
+def _conv_maps(plan_on):
+    """{kind: (map [m, K] on the card, n)}: level 0's subm map, the down map
+    (via ``child``), the up map (parents not monotonic) and an all-sentinel map."""
     lv0, d0 = plan_on.plan.levels[0], plan_on.plan.downs[0]
     b, cap0, _ = lv0.coords.shape
     cap1 = d0.child.shape[1]
-    maps = {
-        "subm": (conv._flatten_nbr(lv0.nbr3, cap0), b * cap0),
-        "down": (conv._flatten_nbr(d0.child, cap0), b * cap0),
-        "up": (conv._up_nbr(conv._flatten_idx(d0.parent, cap1), d0.pdelta.reshape(-1), 8, b * cap1), b * cap1),
+    dev = plan_on.feats.device
+    return {
+        "subm": (conv._flatten_nbr(lv0.nbr3, cap0).to(dev), b * cap0),
+        "down": (conv._flatten_nbr(d0.child, cap0).to(dev), b * cap0),
+        "up": (conv._up_nbr(conv._flatten_idx(d0.parent, cap1), d0.pdelta.reshape(-1), 8, b * cap1).to(dev), b * cap1),
+        "none": (torch.full((b * cap0, 27), b * cap0, dtype=torch.int32, device=dev), b * cap0),
     }
+
+
+@pytest.mark.cuda
+def test_conv_kernel_matches_plain(plan_on):
+    rng = np.random.default_rng(5)
+    maps = _conv_maps(plan_on)
     shapes = [("subm", 4, 32), ("subm", 32, 32), ("subm", 96, 96), ("subm", 384, 256),
               ("down", 128, 128), ("up", 256, 128), ("up", 96, 64)]
     before = cuda_conv.LAUNCHES
     for kind, cin, cout in shapes:
         nbr, n = maps[kind]
-        nbr = nbr.to(plan_on.feats.device)
-        k = nbr.shape[1]
-        feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(nbr.device)
-        w = torch.from_numpy((rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)).to(nbr.device)
-        scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(nbr.device)
-        shift = torch.from_numpy(rng.normal(size=cout).astype(np.float32)).to(nbr.device)
+        feats, w, scale, shift = _conv_inputs(rng, n, nbr.shape[1], cin, cout, nbr.device)
         for ep in [(), (scale, shift, False), (scale, shift, True)]:
             want = cuda_conv.subm_conv_plain(feats, w, nbr, *ep)
             got = cuda_conv.subm_conv(feats, w, nbr, *ep)
@@ -149,6 +211,43 @@ def test_conv_kernel_matches_plain(plan_on):
     assert cuda_conv.LAUNCHES == before + 3 * len(shapes)
     with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
         cuda_conv.subm_conv(feats.double(), w, nbr)
+
+
+def _conv_inputs(rng, n, k, cin, cout, dev):
+    """feats [n, cin], w [k, cin, cout], scale and shift [cout] on ``dev``."""
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(rng.standard_normal((n, cin))), t(rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)),
+            t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(size=cout)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cin,cout", [
+    ("subm", 4, 32), ("subm", 12, 96), ("subm", 384, 256), ("down", 12, 256), ("down", 4, 96),
+    ("up", 384, 32), ("up", 96, 96), ("none", 96, 256),
+])
+def test_conv_kernel_split_tf32_accuracy_and_reruns(plan_on, kind, cin, cout):
+    """The split-TF32 tile at the stem's cin = 4, cin = 12 (a stage spans
+    taps), 384 (12 stages a tap); cout 32, 96 and 256 (two column tiles); K =
+    27 and 8; the up map; an all-sentinel map; each epilogue.  Within 1e-4 *
+    max(1, |plain|) of the plain version, no further from the plain version
+    in f64 than 4 x the f32 plain version is (+ 1e-6 of the abs-sum), and
+    bit-equal on a rerun."""
+    nbr, n = _conv_maps(plan_on)[kind]
+    feats, w, scale, shift = _conv_inputs(np.random.default_rng(cin * cout), n, nbr.shape[1], cin, cout, nbr.device)
+    ref = cuda_conv.subm_conv_plain(feats.double(), w.double(), nbr)
+    abs_sum = cuda_conv.subm_conv_plain(feats.abs(), w.abs(), nbr)
+    for ep in [(), (scale, shift, False), (scale, shift, True)]:
+        got = cuda_conv.subm_conv(feats, w, nbr, *ep)
+        want = cuda_conv.subm_conv_plain(feats, w, nbr, *ep)
+        assert bool(((got - want).abs() <= 1e-4 * want.abs().clamp_min(1.0)).all()), len(ep)
+        assert torch.equal(got, cuda_conv.subm_conv(feats, w, nbr, *ep)), "differs between two runs"
+        if kind == "none":
+            assert not got.any()
+    got = cuda_conv.subm_conv(feats, w, nbr)
+    e_k = float((got.double() - ref).abs().max())
+    e_p = float((cuda_conv.subm_conv_plain(feats, w, nbr).double() - ref).abs().max())
+    assert e_k <= 4.0 * e_p + 1e-6 * float(abs_sum.max()), (e_k, e_p)
 
 
 @pytest.mark.cuda
