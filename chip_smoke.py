@@ -35,7 +35,14 @@ Phases (each prints what it found; any failed check raises, exit code != 0):
    f32 sum over up to 655k rows; gradients are ~1e-6, so no floor of 1);
    each no further from the plain version in f64 than F64_FACTOR times the
    f32 plain version is; dwg bit-equal across two runs (no atomics); kernel
-   and plain times per shape and per step.
+   and plain times per shape and per step, the dx and dW halves apart (dW
+   alone is the ``need_dx=False`` call), the real pairs per tap, each half's
+   bound at the split-TF32 and the f32 FFMA rate (bytes: the src rows the map
+   names and the f rows with a real tap, each read once, the map, w2 for dx,
+   and the outputs), and a yardstick for the dW products:
+   f32 ``torch.mm`` with TF32 off per tap on the real pairs' operands gathered
+   beforehand (the products without the gathers; not a library call of the
+   same function, so ``library_ms`` stays null).
 8. the train slice: a temporary SemanticKITTI tree of synthetic 120k-point
    frames, ``run_train`` through its loader (``metric_name="full"``,
    ``r_id=1``): one warm-up step, then TIMED_STEPS steps; steps/s, points/s,
@@ -151,9 +158,10 @@ take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
 counting the work this run's data needs (real (row, tap) pairs of the convs,
-evaluated pairs of ``nn_band``); ``subm_conv``, whose products run on the
-tensor cores as three tf32 products each (split TF32, f32 accuracy), is held
-to 495 / 3 TFLOP/s (phase 4 prints its f32-FFMA bound beside it); the bf16
+evaluated pairs of ``nn_band``); ``subm_conv`` and ``conv_dx_dw``, whose
+products run on the tensor cores as three tf32 products each (split TF32, f32
+accuracy), are held to 495 / 3 TFLOP/s (phases 4 and 7 print their f32-FFMA
+bounds beside it); the bf16
 probe kernels are held to the bf16 tensor-core rate of 989 TFLOP/s and to the
 bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
@@ -365,9 +373,14 @@ def write_sk_tree(root, rng, n_frames):
 
 def backward_phase(state, tb):
     """7: every conv_dx_dw call of one train step against its plain version.
-    Returns (max |kernel - plain|, kernel ms per step, plain ms per step, the
-    step's Bound over the real (row, tap) pairs, the step's distinct calls as
-    {shape key: arguments}, {shape key: calls per step}, {shape key: kernel ms})."""
+    Per shape and per step it times the two halves apart (dW alone is the
+    ``need_dx=False`` call on the same arguments, dx the rest), prints the
+    real pairs per tap, and times a yardstick: f32 ``torch.mm`` (TF32 off)
+    per tap on the real pairs' operands already gathered.  Returns (max
+    |kernel - plain|, kernel ms per step, plain ms per step, the step's Bound
+    at the split-TF32 rate over the real (row, tap) pairs and the rows they
+    read, the step's distinct calls as {shape key: arguments}, {shape key:
+    calls per step}, {shape key: kernel ms})."""
     import torch
 
     from lidal_tpu_torch.ops import cuda_conv_dxdw
@@ -389,18 +402,31 @@ def backward_phase(state, tb):
     finally:
         cuda_conv_dxdw.conv_dx_dw = kernel
     err = k_total = p_total = 0.0
-    least = Bound()
+    least = Bound()  # the whole call at the split-TF32 rate (the kernels' record)
+    halves = {h: {"ms": 0.0, "plain": 0.0, "tf32": Bound(), "f32": Bound()} for h in ("dx", "dW")}
+    yard_total = 0.0
     kernel_ms = {}
     for key in sorted(captured):
         args = captured[key]
         src, w2, nbr, f, need_dx = args
+        k, c_src, c_dst, c_f, m, n, _ = key
+        c = calls[key]
         dx, dwg = kernel(*args)
-        pairs = int((nbr < src.shape[0]).sum())
-        b_ms = least.add(
-            nbytes(src, w2, nbr, f, dx, dwg),
-            2.0 * pairs * src.shape[1] * ((w2.shape[2] if need_dx else 0) + f.shape[1]),
-            calls=calls[key],
-        )
+        real = (nbr >= 0) & (nbr < n)
+        per_tap = real.sum(0).tolist()
+        # bytes: only the src rows the map names and the f rows with a real tap are read
+        pairs, src_bytes = bf16_rows_bytes(nbr, n, 4 * c_src)
+        f_bytes = int(real.any(1).sum()) * 4 * c_f
+        b_ms = least.add(src_bytes + f_bytes + nbytes(w2 if need_dx else None, nbr, dx, dwg),
+                         2.0 * pairs * c_src * ((c_dst if need_dx else 0) + c_f), PEAK_SPLIT_TF32, calls=c)
+        h_bound = {}
+        for h, moved, flop in (("dx", src_bytes + nbytes(w2, nbr, dx), c_dst),
+                               ("dW", src_bytes + f_bytes + nbytes(nbr, dwg), c_f)):
+            if h == "dx" and not need_dx:
+                h_bound[h] = (0.0, 0.0)
+                continue
+            h_bound[h] = tuple(halves[h][r].add(moved, 2.0 * pairs * c_src * flop, peak, calls=c)
+                               for r, peak in (("tf32", PEAK_SPLIT_TF32), ("f32", PEAK_F32)))
         _, dwg2 = kernel(*args)
         want = plain(*args)
         ref = plain(src.double(), w2.double(), nbr, f.double(), need_dx)
@@ -421,16 +447,39 @@ def backward_phase(state, tb):
             notes.append(f"{name} from f64 {e_k:.1e} (plain {e_p:.1e})")
         err = max(err, e)
         k_ms = cuda_ms(lambda: kernel(*args))
+        dw_ms = cuda_ms(lambda: kernel(src, w2, nbr, f, False)) if need_dx else k_ms
         p_ms = cuda_ms(lambda: plain(*args), reps=3)
+        pdw_ms = cuda_ms(lambda: plain(src, w2, nbr, f, False), reps=3) if need_dx else p_ms
+        # the yardstick: the products alone, on operands gathered beforehand
+        ops = []
+        for tap in range(k):
+            i = real[:, tap].nonzero()[:, 0]
+            ops.append((f[i].t(), src[nbr[i, tap].long()]))
+        y_ms = cuda_ms(lambda: [torch.mm(a, b) for a, b in ops], reps=3)
+        del ops
         kernel_ms[key] = k_ms
-        k_total += calls[key] * k_ms
-        p_total += calls[key] * p_ms
-        k, c_src, c_dst, c_f, m, n, _ = key
+        k_total += c * k_ms
+        p_total += c * p_ms
+        halves["dW"]["ms"] += c * dw_ms
+        halves["dW"]["plain"] += c * pdw_ms
+        halves["dx"]["ms"] += c * (k_ms - dw_ms)
+        halves["dx"]["plain"] += c * (p_ms - pdw_ms)
+        yard_total += c * y_ms
         print(f"[7 backward] K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} "
-              f"x{calls[key]}: max|d|={e:.2e}, {', '.join(notes)}, dwg bit-equal across runs; "
-              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs)")
+              f"x{c}: max|d|={e:.2e}, {', '.join(notes)}, dwg bit-equal across runs; "
+              f"kernel {k_ms:.3f} ms (dx {k_ms - dw_ms:.3f}, dW {dw_ms:.3f}; bound split TF32 "
+              f"{h_bound['dx'][0]:.3f} / {h_bound['dW'][0]:.3f}, f32 {h_bound['dx'][1]:.3f} / {h_bound['dW'][1]:.3f}), "
+              f"plain {p_ms:.3f} ms (dW {pdw_ms:.3f}), torch.mm on gathered pairs {y_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms; {pairs} real pairs, per tap {per_tap}")
+    dx_h, dw_h = halves["dx"], halves["dW"]
     print(f"[7 backward] {len(captured)} shapes, {sum(calls.values())} calls per train step; per step: "
-          f"kernel {k_total:.1f} ms, plain {p_total:.1f} ms, bound {least.total:.2f} ms (by {least.by})")
+          f"kernel {k_total:.1f} ms (dx {dx_h['ms']:.1f}, dW {dw_h['ms']:.1f}), plain {p_total:.1f} ms "
+          f"(dx {dx_h['plain']:.1f}, dW {dw_h['plain']:.1f}), bound {least.total:.2f} ms (split TF32, by {least.by})")
+    for h, v in halves.items():
+        print(f"[7 backward] {h} per step: kernel {v['ms']:.2f} ms, plain {v['plain']:.1f} ms, bound split TF32 "
+              f"{v['tf32'].total:.3f} ms (by {v['tf32'].by}), f32 FFMA {v['f32'].total:.3f} ms (by {v['f32'].by})")
+    print(f"[7 backward] yardstick: f32 torch.mm (TF32 off) per tap on the real pairs' gathered operands "
+          f"{yard_total:.2f} ms per step against the dW kernel's {dw_h['ms']:.2f} ms (gathers included)")
     return err, k_total, p_total, least, captured, calls, kernel_ms
 
 

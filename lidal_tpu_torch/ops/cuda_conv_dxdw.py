@@ -3,9 +3,12 @@
 Replaces ``lidal_tpu/ops/pallas_conv.py:conv_dx_dw_pallas``.  A CUDA tensor
 launches the kernel; a CPU tensor takes :func:`conv_dx_dw_plain`, the row-
 chunked im2col gather + matmuls that the kernel is tested against.  The
-weight-gradient reduction is deterministic: the kernel sums fixed row chunks
-in a fixed order, with no atomics, so one input gives bit-equal results on
-every run (trained weights feed every selection).
+kernel's weight gradient runs over per-tap lists of the real (row, tap) pairs
+(built on the device; :func:`pair_lists_plain` is their plain version) in
+chunks of a fixed number of pairs (:func:`pair_chunks`), whose partials it
+sums in chunk order with no atomics, so one input gives bit-equal results on
+every run (trained weights feed every selection), and the host never waits
+for the lists.
 """
 
 from __future__ import annotations
@@ -20,11 +23,10 @@ from lidal_tpu_torch.ops.cuda_conv import _PLAIN_CHUNK
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
 
-_ROWS_PER_STEP = 32  # rows a dwg block stages per step (kRows in the source)
-_TARGET_BLOCKS = 2048  # dwg blocks wanted: a few waves on 132 SMs
-_MIN_CHUNK_ROWS = 1024  # a chunk's rows amortise its partial's write
-_MAX_CHUNK_ROWS = 4096  # and a chunk sums few enough rows to stay accurate
-_WORKSPACE_BYTES = 256 << 20  # bound on the partials [S, K, c_f, c_src]
+_PAIRS_PER_STAGE = 64  # pairs a dwg block stages at a time (kStage in the source)
+_SEG_ROWS = 4096  # rows of the map a list block scans (kSegRows in the source)
+_MIN_CHUNK_PAIRS = 1024  # fewer chunks a tap: the grid's blocks past a tap's count still cost a launch
+_WORKSPACE_BYTES = 256 << 20  # bound on the partials [K, S, c_f, c_src]
 
 
 def _check(src, w2, nbr, f) -> None:
@@ -63,22 +65,38 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def row_chunks(m: int, k: int, c_f: int, c_src: int):
-    """(S, rows per chunk) of the kernel's weight-gradient reduction.
+def pair_chunks(m: int, k: int, c_f: int, c_src: int):
+    """(S, pairs per chunk P) of the kernel's weight-gradient reduction.
 
-    S depends on the shape only, so a shape always sums in the same order:
-    enough chunks for a few waves of blocks, between ``_MIN_CHUNK_ROWS`` and
-    ``_MAX_CHUNK_ROWS`` rows each, and a workspace of at most
-    ``_WORKSPACE_BYTES`` (which wins over the row bounds)."""
+    A tap's list of real pairs is cut into chunks of P pairs, P a multiple of
+    the 64-pair stage, and the grid holds S = ceil(m / P) chunks a tap (the
+    worst case: every row real; blocks past the count exit).  P depends on
+    the shape only, so a shape always sums in the same order.  P is
+    ``_MIN_CHUNK_PAIRS``, or more where the partials' workspace [K, S, c_f,
+    c_src] would not fit in ``_WORKSPACE_BYTES``.  (At level 0 the real
+    pairs are ~4 % of the worst case: chunks of 256 or 512 pairs gave more
+    busy blocks but measured slower, the empty ones costing more.)"""
     if m == 0:
-        return 1, 1
-    bf = 64 if c_f % 64 == 0 else (32 if c_f % 32 == 0 else 4)
-    bs = 64 if c_src % 64 == 0 else 32
-    tiles = k * (c_f // bf) * (c_src // bs)
-    s = max(min(_cdiv(_TARGET_BLOCKS, tiles), m // _MIN_CHUNK_ROWS), _cdiv(m, _MAX_CHUNK_ROWS))
-    s = min(s, _WORKSPACE_BYTES // (4 * k * c_f * c_src))
-    rows = _cdiv(_cdiv(m, max(1, s)), _ROWS_PER_STEP) * _ROWS_PER_STEP
-    return _cdiv(m, rows), rows
+        return 1, _PAIRS_PER_STAGE
+    s_cap = max(1, _WORKSPACE_BYTES // (4 * k * c_f * c_src))
+    p = _cdiv(max(_MIN_CHUNK_PAIRS, _cdiv(m, s_cap)), _PAIRS_PER_STAGE) * _PAIRS_PER_STAGE
+    return _cdiv(m, p), p
+
+
+def pair_lists_plain(nbr_t, n: int):
+    """Plain torch version of the kernel's per-tap lists of real pairs.
+
+    For a map transposed, nbr_t int32 [K, m] (sentinel: any index outside
+    [0, n)), returns (rows int32 [K, m], counts int32 [K]): rows[k,
+    :counts[k]] are the rows i with a real nbr_t[k, i], ascending; the rest of
+    each row holds m.  :func:`conv_dx_dw` builds the same lists inside its
+    launch (the tail of each row left unwritten)."""
+    k, m = nbr_t.shape
+    real = (nbr_t >= 0) & (nbr_t < n)
+    counts = real.sum(1, dtype=torch.int32)
+    order = torch.sort((~real).to(torch.uint8), dim=1, stable=True).indices
+    first = torch.arange(m, device=nbr_t.device)[None, :] < counts[:, None]
+    return torch.where(first, order, m).to(torch.int32), counts
 
 
 def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
@@ -114,20 +132,24 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {src.device}")
     if src.data_ptr() % 16 or w2.data_ptr() % 16 or f.data_ptr() % 16:
         raise ValueError("src, w2 and f must be 16-byte aligned (float4 loads)")
-    chunks, rows = row_chunks(m, k, c_f, c_src)
+    chunks, per_chunk = pair_chunks(m, k, c_f, c_src)
     dev = src.device
     dx = torch.empty((m, c_dst), dtype=torch.float32, device=dev) if need_dx else None
     dwg = torch.empty((k, c_f, c_src), dtype=torch.float32, device=dev)
-    ws = torch.empty((chunks, k, c_f, c_src), dtype=torch.float32, device=dev) if chunks > 1 else dwg
+    ws = torch.empty((k, chunks, c_f, c_src), dtype=torch.float32, device=dev) if chunks > 1 else dwg
     nbr_t = nbr.t().contiguous()
+    rows = torch.empty((k, m), dtype=torch.int32, device=dev)  # the pair lists, built by the launch
+    counts = torch.empty(k, dtype=torch.int32, device=dev)
+    seg_counts = torch.empty((k, max(1, _cdiv(m, _SEG_ROWS))), dtype=torch.int32, device=dev)
     fn = kernels_build.function(
-        "conv_dx_dw", "lidal_conv_dx_dw", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        "conv_dx_dw", "lidal_conv_dx_dw", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dev):
         err = fn(
             src.data_ptr(), w2.data_ptr(), nbr.data_ptr(), nbr_t.data_ptr(), f.data_ptr(),
             dx.data_ptr() if need_dx else None, dwg.data_ptr(), ws.data_ptr(),
-            m, n, k, c_src, c_dst, c_f, chunks, rows, int(need_dx),
+            rows.data_ptr(), counts.data_ptr(), seg_counts.data_ptr(),
+            m, n, k, c_src, c_dst, c_f, chunks, per_chunk, int(need_dx),
             torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES

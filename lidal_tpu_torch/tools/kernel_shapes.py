@@ -1,4 +1,5 @@
-"""Time the lookup and the conv kernel at the shapes of one B = 4 eval batch.
+"""Time the lookup and the conv kernel at the shapes of one B = 4 eval batch,
+and the conv backward kernel at the shapes of one B = 5 train step.
 
     python3 lidal_tpu_torch/tools/kernel_shapes.py [ROOT]     # on an NVIDIA GPU
 
@@ -17,7 +18,13 @@ seed 0).  It prints the card's name and power limit, then
   GFLOP of the real (row, tap) pairs and of the dense work of the kernel's row
   tiles (every tap that is real somewhere in a tile, times the tile's rows;
   tiles of 64 rows at cout % 96 == 0 or cout % 128 == 0, else 128), and the
-  TFLOP/s reached on that dense work; then the sums per forward.
+  TFLOP/s reached on that dense work; then the sums per forward;
+* per ``conv_dx_dw`` shape of one train step (B = 5 frames of ``make_batch``,
+  seed 0, the MinkUNet of ``init_state`` with seed 0): the kernel's ms with
+  dx and dW apart (dW alone is the ``need_dx=False`` call on the same
+  arguments, dx the rest), each checked within ``CONV_TOL`` of the plain
+  version's abs-sum, the real (row, tap) pairs, the GFLOP of dW on them and
+  the TFLOP/s reached; then the sums per step.
 """
 
 from __future__ import annotations
@@ -120,6 +127,66 @@ def main(root: str) -> None:
                   f"{dense_gf / ms:.1f} TFLOP/s on the dense work")
     print(f"conv per forward: {total['ms']:.2f} ms; GFLOP real {total['real']:.1f}, dense {total['dense']:.1f}; "
           f"{total['dense'] / total['ms']:.1f} TFLOP/s on the dense work")
+    del model, eb, captured
+    torch.cuda.empty_cache()
+    backward_shapes(cs, dev)
+
+
+def backward_shapes(cs, dev) -> None:
+    """The conv backward kernel per shape of one B = 5 train step, dx and dW apart."""
+    import numpy as np
+    import torch
+
+    from lidal_tpu_torch.config import SK_CONFIG, RunConfig
+    from lidal_tpu_torch.data.pipeline import prepare_train_batch
+    from lidal_tpu_torch.ops import cuda_conv_dxdw
+    from lidal_tpu_torch.runtime.train import train_step
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap, SK_CONFIG.batch_size)
+    tb = prepare_train_batch(torch.Generator().manual_seed(0),
+                             *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
+                             level_caps=SK_CONFIG.level_caps)
+    state = init_state(RunConfig(dataset_name="SK", model_name="Mink", seed=0), dev)
+    captured, calls = {}, {}
+    kernel, plain = cuda_conv_dxdw.conv_dx_dw, cuda_conv_dxdw.conv_dx_dw_plain
+
+    def recorder(src, w2, nbr, f, need_dx=True):
+        key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
+        calls[key] = calls.get(key, 0) + 1
+        captured.setdefault(key, (src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx)))
+        return kernel(src, w2, nbr, f, need_dx)
+
+    cuda_conv_dxdw.conv_dx_dw = recorder
+    try:
+        train_step(state, tb)
+    finally:
+        cuda_conv_dxdw.conv_dx_dw = kernel
+    del state, tb
+    total = {"ms": 0.0, "dw": 0.0, "gflop": 0.0}
+    for key in sorted(captured):
+        src, w2, nbr, f, need_dx = args = captured[key]
+        k, c_src, c_dst, c_f, m, n, _ = key
+        for nd in sorted({need_dx, False}):
+            got = kernel(src, w2, nbr, f, nd)
+            want = plain(src, w2, nbr, f, nd)
+            bound = plain(src.abs(), w2.abs(), nbr, f.abs(), nd)
+            for name, g, p, b in zip(("dx", "dwg"), got, want, bound):
+                if g is not None:
+                    cs.require(bool(((g - p).abs() <= cs.CONV_TOL * b).all()), f"conv_dx_dw {key} {name}")
+        ms = cs.cuda_ms(lambda: kernel(*args), reps=10)
+        dw_ms = cs.cuda_ms(lambda: kernel(src, w2, nbr, f, False), reps=10) if need_dx else ms
+        pairs = int(((nbr >= 0) & (nbr < n)).sum())
+        gflop = 2.0 * pairs * c_f * c_src / 1e9
+        c = calls[key]
+        total["ms"] += c * ms
+        total["dw"] += c * dw_ms
+        total["gflop"] += c * gflop
+        print(f"conv_dx_dw K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} x{c}: "
+              f"{ms:.3f} ms (dx {ms - dw_ms:.3f}, dW {dw_ms:.3f}); {pairs} real pairs, dW GFLOP {gflop:.2f}, "
+              f"{gflop / dw_ms:.1f} TFLOP/s")
+    print(f"conv_dx_dw per step: {total['ms']:.2f} ms (dx {total['ms'] - total['dw']:.2f}, dW {total['dw']:.2f}); "
+          f"dW GFLOP on real pairs {total['gflop']:.1f}, {total['gflop'] / total['dw']:.1f} TFLOP/s")
 
 
 if __name__ == "__main__":

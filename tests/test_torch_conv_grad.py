@@ -88,12 +88,27 @@ def test_plain_dx_dw_chunks_and_need_dx():
     np.testing.assert_array_equal(dwg2.numpy(), cuda_conv_dxdw.conv_dx_dw(*args)[1].numpy())
 
 
-@pytest.mark.parametrize("m,k,c_f,c_src", [(655360, 27, 4, 32), (655360, 27, 128, 96), (30720, 27, 384, 256), (5, 8, 8, 32), (0, 27, 4, 32)])
-def test_row_chunks_cover_rows_and_bound_the_workspace(m, k, c_f, c_src):
-    chunks, rows = cuda_conv_dxdw.row_chunks(m, k, c_f, c_src)
-    assert chunks >= 1 and rows % 32 == 0 or m == 0
-    assert chunks * rows >= m and (chunks - 1) * rows < max(m, 1)
-    assert chunks * k * c_f * c_src * 4 <= max(256 << 20, k * c_f * c_src * 4)
+@pytest.mark.parametrize("m,k,c_f,c_src", [
+    (655360, 27, 4, 32), (655360, 27, 128, 96), (655360, 27, 96, 96), (30720, 27, 384, 256), (10240, 27, 256, 256),
+    (163840, 8, 96, 96), (5, 8, 8, 32), (0, 27, 4, 32), (1 << 22, 27, 384, 256),
+])
+def test_pair_chunks_cover_pairs_and_bound_the_workspace(m, k, c_f, c_src):
+    """A tap's list (at most m pairs) is cut into S chunks of P pairs: P a
+    multiple of the 64-pair stage, at least 1024, S * P covers m with no
+    empty chunk at the end, the partials [K, S, c_f, c_src] stay within 256
+    MB (or one chunk), P is the least such size, and it leaves 4096 only
+    where the workspace forces it."""
+    chunks, per_chunk = cuda_conv_dxdw.pair_chunks(m, k, c_f, c_src)
+    assert chunks >= 1 and per_chunk >= 64 and per_chunk % 64 == 0
+    assert chunks * per_chunk >= m and (chunks - 1) * per_chunk < max(m, 1)
+    one = k * c_f * c_src * 4
+    assert chunks * one <= max(256 << 20, one)
+    if m:
+        assert per_chunk >= 1024
+        smaller = per_chunk - 64
+        assert smaller < 1024 or -(-m // smaller) * one > 256 << 20
+    assert per_chunk <= 4096 or -(-m // 4096) * one > 256 << 20
+    assert chunks <= 65535  # a grid dimension of the kernel
 
 
 @pytest.fixture(scope="module")

@@ -309,6 +309,70 @@ def test_conv_dx_dw_kernel_matches_plain_and_is_deterministic(plan_on):
         cuda_conv_dxdw.conv_dx_dw(src.double(), w2, nbr, f)
 
 
+def _dxdw_inputs(rng, m, n, k, c_src, c_dst, c_f, dev):
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(rng.standard_normal((n, c_src))), t(rng.standard_normal((k, c_src, c_dst)) / np.sqrt(k * c_src)),
+            t(rng.standard_normal((m, c_f))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty tap", "one pair", "stem", "unsorted and negative", "narrow c_f", "chunks"])
+def test_conv_dx_dw_weight_gradient_edge_cases(card, case):
+    """The dW half over per-tap pair lists: a tap that is all sentinel, a tap
+    with one real pair, the stem's c_f = 4 with ``need_dx=False`` (src as the
+    M operand, f in 8-column tiles), unsorted columns with negative and > n
+    indices, c_f = 12 (two 8-column tiles, the second half empty) and taps of
+    several chunks of pairs.  dwg within 1e-4 of plain_abs (the plain version
+    on |src| and |f|), no further from the plain version in f64 than 4 x the
+    f32 plain version (+ 1e-6 of plain_abs), bit-equal on a rerun; dx within
+    1e-4 * max(1, |plain|)."""
+    rng = np.random.default_rng(len(case))
+    m, n, k, c_src, c_dst, c_f, need_dx = {
+        "empty tap": (5000, 3000, 27, 64, 32, 64, True),
+        "one pair": (700, 600, 8, 32, 32, 32, True),
+        "stem": (20000, 20000, 27, 32, 4, 4, False),
+        "unsorted and negative": (9000, 8000, 27, 96, 96, 96, True),
+        "narrow c_f": (6000, 5000, 27, 64, 32, 12, False),
+        "chunks": (300000, 200000, 8, 64, 64, 128, True),
+    }[case]
+    nbr = rng.integers(0, n, (m, k)).astype(np.int32)
+    nbr[rng.random((m, k)) < 0.6] = n
+    if case == "empty tap":
+        nbr[:, 3] = n
+    elif case == "one pair":
+        nbr[:] = n
+        nbr[417, 5] = 123
+    elif case == "unsorted and negative":
+        neg, big = rng.random((2, m, k)) < 0.1
+        nbr[neg] = -rng.integers(1, 1 << 30, int(neg.sum()))
+        nbr[big] = n + rng.integers(0, 1 << 30, int(big.sum()))
+    nbr = torch.from_numpy(nbr).to(card)
+    src, w2, f = _dxdw_inputs(rng, m, n, k, c_src, c_dst, c_f, card)
+    dx, dwg = cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f, need_dx)
+    _, dwg2 = cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f, need_dx)
+    want_dx, want = cuda_conv_dxdw.conv_dx_dw_plain(src, w2, nbr, f, need_dx)
+    _, ref = cuda_conv_dxdw.conv_dx_dw_plain(src.double(), w2.double(), nbr, f.double(), need_dx=False)
+    _, bound = cuda_conv_dxdw.conv_dx_dw_plain(src.abs(), w2, nbr, f.abs(), need_dx=False)
+    assert dwg.shape == (k, c_f, c_src) and bool(dwg.isfinite().all())
+    assert bool(((dwg - want).abs() <= 1e-4 * bound).all()), float((dwg - want).abs().max())
+    e_k = float((dwg.double() - ref).abs().max())
+    e_p = float((want.double() - ref).abs().max())
+    assert e_k <= 4.0 * e_p + 1e-6 * float(bound.max()), (e_k, e_p)
+    assert torch.equal(dwg, dwg2), "dwg differs between two runs"
+    if need_dx:
+        assert bool(((dx - want_dx).abs() <= 1e-4 * want_dx.abs().clamp_min(1.0)).all())
+    else:
+        assert dx is None
+    if case == "empty tap":
+        assert not dwg[3].any() and dwg.abs().sum() > 0
+    if case == "one pair":
+        assert not dwg[torch.arange(k, device=card) != 5].any() and dwg[5].any()
+    if case == "chunks":  # every tap's list spans several chunks of pairs
+        counts = ((nbr >= 0) & (nbr < n)).sum(0)
+        assert int(counts.min()) > cuda_conv_dxdw.pair_chunks(m, k, c_f, c_src)[1]
+
+
 @pytest.mark.cuda
 def test_train_step_backward_kernel_matches_plain(card, monkeypatch):
     """One train step's gradients with the backward kernel against the plain
