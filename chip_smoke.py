@@ -74,8 +74,12 @@ supervoxel files from a coarse numpy grid, and round-1 flags.
 11. ``nn_band`` kernel vs its plain version at the main-path shape (26 slots x
     131072 queries, the grids of 26 consecutive frames, one of them the
     query): ``d2`` and ``row`` bit-equal on every query; edge cases (an empty
-    band, a table of only BIG rows, an exact tie, a pair at 0.1 m -+ 1 ulp);
-    kernel ms per launch, mean band length, pairs evaluated, the share of
+    band, a table of only BIG rows, an exact tie, a tie whose rows lie in two
+    groups visited out of row order, a pair at 0.1 m -+ 1 ulp); kernel ms per
+    launch, mean band length, the pairs in the bands and the pairs the kernel
+    evaluated (its device counter), the share of groups each query's own
+    bound excluded for matched and unmatched queries, the brute-force floor
+    of the bands' pairs, the kernel's ``-Xptxas -v`` line, the share of
     points with a match.
 12. the LiDAL slice at full width, ``inf_reps = 8``, from one set of seeded
     weights: (a) staged ``run_prob_inference`` -> ``run_lidal_round``; (b)
@@ -103,9 +107,11 @@ or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
     target (the plain version adds with atomics in no fixed order, and a
     level-4 voxel collects thousands of terms), no further from the plain
     version in f64 than F64_FACTOR times the f32 plain version is, bit-equal
-    across two runs.  The kernel's time includes building the transposed map
-    (an integer sort), which is also printed alone; ``library_ms`` is the
-    backward of that ``embedding_bag`` call.
+    across two runs; the transposed map the kernel builds on the card equal
+    to ``build_transpose``'s.  The kernel's time includes building that map,
+    which is also timed alone (beside ``torch.sort`` + ``searchsorted``,
+    the plain version's map), and the sum as the difference; ``library_ms`` is the backward of
+    that ``embedding_bag`` call.
 16. the SPVCNN eval slice: ``run_eval`` with ``model_name="SPVCNN"``, one
     warm-up batch and 3 timed batches; points/s, overflow, launches
     (``gather8`` 8 per batch); kernel path vs plain path logits as phase 6.
@@ -157,8 +163,10 @@ before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
-counting the work this run's data needs (real (row, tap) pairs of the convs,
-evaluated pairs of ``nn_band``); ``subm_conv`` and ``conv_dx_dw``, whose
+counting the work this run's data needs (real (row, tap) pairs of the convs);
+``nn_band``'s 8 operations per pair may not be fused into FMAs, so they are
+held to 33.5e12 unfused f32 operations/s (132 SMs x 128 lanes x 1.98 GHz),
+counting the pairs its pruned scan evaluated; ``subm_conv`` and ``conv_dx_dw``, whose
 products run on the tensor cores as three tf32 products each (split TF32, f32
 accuracy), are held to 495 / 3 TFLOP/s (phases 4 and 7 print their f32-FFMA
 bounds beside it); the bf16
@@ -213,6 +221,8 @@ SCORE_TOL = 1e-6  # a frame's device score on the card vs on the CPU (phase 23)
 # against 128 FP32 lanes)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# f32 operations that are not fused multiply-adds: 132 SMs x 128 lanes x 1.98 GHz (nn_band may not contract)
+PEAK_F32_UNFUSED = 132 * 128 * 1.98e9
 PEAK_I32 = PEAK_F32 / 2
 PEAK_BF16 = 989e12  # dense bf16 on the tensor cores
 PEAK_TF32 = 495e12  # dense tf32 on the tensor cores
@@ -731,11 +741,45 @@ def grid_phase(cfg, dev):
           f"{', '.join(on_cpu._fields)}; {cells} distinct x cells of {lidal.DIS_THRESH} m")
 
 
+def nn_band_groups_needed(tbl, q_t, blo, nb, d2):
+    """int32 [S, p]: per (slot, query) the groups of ``GROUP`` rows in its band
+    whose lower bound (each axis's rounded gap to the group's box, summed as
+    the kernel sums it) does not exceed the query's answer ``d2``.  An exact
+    scan over these boxes must evaluate every one of them, whatever its order;
+    the others it may skip once it holds the answer."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_nnband
+
+    group = cuda_nnband.GROUP
+    s, _, cap = tbl.shape
+    boxes = tbl.view(s, 3, cap // group, group)
+    lo, hi = boxes.amin(dim=3), boxes.amax(dim=3)  # [S, 3, cap / GROUP]
+    per_block = cuda_nnband.TN // group
+    out = torch.zeros(d2.shape, dtype=torch.int32, device=d2.device)
+    widest = nb.max(dim=0).values.tolist()
+    ar = torch.arange(max(widest + [0]) * per_block, device=d2.device)
+    for t, blocks in enumerate(widest):
+        if blocks == 0:
+            continue
+        cols = slice(t * cuda_nnband.TILE, (t + 1) * cuda_nnband.TILE)
+        g = (blo[:, t, None] * per_block + ar[None, : blocks * per_block]).clamp_max(cap // group - 1)
+        in_band = ar[None, : blocks * per_block] < nb[:, t, None] * per_block  # [S, W]
+        idx = g[:, None, :].expand(-1, 3, -1)
+        g_lo, g_hi = lo.gather(2, idx)[:, :, None, :], hi.gather(2, idx)[:, :, None, :]  # [S, 3, 1, W]
+        q = q_t[None, :, cols, None]  # [1, 3, TILE, 1]
+        gap = torch.where(q < g_lo, g_lo - q, torch.where(q > g_hi, q - g_hi, torch.zeros((), device=q.device)))
+        lb = (gap[:, 0] * gap[:, 0] + gap[:, 1] * gap[:, 1]) + gap[:, 2] * gap[:, 2]  # [S, TILE, W]
+        out[:, cols] = ((lb <= d2[:, cols, None]) & in_band[:, None, :]).sum(dim=2, dtype=torch.int32)
+    return out
+
+
 def nn_band_phase(cfg, dev):
     """11: the nn_band kernel against its plain version at the main-path shape
     and on edge cases.  Returns the kernel's record fields."""
     import torch
 
+    from lidal_tpu_torch import kernels_build
     from lidal_tpu_torch.active import lidal, nn_match
     from lidal_tpu_torch.ops import cuda_nnband
     from lidal_tpu_torch.prep.grid import load_grid_points
@@ -767,6 +811,8 @@ def nn_band_phase(cfg, dev):
         bad = int((d2 != d2_p).sum()), int((row != row_p).sum())
         require(bad == (0, 0), f"nn_band: {bad[0]} d2 and {bad[1]} row values differ from the plain version")
         err = float((d2 - d2_p).abs().nan_to_num(0.0, 0.0, 0.0).max())  # inf - inf where both bands are empty
+        c_d2, c_row, pairs, needed = cuda_nnband.nn_band_counted(*args)
+        require(torch.equal(c_d2, d2) and torch.equal(c_row, row), "nn_band with its counters differs")
         k_ms = cuda_ms(lambda: cuda_nnband.nn_band(*args))
         p_ms = cuda_ms(lambda: cuda_nnband.nn_band_plain(*args), reps=1, warmup=0)
 
@@ -776,16 +822,35 @@ def nn_band_phase(cfg, dev):
         per_slot = float(matched[others].float().sum(dim=1).mean()) / N_PTS
         require(share > 0, "no point of the query frame has a match in any neighbour")
         band_rows = float(nb.float().mean()) * cuda_nnband.TN
-        pairs = int(nb.long().sum()) * cuda_nnband.TN * cuda_nnband.TILE
+        band_pairs = int(nb.long().sum()) * cuda_nnband.TN * cuda_nnband.TILE
+        require(0 < pairs <= band_pairs, f"{pairs} pairs evaluated of the bands' {band_pairs}")
+        # the groups each real query's own bound could not exclude, against its band's groups
+        groups = nb.repeat_interleave(cuda_nnband.TILE, dim=1).float() * (cuda_nnband.TN // cuda_nnband.GROUP)
+        real = pq.s_ok[None, :] & others[:, None]
+        skipped = {name: 1.0 - float(needed[real & m].float().sum()) / max(float(groups[real & m].sum()), 1.0)
+                   for name, m in (("matched", matched), ("unmatched", ~matched))}
+        # the pairs this data needs: each query against the rows of the groups its answer cannot exclude
+        floor_groups = nn_band_groups_needed(*args, d2)
+        require(bool((needed >= floor_groups).all()), "a query's lane skipped a group its answer cannot exclude")
+        floor_pairs = int(floor_groups.long().sum()) * cuda_nnband.GROUP
         bound = Bound()
-        # per pair: 3 subtractions, 3 products, 2 sums (the compare and select are not counted)
-        bound.add(nbytes(*args, d2, row), 8.0 * pairs)
+        # per pair: 3 subtractions, 3 products, 2 sums, unfused (the compare and selects not counted)
+        bound.add(nbytes(*args, d2, row), 8.0 * floor_pairs, PEAK_F32_UNFUSED)
+        evaluated = 1e3 * 8.0 * pairs / PEAK_F32_UNFUSED
+        brute = 1e3 * 8.0 * band_pairs / PEAK_F32_UNFUSED
+        ptxas = [ln.strip() for ln in kernels_build.BUILD_LOG["nn_band"][1].splitlines() if "registers" in ln]
         print(f"[11 nn_band] {slots} slots x {cap} queries on tables of {cap} rows: d2 and row bit-equal to the plain "
               f"version on all {d2.numel()} (slot, query) pairs (plain took {plain_s:.1f} s the first time); kernel "
-              f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, bound {bound.total:.3f} ms (by {bound.by}); mean band "
-              f"{band_rows:.0f} rows per (slot, tile), {pairs:.3e} pairs per launch = "
-              f"{pairs / (k_ms * 1e-3):.3e} pairs/s; {share:.4f} of the query frame's points match in some neighbour, "
-              f"{per_slot:.4f} in one neighbour on average")
+              f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, bound {bound.total:.3f} ms (by {bound.by}: {floor_pairs:.4e} pairs, "
+              f"each query against the groups its answer cannot exclude, at {PEAK_F32_UNFUSED:.3g} unfused f32 "
+              f"operations/s); at that rate the pairs the warps evaluated {evaluated:.3f} ms and a brute-force scan of "
+              f"the bands {brute:.3f} ms; mean band {band_rows:.0f} rows per (slot, tile), {band_pairs:.4e} pairs in "
+              f"the bands ({floor_pairs / band_pairs:.4f} needed), {pairs:.4e} evaluated "
+              f"({pairs / band_pairs:.4f}) = {pairs / (k_ms * 1e-3):.4e} pairs/s; groups "
+              f"skipped by their own bound: {skipped['matched']:.4f} for matched, {skipped['unmatched']:.4f} for "
+              f"unmatched queries; {share:.4f} of the query frame's points match in some neighbour, {per_slot:.4f} in "
+              f"one neighbour on average")
+        print(f"[11 nn_band] ptxas: {' | '.join(ptxas)}")
 
         # edge cases: an empty band, only BIG rows, an exact tie, a pair at 0.1 m -+ 1 ulp
         e_cap, e_p = 2 * cuda_nnband.TN, cuda_nnband.TILE
@@ -811,8 +876,18 @@ def nn_band_phase(cfg, dev):
         b_d2, b_row = cuda_nnband.nn_band(*big)
         require(torch.equal(b_d2, cuda_nnband.nn_band_plain(*big)[0]) and bool(torch.isfinite(b_d2).all())
                 and not bool(b_row.any()), "a table of only BIG rows")
-        print("[11 nn_band] edge cases bit-equal: empty band -> (inf, 0); only BIG rows; tie -> lowest row; "
-              "0.1 m - 1 ulp matches, + 1 ulp does not")
+        # a tie at rows 0 and 1040 whose groups are visited out of row order: the box of the group of row 1040
+        # holds the queries, the group of row 0 lies 0.3 m away
+        tbl = torch.full((1, 3, e_cap), cuda_nnband.BIG_COORD)
+        tbl[0, :, 0:32] = torch.tensor([0.3, 0.0, 0.0])[:, None]
+        tbl[0, :, 1024:1056] = torch.tensor([0.35, 0.0, 0.0])[:, None]
+        tbl[0, :, 1040] = torch.tensor([-0.3, 0.0, 0.0])
+        t_args = [tbl.to(dev), e_args[1], e_args[2][:1].contiguous(), torch.full((1, 1), 2, dtype=torch.int32, device=dev)]
+        t_d2, t_row = cuda_nnband.nn_band(*t_args)
+        require(torch.equal(t_d2, cuda_nnband.nn_band_plain(*t_args)[0]) and bool((t_row == 0).all()),
+                "a tie across groups visited out of row order: the lowest row must win")
+        print("[11 nn_band] edge cases bit-equal: empty band -> (inf, 0); only BIG rows; tie -> lowest row, also across "
+              "groups visited out of row order; 0.1 m - 1 ulp matches, + 1 ulp does not")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound.total, "bound_by": bound.by}
 
 
@@ -942,7 +1017,8 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
     agg(mid, N_PTS, gxyz[mid], scores)
     t_agg = 1e3 * (time.perf_counter() - t0)
     print(f"[12 slice] one fused frame (CUDA events, mean of 3): inference ({cfg.inf_reps} views) {t_infer:.1f} ms, ring "
-          f"insert {t_insert:.1f} ms, score_slot {t_slot:.1f} ms of which nn_band {t_band:.1f} ms and band bounds + "
+          f"insert {t_insert:.1f} ms, score_slot {t_slot:.1f} ms of which nn_band {t_band:.3f} ms (its one launch a "
+          f"frame) and band bounds + "
           f"accumulation {t_slot - t_band:.1f} ms; host aggregate {t_agg:.1f} ms (host clock)")
     del model, ring, prob
     torch.cuda.empty_cache()
@@ -1101,7 +1177,7 @@ def scatter8_phase(state, tb):
         cuda_gather8.scatter8 = kernel
     require(len(captured) == 2, f"{len(captured)} scatter8 shapes in one train step, not 2")
 
-    err = k_total = p_total = lib_total = 0.0
+    err = k_total = t_total = p_total = lib_total = 0.0
     least = Bound()
     for key in sorted(captured):
         dy, nbr, w8, n = args = captured[key]
@@ -1122,11 +1198,16 @@ def scatter8_phase(state, tb):
         real = (nbr >= 0) & (nbr < n)
         pairs = int(real.sum())
         rows = int(real.any(dim=1).sum())  # dy rows with a real tap: what this map reads
-        fan = torch.diff(cuda_gather8.build_transpose(nbr, n)[1])
+        order, offsets = cuda_gather8.transpose_map(nbr, n)
+        want_order, want_offsets = cuda_gather8.build_transpose(nbr, n)
+        require(torch.equal(offsets, want_offsets) and torch.equal(order[:pairs], want_order[:pairs]),
+                f"scatter8 {key}: the device-built map differs from build_transpose")
+        fan = torch.diff(offsets)
         b_ms = least.add(nbytes(nbr, w8, got) + 4.0 * rows * c, 2.0 * pairs * c)
-        del ref, abs_sum, want, d
+        del ref, abs_sum, want, d, order, want_order
         k_ms = cuda_ms(lambda: kernel(*args))
-        t_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
+        t_ms = cuda_ms(lambda: cuda_gather8.transpose_map(nbr, n))
+        s_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
         p_ms = cuda_ms(lambda: plain(*args), reps=3)
         # the library call of the same function: the backward of embedding_bag (atomics)
         fx = torch.zeros((n + 1, c), device=dy.device, requires_grad=True)
@@ -1137,11 +1218,13 @@ def scatter8_phase(state, tb):
         lib_ms = cuda_ms(lambda: torch.autograd.grad(bag, fx, dy, retain_graph=True), reps=3)
         del bag, fx, lib
         k_total += k_ms
+        t_total += t_ms
         p_total += p_ms
         lib_total += lib_ms
         print(f"[15 scatter8] m={m} n={n} c={c}: max|d|={e:.2e} (tol {SCATTER_TOL} of sum |w8||dy|), from f64 {e_k:.1e} "
-              f"(plain {e_p:.1e}), bit-equal across runs; kernel {k_ms:.3f} ms of which the transposed map "
-              f"{t_ms:.3f} ms, plain {p_ms:.3f} ms, embedding_bag backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms; "
+              f"(plain {e_p:.1e}), bit-equal across runs, device map == build_transpose; kernel {k_ms:.3f} ms: the "
+              f"transposed map {t_ms:.3f} ms (torch.sort + searchsorted {s_ms:.3f}), the sum {k_ms - t_ms:.3f} ms "
+              f"(difference); plain {p_ms:.3f} ms, embedding_bag backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms; "
               f"{pairs} real pairs from {rows} rows, per target mean {float(fan.float().mean()):.0f}, max {int(fan.max())}")
     # as in phase 14: the same shapes with a full map (a level-4 voxel then collects 512 pairs)
     for (m, n, c) in sorted(captured):
@@ -1151,13 +1234,21 @@ def scatter8_phase(state, tb):
         want, abs_sum = plain(dy, nbr, w8, n), plain(dy.abs(), nbr, w8.abs(), n)
         require(bool(((got - want).abs() <= SCATTER_TOL * abs_sum).all()), f"scatter8 on a full map {m, n, c}")
         del want, abs_sum
+        order, offsets = cuda_gather8.transpose_map(nbr, n)
+        want_order, want_offsets = cuda_gather8.build_transpose(nbr, n)
+        require(torch.equal(offsets, want_offsets) and torch.equal(order, want_order),
+                f"scatter8 on a full map {m, n, c}: the device-built map differs from build_transpose")
+        del order, want_order
         k_ms = cuda_ms(lambda: kernel(dy, nbr, w8, n))
-        t_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
+        t_ms = cuda_ms(lambda: cuda_gather8.transpose_map(nbr, n))
+        s_ms = cuda_ms(lambda: cuda_gather8.build_transpose(nbr, n))
         b_ms = 1e3 * nbytes(dy, nbr, w8, got) / PEAK_BYTES
         print(f"[15 scatter8] full map m={m} n={n} c={c} ({8 * m // n} pairs per target): within tolerance, bit-equal "
-              f"across runs; kernel {k_ms:.3f} ms of which the transposed map {t_ms:.3f} ms, bound {b_ms:.3f} ms")
+              f"across runs, device map == build_transpose; kernel {k_ms:.3f} ms: the transposed map {t_ms:.3f} ms "
+              f"(torch.sort + searchsorted {s_ms:.3f}), the sum {k_ms - t_ms:.3f} ms (difference); bound {b_ms:.3f} ms")
         del dy, nbr, w8, got
-    print(f"[15 scatter8] 2 calls per train step: kernel {k_total:.2f} ms, plain {p_total:.2f} ms, embedding_bag "
+    print(f"[15 scatter8] 2 calls per train step: kernel {k_total:.3f} ms (the transposed maps {t_total:.3f} ms, the sums "
+          f"{k_total - t_total:.3f} ms), plain {p_total:.2f} ms, embedding_bag "
           f"backward {lib_total:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
     return {"max_abs_err": err, "ms": k_total, "plain_ms": p_total, "bound_ms": least.total, "bound_by": least.by,
             "library_ms": lib_total}

@@ -40,7 +40,7 @@ _BUILD_LOCKS_GUARD = threading.Lock()
 # launches kernels from two threads (inference prefetch and scoring).
 LAUNCH_LOCK = threading.Lock()
 # name -> (seconds spent building, or 0.0 when the library was already built;
-#          the compiler's resource report)
+#          the compiler's resource report, kept beside the library)
 BUILD_LOG: dict = {}
 
 
@@ -106,8 +106,11 @@ def _build_and_load(name: str) -> ctypes.CDLL:
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial library
         report = proc.stderr
+        so.with_suffix(".ptxas.txt").write_text(report)
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial library
+    elif so.with_suffix(".ptxas.txt").exists():
+        report = so.with_suffix(".ptxas.txt").read_text()
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     BUILD_LOG[name] = (seconds, report)

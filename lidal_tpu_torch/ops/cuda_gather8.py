@@ -11,7 +11,9 @@ An index outside ``[0, n)`` is the sentinel and contributes zero; map columns
 need not be sorted.  A CUDA tensor launches the kernel; a CPU tensor takes the
 plain version.  ``gather8`` is bit-equal to :func:`gather8_plain` (the same
 products and sums in the same order, each rounded on its own).  ``scatter8``
-sums without atomics in an order the map fixes, so it gives the same bits on
+builds its transposed map on the card (integer atomics, then a sort of each
+target's segment, so the map equals :func:`build_transpose`'s) and sums
+without float atomics in an order the map fixes, so it gives the same bits on
 every run; :func:`scatter8_plain` is ``index_add_``, whose order on a card is
 not fixed, so the two agree within a tolerance scaled by ``sum |w8| |dy|`` per
 target.
@@ -32,7 +34,7 @@ TAPS = 8
 GATHER8_LAUNCHES = 0
 SCATTER8_LAUNCHES = 0
 
-_MAX_SCATTER_C = 1024  # one block of 256 threads covers a row in 16-byte slices
+_MAX_SCATTER_C = 1024  # a warp covers a row in at most 8 float4 slices a lane
 
 
 def _check(rows, nbr, w8) -> None:
@@ -117,7 +119,7 @@ def scatter8_plain(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int
 
 
 def build_transpose(nbr: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The map seen from its targets, as plan data for the scatter8 kernel:
+    """The map seen from its targets (plain version of :func:`transpose_map`):
     ``order`` int32 [m * 8], the (row, tap) pairs ``i * 8 + k`` sorted by
     target (stable, so a target's pairs ascend; sentinels last), and
     ``offsets`` int32 [n + 1]: target t owns ``order[offsets[t]:offsets[t + 1]]``.
@@ -127,6 +129,40 @@ def build_transpose(nbr: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tens
     targets = torch.arange(n + 1, dtype=key.dtype, device=key.device)
     offsets = torch.searchsorted(sorted_key, targets, out_int32=True)
     return order.to(torch.int32), offsets
+
+
+def _map_scratch(nbr: torch.Tensor, n: int):
+    """(counts, offsets [n + 1], order [m * 8], tmp [m * 8]) int32 views of one
+    device allocation: the scratch of the map kernels (counts holds the
+    per-target counts, the list of long segments and the scan's tile sums:
+    2 n + 2 + n // 4096 entries)."""
+    m8 = nbr.numel()
+    c = 2 * n + 2 + n // 4096
+    ws = torch.empty(c + n + 1 + 2 * m8, dtype=torch.int32, device=nbr.device)
+    return ws[:c], ws[c : c + n + 1], ws[c + n + 1 : c + n + 1 + m8], ws[c + n + 1 + m8 :]
+
+
+def transpose_map(nbr: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, offsets)`` of :func:`build_transpose`, built on a card by the
+    kernels that :func:`scatter8` runs first (count, scan, fill, segment sort),
+    with no host sync.  ``offsets`` and ``order[:offsets[n]]`` equal
+    :func:`build_transpose`'s; the rest of ``order`` is scratch.  For checks:
+    :func:`scatter8` builds its map in the same call as its sum."""
+    if nbr.device.type == "cpu":
+        return build_transpose(nbr, n)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"transpose_map runs on CPU or CUDA tensors, got {nbr.device}")
+    if nbr.dim() != 2 or nbr.shape[1] != TAPS or nbr.dtype != torch.int32 or not nbr.is_contiguous():
+        raise ValueError(f"nbr must be a contiguous int32 [m, {TAPS}] tensor, got {nbr.dtype} {tuple(nbr.shape)}")
+    if nbr.numel() >= 2**31 or n >= 2**31 - 1:
+        raise ValueError(f"the map kernels index pairs and targets in 32 bits (m * 8 = {nbr.numel()}, n = {n})")
+    counts, offsets, order, tmp = _map_scratch(nbr, n)
+    fn = kernels_build.function("gather8", "lidal_transpose8", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with torch.cuda.device(nbr.device):
+        err = fn(nbr.data_ptr(), counts.data_ptr(), offsets.data_ptr(), order.data_ptr(), tmp.data_ptr(),
+                 nbr.shape[0], n, torch.cuda.current_stream().cuda_stream)
+    kernels_build.check(err, "transpose_map")
+    return order, offsets
 
 
 def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> torch.Tensor:
@@ -153,12 +189,13 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> t
     out = torch.empty((n, c), dtype=torch.float32, device=dy.device)
     if n * c == 0:
         return out
-    order, offsets = build_transpose(nbr, n)
+    counts, offsets, order, tmp = _map_scratch(nbr, n)
     fn = kernels_build.function(
-        "gather8", "lidal_scatter8", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        "gather8", "lidal_scatter8", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dy.device):
-        err = fn(dy.data_ptr(), w8.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, c,
+        err = fn(dy.data_ptr(), w8.data_ptr(), nbr.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
+                 order.data_ptr(), tmp.data_ptr(), out.data_ptr(), nbr.shape[0], n, c,
                  torch.cuda.current_stream().cuda_stream)
     global SCATTER8_LAUNCHES
     with kernels_build.LAUNCH_LOCK:

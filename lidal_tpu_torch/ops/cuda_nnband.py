@@ -6,7 +6,9 @@ launches the kernel; a CPU tensor takes :func:`nn_band_plain`, which has the
 semantics of ``nn_band_xla`` there: full pairwise f32
 ``(dx*dx + dy*dy) + dz*dz`` over the block-rounded band of each (slot, query
 tile), the minimum, and the lowest row among ties; ``(inf, 0)`` for an empty
-band.  The kernel is bit-equal to the plain version, ``d2`` and ``row``.
+band.  The kernel is bit-equal to the plain version, ``d2`` and ``row``: it
+skips a group of ``GROUP`` cell-sorted rows only where a lower bound that is
+exact under rounding exceeds every query's best so far (``csrc/nn_band.cu``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from lidal_tpu_torch import kernels_build
 
 TILE = 256  # queries per band (one query tile)
 TN = 1024  # table rows per band block
+GROUP = 32  # rows per box of the kernel's pruned scan (kGroup of csrc/nn_band.cu)
+WINDOW = 2048  # rows the kernel stages in shared memory at once (kWindow)
 BIG_COORD = 1.0e9  # padding coordinate of invalid table rows (``build_grid``)
 
 # Kernel launches since import (or since a caller reset it).
@@ -93,8 +97,24 @@ def nn_band(tbl, q_t, blo, nb) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     if tbl.device.type == "cpu":
         return nn_band_plain(tbl, q_t, blo, nb)
+    d2, row, _, _ = _launch(tbl, q_t, blo, nb, counted=False)
+    return d2, row
+
+
+def nn_band_counted(tbl, q_t, blo, nb) -> Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """:func:`nn_band` on a card with the kernel's statistics: ``(d2, row,
+    pairs, needed)``, where ``pairs`` is the number of (query, row) pairs the
+    kernel evaluated (its warps scan a group of ``GROUP`` rows for all 32
+    queries or skip it) and ``needed`` int32 [S, p] the groups each query's
+    own lower bound could not exclude.  Reads the counter back (a sync): for
+    checks and measurements, not for the main path."""
+    d2, row, pairs, needed = _launch(tbl, q_t, blo, nb, counted=True)
+    return d2, row, int(pairs.item()), needed
+
+
+def _launch(tbl, q_t, blo, nb, counted: bool):
     if tbl.device.type != "cuda":
-        raise ValueError(f"nn_band runs on CPU or CUDA tensors, got {tbl.device}")
+        raise ValueError(f"the nn_band kernel runs on CUDA tensors, got {tbl.device}")
     s, cap, p, tiles = _check(tbl, q_t, blo, nb)
     if s > 65535:
         raise ValueError(f"nn_band takes at most 65535 slots, got {s}")
@@ -106,18 +126,23 @@ def nn_band(tbl, q_t, blo, nb) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError("tbl must be 16-byte aligned (float4 loads)")
     d2 = torch.empty((s, p), dtype=torch.float32, device=tbl.device)
     row = torch.empty((s, p), dtype=torch.int32, device=tbl.device)
+    pairs = needed = None
+    if counted:
+        pairs = torch.zeros((), dtype=torch.int64, device=tbl.device)
+        needed = torch.empty((s, p), dtype=torch.int32, device=tbl.device)
     if s * p == 0:
-        return d2, row
+        return d2, row, pairs, needed
     fn = kernels_build.function(
-        "nn_band", "lidal_nn_band", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        "nn_band", "lidal_nn_band", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     )
     with torch.cuda.device(tbl.device):
         err = fn(
             tbl.data_ptr(), q_t.data_ptr(), blo.data_ptr(), nb.data_ptr(), d2.data_ptr(), row.data_ptr(),
-            s, cap, p, torch.cuda.current_stream().cuda_stream,
+            s, cap, p, None if pairs is None else pairs.data_ptr(), None if needed is None else needed.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES
     with kernels_build.LAUNCH_LOCK:
         LAUNCHES += 1
     kernels_build.check(err, "nn_band")
-    return d2, row
+    return d2, row, pairs, needed

@@ -20,7 +20,9 @@ plain version (the same products and sums in the same order, no FMA);
 ``scatter8`` within 1e-5 of ``sum |w8| |dy|`` per target of its plain version
 (``index_add_``, atomics in no fixed order on a card), no further from the plain
 version in f64 than 4 times the f32 plain version is, and bit-equal across
-two runs.  The bf16 probe kernels (``conv_gather_first``, ``conv_byte_planes``,
+two runs; its transposed map, built on the card, equal to ``build_transpose``'s.
+``nn_band``'s pruned scan is bit-equal to the plain version and evaluates
+fewer pairs than its bands hold.  The bf16 probe kernels (``conv_gather_first``, ``conv_byte_planes``,
 ``conv_dx_dw_fused``) within 1e-5 of the abs-sum form of their plain versions
 (products of bf16 values are exact in f32, so only the order of the f32 sums
 differs); ``pipelined`` bit-equal to not, the byte planes bit-equal to the bf16
@@ -479,6 +481,43 @@ def test_nn_band_kernel_edge_cases(card):
     assert torch.equal(d2b, cuda_nnband.nn_band_plain(*big)[0])
 
 
+@pytest.mark.cuda
+def test_nn_band_kernel_prunes_groups_exactly(card):
+    """The pruned scan on registered frames whose bands span many groups:
+    bit-equal to the plain version, fewer pairs evaluated than the bands hold,
+    and a tie whose two rows lie in groups visited out of row order (the
+    group of the higher row holds the query in its box, so it comes first)."""
+    from lidal_tpu_torch.active import nn_match
+    from lidal_tpu_torch.ops import cuda_nnband
+
+    n, slots = 30000, 4
+    frames = _registered_frames(62, slots + 1, n, extent=8.0)
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    grids = nn_match.stack_grids([nn_match.build_grid(f.to(card), valid, 0.1) for f in frames[1:]])
+    pq = nn_match.prepared_from_grid(nn_match.build_grid(frames[0].to(card), valid, 0.1))
+    blo, nb = nn_match.band_bounds(grids, pq)
+    d2, row, pairs, needed = cuda_nnband.nn_band_counted(grids.planar, pq.q_t, blo, nb)
+    d2_p, row_p = cuda_nnband.nn_band_plain(grids.planar, pq.q_t, blo, nb)
+    assert torch.equal(d2, d2_p) and torch.equal(row, row_p)
+    band_pairs = int(nb.long().sum()) * cuda_nnband.TN * cuda_nnband.TILE
+    assert 0 < pairs < band_pairs and pairs % (cuda_nnband.GROUP * 32) == 0
+    band_groups = nb.repeat_interleave(cuda_nnband.TILE, dim=1) * (cuda_nnband.TN // cuda_nnband.GROUP)
+    assert bool((needed >= 0).all()) and bool((needed <= band_groups).all())
+    assert int(needed.long().sum()) <= pairs // cuda_nnband.GROUP  # a lane's needed groups were scanned
+    # the main-path launch gives the same answer
+    assert all(torch.equal(a, b) for a, b in zip(cuda_nnband.nn_band(grids.planar, pq.q_t, blo, nb), (d2, row)))
+
+    cap, p = 2048, 256
+    tbl = torch.full((1, 3, cap), cuda_nnband.BIG_COORD)
+    tbl[0, :, 0:32] = torch.tensor([0.3, 0.0, 0.0])[:, None]  # group 0: 32 rows at 0.3 m
+    tbl[0, :, 1024:1056] = torch.tensor([0.35, 0.0, 0.0])[:, None]  # group 32: its box holds the query
+    tbl[0, :, 1040] = torch.tensor([-0.3, 0.0, 0.0])
+    args = [t.to(card) for t in (tbl, torch.zeros((3, p)), torch.zeros((1, 1), dtype=torch.int32),
+                                 torch.full((1, 1), 2, dtype=torch.int32))]
+    d2, row = cuda_nnband.nn_band(*args)
+    assert torch.equal(d2, cuda_nnband.nn_band_plain(*args)[0]) and bool((row == 0).all())
+
+
 def _random_map(rng, m, n, density=0.8):
     """[m, 8] targets in no order, duplicates within a row, all-sentinel rows, an
     index below 0 and one past the sentinel."""
@@ -521,6 +560,58 @@ def test_scatter8_kernel_matches_plain_and_is_deterministic(card, m, n, c):
     torch.cuda.synchronize()
     assert cuda_gather8.SCATTER8_LAUNCHES == before + 1
     assert torch.equal(got, cuda_gather8.scatter8(dy, nbr, w8, n))  # no atomics: the same bits
+    plain = cuda_gather8.scatter8_plain(dy, nbr, w8, n)
+    abs_sum = cuda_gather8.scatter8_plain(dy.abs(), nbr, w8.abs(), n)
+    assert bool(((got - plain).abs() <= 1e-5 * abs_sum + 1e-12).all())
+    ref = cuda_gather8.scatter8_plain(dy.double(), nbr, w8.double(), n)
+    e_k, e_p = float((got.double() - ref).abs().max()), float((plain.double() - ref).abs().max())
+    assert e_k <= 4.0 * e_p + 1e-6 * float(abs_sum.max())
+
+
+def _edge_maps(rng):
+    """Maps for the transposed-map kernels: random with duplicates and
+    out-of-range targets, all sentinels, a row whose 8 taps share one
+    target, and segments of ~3800 and of more than 2^16 pairs (both sorted
+    by counting)."""
+    maps = {"random": (_random_map(rng, 3000, 500), 500), "all sentinel": (torch.full((300, 8), 40, dtype=torch.int32), 40)}
+    one = _random_map(rng, 200, 60)
+    one[17] = 9
+    maps["one row, one target"] = (one, 60)
+    long = torch.from_numpy(rng.integers(-3, 50, size=(2000, 8)).astype(np.int32))
+    long[rng.random((2000, 8)) < 0.19] = 7
+    maps["long segment"] = (long, 50)
+    past = torch.from_numpy(rng.integers(0, 10, size=(10000, 8)).astype(np.int32))
+    past[:, 1:] = 3
+    maps["segment past 2^16"] = (past, 10)  # 70,000+ pairs on target 3
+    return maps
+
+
+@pytest.mark.cuda
+def test_scatter8_device_map_equals_build_transpose(card):
+    rng = np.random.default_rng(17)
+    for name, (nbr, n) in _edge_maps(rng).items():
+        order, offsets = cuda_gather8.transpose_map(nbr.to(card), n)
+        want_order, want_offsets = cuda_gather8.build_transpose(nbr, n)
+        assert torch.equal(offsets.cpu(), want_offsets), name
+        real = int(want_offsets[-1])
+        assert torch.equal(order[:real].cpu(), want_order[:real]), name
+    assert int(torch.diff(want_offsets).max()) > 2048  # the long segment is long
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c,fan", [(40000, 20000, 128, 1), (20000, 2500, 256, 64), (4000, 20, 128, 1600)])
+def test_scatter8_sum_kernel_within_tolerance_and_reruns(card, m, n, c, fan):
+    """A warp per target (a few pairs a target, as the step's second call),
+    segments of ~64 (the first call's longest) and segments split over the
+    block's warps (1600 pairs a target)."""
+    rng = np.random.default_rng(m + c)
+    dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
+    base = np.minimum(np.arange(m)[:, None] * n // m + np.arange(8)[None, :] * (fan > 1), n - 1)
+    nbr = np.where(rng.random((m, 8)) < 0.3 if fan == 1 else np.zeros((m, 8), bool), base, n).astype(np.int32)
+    nbr = torch.from_numpy(nbr).to(card)
+    w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
+    got = cuda_gather8.scatter8(dy, nbr, w8, n)
+    assert torch.equal(got, cuda_gather8.scatter8(dy, nbr, w8, n))
     plain = cuda_gather8.scatter8_plain(dy, nbr, w8, n)
     abs_sum = cuda_gather8.scatter8_plain(dy.abs(), nbr, w8.abs(), n)
     assert bool(((got - plain).abs() <= 1e-5 * abs_sum + 1e-12).all())
