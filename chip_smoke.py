@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's eval, train and LiDAL-round paths, with MinkUNet
-and with SPVCNN, its three probe entry points and every selection metric, on
+and with SPVCNN, on SemanticKITTI and on nuScenes, its prep stages, its
+checkpoint import, its three probe entry points and every selection metric, on
 an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one card
@@ -156,10 +157,37 @@ whose maps they share (19 and 20 after 4, 21 and 22 after 7).
     flag files, the expected number of frames or points added, the three
     device scores within 1e-6 of the CPU's, seconds per metric.
 
+Phases 24-28 drive the nuScenes path on a temporary v1.0-trainval-like tree
+(``write_nu_tree``): a train scene of 40 keyframes (nuScenes's 20 s at 2 Hz)
+and a val scene of 30, each keyframe 34,700 points of 5 columns, all of one
+static world at map coordinates of ~10^3 m seen from a route that moves
+2.5 m and turns 0.5 degrees a keyframe, through a LIDAR_TOP mounted with
+nuScenes's rotation, with 1 cm of noise; ``NU_CONFIG``'s widths and caps.
+
+24. ``prep_command`` grids, supervoxels (the native k-means; its g++ build
+    timed apart), bootstrap, and vccs and boundary over the first 4 frames:
+    seconds per stage, artifact counts, the supervoxel count.
+25. the NU eval slice as phases 5 and 6, with MinkUNet and with SPVCNN:
+    ``evaluate_command`` once as the warm-up, then ``run_eval`` over 3
+    batches of B = 2 x 15 = 30 val keyframes (1,966,080 rows at level 0);
+    points/s, overflow, launches; kernel path vs plain path logits.
+26. the NU train slice as phase 8 through ``_build_nu_train_loader``
+    (``metric_name="full"``), B = 15, 1 + 5 steps: steps/s, points/s, the
+    step split, the checkpoint round trip, descent.
+27. ``build_grid`` on the card == the CPU's for a registered NU frame;
+    ``nn_band`` at 26 slots x 65536 queries bit-equal to its plain version;
+    staged and fused NU rounds (``inf_reps = 8``, the frames enumerated as
+    ``cli/commands._dataset_frames`` does) with identical prob / pred npys,
+    statistics and ``sv_flag`` files, some supervoxel selected; frames/s.
+28. the seeded NU MinkUNet and SPVCNN exported to a torchsparse-layout
+    ``current.pt``, imported by ``import_torch_command`` and restored by
+    ``_load_eval_variables``: logits on the 30-frame batch bit-equal to the
+    source model's.
+
 The launch counts of the JSON record are those of the main paths (the eval
-runs of phases 5 and 16, the train runs of phases 8 and 17, the fused rounds
-of phases 12 and 18, the probes' run of phase 22), each counted from 0 just
-before it.  ``bound_ms`` is the least time the card could
+runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
+rounds of phases 12, 18 and 27, the probes' run of phase 22), each counted
+from 0 just before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
@@ -216,6 +244,13 @@ PROBE_TOL = 1e-5  # bf16 probe kernels vs their plain versions, share of the abs
 SCORE_VIEWS = 2  # views of phase 23's inference (the scorers read maps; their depth is no concern of theirs)
 SCORE_SEQS = 4  # sequences of phase 23's frame-level tree, all pointing at the ROUND_FRAMES frames' maps
 SCORE_TOL = 1e-6  # a frame's device score on the card vs on the CPU (phase 23)
+NU_TRAIN_SCENE, NU_VAL_SCENE = "scene-0001", "scene-0003"  # a train and a val scene of the official split
+NU_TRAIN_FRAMES, NU_VAL_FRAMES = 40, 30  # keyframes: nuScenes's 20 s scenes at 2 Hz; the val scene is one eval batch
+NU_PTS = 34_700  # points of a nuScenes LIDAR_TOP keyframe
+NU_WORLD_POINTS = 200_000  # points of the static world both NU scenes see
+NU_ORIGIN = np.array([1010.0, 1610.0, 0.0])  # map coordinates (m) of the NU route's start, as in Boston seaport's map
+NU_STEP, NU_TURN = 2.5, 0.5  # metres and degrees the NU ego moves and turns a keyframe
+NU_PREP_FRAMES = 4  # frames of the vccs and boundary stages (host code)
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 FLOP/s outside the tensor
 # cores; integer compares are taken at half the f32 rate (64 INT32 lanes per SM
 # against 128 FP32 lanes)
@@ -523,9 +558,10 @@ def step_split(state, batch, gen, caps, dev, spvcnn=False):
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)], tb
 
 
-def train_slice_phase(cfg, dev, caps, tag="8 slice"):
-    """8 (MinkUNet) and 17 (SPVCNN): run_train through its loader; returns (the
-    trained state, a batch, each kernel's launches in the run)."""
+def train_slice_phase(cfg, dev, caps, tag="8 slice", n_pts=N_PTS):
+    """8 (MinkUNet), 17 (SPVCNN) and 26 (nuScenes): run_train through its
+    loader over frames of ``n_pts`` points; returns (the trained state, a
+    batch, each kernel's launches in the run)."""
     import torch
 
     from lidal_tpu_torch.runtime.paths import Paths
@@ -549,8 +585,9 @@ def train_slice_phase(cfg, dev, caps, tag="8 slice"):
     require(per_step == ((8, 2) if spvcnn else (0, 0)), f"gather8 and scatter8 launched {per_step} times per step")
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     seconds = times[-1] - times[0]
-    print(f"[{tag}] run_train ({cfg.model_name}): {TIMED_STEPS} steps of {b_train} x {N_PTS}-point frames after 1 warm-up in "
-          f"{seconds:.3f} s = {TIMED_STEPS / seconds:.3f} steps/s = {TIMED_STEPS * b_train * N_PTS / seconds:,.0f} "
+    print(f"[{tag}] run_train ({cfg.dataset_name} {cfg.model_name}): {TIMED_STEPS} steps of {b_train} x {n_pts}-point "
+          f"frames after 1 warm-up in {seconds:.3f} s = {TIMED_STEPS / seconds:.3f} steps/s = "
+          f"{TIMED_STEPS * b_train * n_pts / seconds:,.0f} "
           f"points/s; losses {[round(x, 4) for x in losses]}; launches {launches}")
 
     path = ckpt.ckpt_path(Paths(cfg).ckpt_dir())
@@ -717,8 +754,9 @@ def write_round_tree(root, rng, cfg):
     return gid
 
 
-def grid_phase(cfg, dev):
-    """10: build_grid on the card == build_grid on the CPU, field by field."""
+def grid_phase(cfg, dev, seq="00", name=f"{ROUND_FRAMES // 2:06d}", n_pts=N_PTS, tag="10 grid"):
+    """10 (and 27 on nuScenes): build_grid on the card == build_grid on the
+    CPU, field by field, for the registered frame ``name`` of ``seq``."""
     import torch
 
     from lidal_tpu_torch.active import lidal
@@ -726,18 +764,20 @@ def grid_phase(cfg, dev):
     from lidal_tpu_torch.prep.grid import load_grid_points
     from lidal_tpu_torch.runtime.paths import Paths
 
-    xyz = load_grid_points(os.path.join(Paths(cfg).grid_dir("00"), f"{ROUND_FRAMES // 2:06d}.npz")).astype(np.float32)
-    require(xyz.shape == (N_PTS, 3), f"registered frame {xyz.shape}")
+    xyz = load_grid_points(os.path.join(Paths(cfg).grid_dir(seq), f"{name}.npz")).astype(np.float32)
+    require(xyz.shape == (n_pts, 3), f"registered frame {xyz.shape}")
     pad = np.zeros((cfg.data.point_cap, 3), np.float32)
-    pad[:N_PTS] = xyz
-    valid = np.arange(cfg.data.point_cap) < N_PTS
+    pad[:n_pts] = xyz
+    valid = np.arange(cfg.data.point_cap) < n_pts
     with torch.inference_mode():
         on_cpu = build_grid(torch.from_numpy(pad), torch.from_numpy(valid), lidal.DIS_THRESH)
         on_card = build_grid(torch.from_numpy(pad).to(dev), torch.from_numpy(valid).to(dev), lidal.DIS_THRESH)
     for name, a, b in zip(on_cpu._fields, on_card, on_cpu):
         require(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b), f"build_grid field {name} differs")
-    cells = int((torch.diff(on_cpu.key_hi[:N_PTS]) != 0).sum() + 1)
-    print(f"[10 grid] build_grid of one registered {N_PTS}-point frame (cap {on_cpu.key_hi.shape[0]}): card == CPU on "
+    cells = int((torch.diff(on_cpu.key_hi[:n_pts]) != 0).sum() + 1)
+    print(f"[{tag}] build_grid of one registered {n_pts}-point frame (cap {on_cpu.key_hi.shape[0]}; coordinates "
+          f"{np.round(xyz.min(0).astype(np.float64), 1).tolist()} to "
+          f"{np.round(xyz.max(0).astype(np.float64), 1).tolist()} m): card == CPU on "
           f"{', '.join(on_cpu._fields)}; {cells} distinct x cells of {lidal.DIS_THRESH} m")
 
 
@@ -774,9 +814,11 @@ def nn_band_groups_needed(tbl, q_t, blo, nb, d2):
     return out
 
 
-def nn_band_phase(cfg, dev):
-    """11: the nn_band kernel against its plain version at the main-path shape
-    and on edge cases.  Returns the kernel's record fields."""
+def nn_band_phase(cfg, dev, seq="00", names=None, n_pts=N_PTS, tag="11 nn_band", edge_cases=True):
+    """11 (and 27 on nuScenes): the nn_band kernel against its plain version at
+    the main-path shape, on the grids of the frames ``names`` of ``seq`` (each
+    of ``n_pts`` points; by default the first 26 of the round's sequence), and
+    on edge cases.  Returns the kernel's record fields."""
     import torch
 
     from lidal_tpu_torch import kernels_build
@@ -786,13 +828,14 @@ def nn_band_phase(cfg, dev):
     from lidal_tpu_torch.runtime.paths import Paths
 
     cap, slots = cfg.data.point_cap, lidal.NEI_NUM + 2
-    grid_dir = Paths(cfg).grid_dir("00")
-    valid = torch.arange(cap, device=dev) < N_PTS
+    grid_dir = Paths(cfg).grid_dir(seq)
+    names = names or [f"{i:06d}" for i in range(slots)]
+    valid = torch.arange(cap, device=dev) < n_pts
     grids = []
     with torch.inference_mode():
-        for i in range(slots):
+        for name in names:
             pad = np.zeros((cap, 3), np.float32)
-            pad[:N_PTS] = load_grid_points(os.path.join(grid_dir, f"{i:06d}.npz"))
+            pad[:n_pts] = load_grid_points(os.path.join(grid_dir, f"{name}.npz"))
             grids.append(nn_match.build_grid(torch.from_numpy(pad).to(dev), valid, lidal.DIS_THRESH))
         q_slot = slots // 2
         pq = nn_match.prepared_from_grid(grids[q_slot])
@@ -818,8 +861,8 @@ def nn_band_phase(cfg, dev):
 
         others = torch.arange(slots, device=dev) != q_slot
         matched = (torch.sqrt(d2) <= torch.full((), lidal.DIS_THRESH, device=dev)) & pq.s_ok
-        share = float(matched[others].any(dim=0).sum()) / N_PTS
-        per_slot = float(matched[others].float().sum(dim=1).mean()) / N_PTS
+        share = float(matched[others].any(dim=0).sum()) / n_pts
+        per_slot = float(matched[others].float().sum(dim=1).mean()) / n_pts
         require(share > 0, "no point of the query frame has a match in any neighbour")
         band_rows = float(nb.float().mean()) * cuda_nnband.TN
         band_pairs = int(nb.long().sum()) * cuda_nnband.TN * cuda_nnband.TILE
@@ -839,7 +882,7 @@ def nn_band_phase(cfg, dev):
         evaluated = 1e3 * 8.0 * pairs / PEAK_F32_UNFUSED
         brute = 1e3 * 8.0 * band_pairs / PEAK_F32_UNFUSED
         ptxas = [ln.strip() for ln in kernels_build.BUILD_LOG["nn_band"][1].splitlines() if "registers" in ln]
-        print(f"[11 nn_band] {slots} slots x {cap} queries on tables of {cap} rows: d2 and row bit-equal to the plain "
+        print(f"[{tag}] {slots} slots x {cap} queries on tables of {cap} rows: d2 and row bit-equal to the plain "
               f"version on all {d2.numel()} (slot, query) pairs (plain took {plain_s:.1f} s the first time); kernel "
               f"{k_ms:.3f} ms, plain {p_ms:.1f} ms, bound {bound.total:.3f} ms (by {bound.by}: {floor_pairs:.4e} pairs, "
               f"each query against the groups its answer cannot exclude, at {PEAK_F32_UNFUSED:.3g} unfused f32 "
@@ -850,7 +893,9 @@ def nn_band_phase(cfg, dev):
               f"skipped by their own bound: {skipped['matched']:.4f} for matched, {skipped['unmatched']:.4f} for "
               f"unmatched queries; {share:.4f} of the query frame's points match in some neighbour, {per_slot:.4f} in "
               f"one neighbour on average")
-        print(f"[11 nn_band] ptxas: {' | '.join(ptxas)}")
+        print(f"[{tag}] ptxas: {' | '.join(ptxas)}")
+        if not edge_cases:
+            return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound.total, "bound_by": bound.by}
 
         # edge cases: an empty band, only BIG rows, an exact tie, a pair at 0.1 m -+ 1 ulp
         e_cap, e_p = 2 * cuda_nnband.TN, cuda_nnband.TILE
@@ -1254,8 +1299,10 @@ def scatter8_phase(state, tb):
             "library_ms": lib_total}
 
 
-def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward_tag):
-    """5 and 6 (MinkUNet), 16 (SPVCNN): run_eval over the timed batches, where
+def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward_tag, b=B, n_pts=N_PTS, warm_up=None):
+    """5 and 6 (MinkUNet), 16 (SPVCNN), 25 (nuScenes): run_eval over the timed
+    batches (each of ``b`` frames of ``n_pts`` points) after a warm-up (by
+    default run_eval over the first batch; ``warm_up()`` where given), where
     one batch's time goes, and the whole forward on the kernel path against
     the plain path.  Returns each kernel's launches in the timed run."""
     import torch
@@ -1266,7 +1313,10 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
 
     spvcnn = cfg.is_spvcnn
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    run_eval(cfg, model, batches[:1], dev, gen)  # warm-up
+    if warm_up is None:
+        run_eval(cfg, model, batches[:1], dev, gen)
+    else:
+        warm_up()
     torch.cuda.synchronize()
     reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1278,9 +1328,9 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     seconds = start.elapsed_time(end) / 1e3
     require(launches["gather8"] == (8 * TIMED_BATCHES if spvcnn else 0) and launches["scatter8"] == 0,
             f"gather8 launched {launches['gather8']} times in {TIMED_BATCHES} batches")
-    require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
+    require(res.points == TIMED_BATCHES * b * n_pts, f"points evaluated {res.points}")
     require(0.0 <= res.miou <= 1.0 and int(res.confusion.sum()) > 0, f"mIoU {res.miou}")
-    print(f"[{slice_tag}] run_eval ({cfg.model_name}): {TIMED_BATCHES} batches x {B} frames x {N_PTS} points in "
+    print(f"[{slice_tag}] run_eval ({cfg.dataset_name} {cfg.model_name}): {TIMED_BATCHES} batches x {b} frames x {n_pts} points in "
           f"{seconds:.3f} s = {res.points / seconds:,.0f} points/s; overflow per level {res.overflow.tolist()}; "
           f"mIoU {res.miou:.4f} (random weights); launches {launches}")
 
@@ -1307,9 +1357,9 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     for lk, lp in zip(eb.plan.levels, eb_p.plan.levels):
         require(torch.equal(lk.nbr3, lp.nbr3), "rulebooks of the kernel and plain paths differ")
     if spvcnn:
-        for a, b in zip(eb.pplan, eb_p.pplan):
-            require(all(torch.equal(x, y) for x, y in zip(a, b)), "point plans of the kernel and plain paths differ")
-    require(logits.shape == (B, caps[0], cfg.data.num_classes) and feats.shape == (B, caps[0], 96), "shapes")
+        for kmap, pmap in zip(eb.pplan, eb_p.pplan):
+            require(all(torch.equal(x, y) for x, y in zip(kmap, pmap)), "point plans of the kernel and plain paths differ")
+    require(logits.shape == (b, caps[0], cfg.data.num_classes) and feats.shape == (b, caps[0], 96), "shapes")
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     valid0 = eb.plan.levels[0].valid
     require(not bool(logits[~valid0].any()), "logits on invalid rows")
@@ -1834,19 +1884,326 @@ def conv_phase(model, eb):
             "bound_by": conv_bound.by, "library_ms": None}, real_convs
 
 
+def nu_yaw(deg: float) -> list:
+    """[w, x, y, z] quaternion of a turn by ``deg`` degrees about z."""
+    a = np.deg2rad(deg) / 2
+    return [float(np.cos(a)), 0.0, 0.0, float(np.sin(a))]
+
+
+def write_nu_tree(root, rng) -> str:
+    """A v1.0-trainval-like nuScenes tree under ``root/nuScenes``: the JSON
+    tables scene, sample, sample_data, ego_pose, calibrated_sensor and
+    lidarseg, ``splits.json``, and per keyframe a 5-column ``.pcd.bin`` and a
+    uint8 lidarseg ``.bin`` (raw ids 0-31).  Scene NU_TRAIN_SCENE has
+    NU_TRAIN_FRAMES keyframes (nuScenes's 20 s at 2 Hz), NU_VAL_SCENE
+    NU_VAL_FRAMES.  Both see ONE static world of NU_WORLD_POINTS points around
+    a route that starts at the map coordinates NU_ORIGIN (nuScenes maps
+    register frames at 10^2-10^3 m) and moves NU_STEP m and turns NU_TURN
+    degrees a keyframe (the val scene's ego 3 m to the side); each keyframe
+    is NU_PTS of the world's points within 70 m, in LIDAR_TOP coordinates
+    (calibrated with nuScenes's rotation of about -90 degrees and a small
+    tilt, 1.84 m up), with 1 cm of noise.  Returns the tree's root."""
+    from lidal_tpu_torch.data.nuscenes import pose_matrix
+
+    nu_root = os.path.join(root, "nuScenes")
+    version = os.path.join(nu_root, "v1.0-trainval")
+    for d in (version, os.path.join(nu_root, "samples", "LIDAR_TOP"), os.path.join(nu_root, "lidarseg", "v1.0-trainval")):
+        os.makedirs(d)
+    yaw = np.deg2rad(NU_TURN * np.arange(NU_TRAIN_FRAMES))
+    route = NU_ORIGIN + np.cumsum(NU_STEP * np.stack([np.cos(yaw), np.sin(yaw), 0 * yaw], 1), axis=0)
+    world, _ = synthetic_sk_frame(rng, NU_WORLD_POINTS)
+    world = world.astype(np.float64) + route[NU_TRAIN_FRAMES // 2]
+    world_raw = rng.integers(0, 32, NU_WORLD_POINTS).astype(np.uint8)
+    cal = {"token": "lidar_top_cal", "rotation": [0.7077955, -0.0064922, 0.0106462, -0.7063073],
+           "translation": [0.943713, 0.0, 1.84023]}
+    sensor2ego = pose_matrix(cal["rotation"], cal["translation"])
+    tables = {"scene": [], "sample": [], "sample_data": [], "ego_pose": [], "calibrated_sensor": [cal], "lidarseg": []}
+    for si, (scene, n_frames, side) in enumerate(((NU_TRAIN_SCENE, NU_TRAIN_FRAMES, 0.0),
+                                                  (NU_VAL_SCENE, NU_VAL_FRAMES, 3.0))):
+        tokens = [f"s{si}k{k:02d}" for k in range(n_frames)]
+        tables["scene"].append({"token": f"scene{si}", "name": scene, "first_sample_token": tokens[0]})
+        for k, tok in enumerate(tokens):
+            tables["sample"].append({"token": tok, "scene_token": f"scene{si}", "prev": tokens[k - 1] if k else "",
+                                     "next": tokens[k + 1] if k + 1 < n_frames else ""})
+            pos = route[k] + side * np.array([-np.sin(yaw[k]), np.cos(yaw[k]), 0.0])
+            ego = {"token": f"ego_{tok}", "rotation": nu_yaw(NU_TURN * k), "translation": pos.tolist()}
+            tables["ego_pose"].append(ego)
+            pose = pose_matrix(ego["rotation"], ego["translation"]) @ sensor2ego
+            near = np.flatnonzero(np.hypot(*(world[:, :2] - pos[:2]).T) < 70.0)
+            seen = np.sort(rng.choice(near, NU_PTS, replace=False))
+            inv = np.linalg.inv(pose)
+            xyz = world[seen] @ inv[:3, :3].T + inv[:3, 3] + 0.01 * rng.standard_normal((NU_PTS, 3))
+            cols = np.concatenate([xyz, 255 * rng.random((NU_PTS, 1)), rng.integers(0, 32, (NU_PTS, 1))], 1)
+            sd = {"token": f"sd_{tok}", "sample_token": tok, "is_key_frame": True,
+                  "filename": f"samples/LIDAR_TOP/{tok}__LIDAR_TOP.pcd.bin", "calibrated_sensor_token": cal["token"],
+                  "ego_pose_token": ego["token"]}
+            tables["sample_data"].append(sd)
+            cols.astype(np.float32).tofile(os.path.join(nu_root, sd["filename"]))
+            seg = {"token": f"seg_{tok}", "sample_data_token": sd["token"],
+                   "filename": f"lidarseg/v1.0-trainval/{sd['token']}_lidarseg.bin"}
+            tables["lidarseg"].append(seg)
+            world_raw[seen].tofile(os.path.join(nu_root, seg["filename"]))
+    for name, rows in tables.items():
+        with open(os.path.join(version, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    with open(os.path.join(nu_root, "splits.json"), "w") as f:
+        json.dump({"train": [NU_TRAIN_SCENE], "val": [NU_VAL_SCENE]}, f)
+    return nu_root
+
+
+def nu_prep_phase(cfg) -> int:
+    """24: prep_command's stages on the nuScenes tree (grids, supervoxels by
+    the native k-means, bootstrap; vccs and boundary over the first
+    NU_PREP_FRAMES frames), each timed, the artifacts counted; then round-1
+    labels (every third frame's supervoxels) for ``cfg``'s round 2.  Returns
+    the supervoxel count."""
+    from lidal_tpu_torch.cli.commands import prep_command
+    from lidal_tpu_torch.data import nuscenes as nu
+    from lidal_tpu_torch.prep import native
+    from lidal_tpu_torch.prep.supervoxel_vccs import prepare_supervoxels_vccs
+    from lidal_tpu_torch.prep.surface_variation import prepare_surface_variation
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import nu_seq_frames
+
+    paths, seconds = Paths(cfg), {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        seconds[name] = time.perf_counter() - t0
+
+    timed("grids", prep_command, cfg, "grids")
+    timed("native build", native.load)
+    build_s, _ = native.BUILD_LOG[native.library_path()]
+    timed("supervoxels", prep_command, cfg, "supervoxels")
+    first = {s: e[:NU_PREP_FRAMES] for s, e in nu_seq_frames(cfg).items()}
+    require(list(first) == [NU_TRAIN_SCENE], f"train scenes {list(first)}")
+
+    def read_xyz(e):
+        return nu.read_frame(e, with_labels=False)[0]
+
+    timed("vccs", prepare_supervoxels_vccs, cfg, first, read_xyz)
+    timed("boundary", prepare_surface_variation, cfg, first, read_xyz)
+    timed("bootstrap", prep_command, cfg, "bootstrap")
+
+    def count(d, ext):
+        return len([f for f in os.listdir(d) if f.endswith(ext)])
+
+    s = NU_TRAIN_SCENE
+    counts = {
+        "grid": count(paths.grid_dir(s), ".npz"), "KMeans": count(paths.supervoxel_dir(s, "KMeans"), ".npz"),
+        "VCCS": count(paths.supervoxel_dir(s, "VCCS"), ".npz"), "boundary": count(paths.boundary_dir(s), ".npy"),
+        "sv_flag 0r": count(paths.sv_flag_dir(s, r_id=0), ".npy"),
+    }
+    want = {"grid": NU_TRAIN_FRAMES, "KMeans": NU_TRAIN_FRAMES, "VCCS": NU_PREP_FRAMES, "boundary": NU_PREP_FRAMES,
+            "sv_flag 0r": NU_TRAIN_FRAMES}
+    require(counts == want, f"artifacts {counts}, expected {want}")
+    require(os.path.exists(os.path.join(paths.frame_flag_dir(r_id=0), f"{s}.npy")), "no round-0 frame flags")
+    with np.load(os.path.join(cfg.processing_root, "NU", "super_voxel", "KMeans", "id2sv.npz")) as z:
+        n_sv = len(z["seq"])
+    require(n_sv == 20 * NU_TRAIN_FRAMES, f"{n_sv} k-means supervoxels")
+    with np.load(os.path.join(cfg.processing_root, "NU", "super_voxel", "VCCS", "id2sv.npz")) as z:
+        n_vccs = len(z["seq"])
+    require(n_vccs > 0, "no VCCS supervoxel kept")
+    sigma = np.load(os.path.join(paths.boundary_dir(s), sorted(os.listdir(paths.boundary_dir(s)))[0]))
+    require(sigma.shape == (NU_PTS,) and bool(np.isfinite(sigma).all()) and sigma.max() <= np.float32(0.1), "boundary")
+    svdir, r1_dir = paths.sv_flag_dir(s, r_id=0), paths.sv_flag_dir(s, r_id=1)
+    os.makedirs(r1_dir)
+    for i, name in enumerate(sorted(os.listdir(svdir))):  # round-1 labels: every third frame's supervoxels
+        n = len(np.load(os.path.join(svdir, name)))
+        np.save(os.path.join(r1_dir, name), np.full(n, int(i % 3 == 0), np.int32))
+    print(f"[24 prep] nuScenes tree: {NU_TRAIN_FRAMES} + {NU_VAL_FRAMES} keyframes x {NU_PTS} points; prep_command "
+          f"grids {seconds['grids']:.2f} s, supervoxels {seconds['supervoxels']:.2f} s (native build "
+          f"{build_s:.2f} s with g++, load {seconds['native build']:.2f} s), bootstrap {seconds['bootstrap']:.2f} s; over "
+          f"{NU_PREP_FRAMES} frames vccs {seconds['vccs']:.2f} s ({n_vccs} supervoxels kept), boundary "
+          f"{seconds['boundary']:.2f} s; artifacts {counts}; {n_sv} k-means supervoxels")
+    return n_sv
+
+
+def nu_eval_phase(cfg, dev):
+    """25: the NU eval slice (B = 2 x batch_size = 30 val keyframes, NU caps)
+    with MinkUNet and SPVCNN; each warmed up through ``evaluate_command``.
+    Returns ({family: launches}, one eval batch dict)."""
+    import torch
+
+    from lidal_tpu_torch.cli.commands import _dataset_frames, evaluate_command
+    from lidal_tpu_torch.data.loader import FrameBatchLoader
+    from lidal_tpu_torch.data.pipeline import prepare_eval_batch
+    from lidal_tpu_torch.runtime import checkpoint as ckpt
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    caps = cfg.data.level_caps
+    files, read_fn, _ = _dataset_frames(cfg, "val")
+    loader = FrameBatchLoader(files, lambda e: read_fn(e, with_labels=True), point_cap=cfg.data.point_cap,
+                              batch_size=2 * cfg.data.batch_size)
+    batch = next(iter(loader))
+    require(batch["n_frames"] == NU_VAL_FRAMES == 2 * cfg.data.batch_size, f"{batch['n_frames']} frames a batch")
+
+    def prepare(b, seed, with_points=False):
+        return prepare_eval_batch(
+            torch.Generator(device="cpu").manual_seed(seed),
+            *(torch.as_tensor(b[k], device=dev) for k in ("xyz", "sig", "valid")),
+            level_caps=caps, with_points=with_points,
+        )
+
+    launches = {}
+    for family in ("Mink", "SPVCNN"):
+        cfg_f = dataclasses.replace(cfg, model_name=family)
+        state = init_state(cfg_f, dev)
+        randomise_bn(state.model, SEED + 1)
+        ckpt.save_checkpoint(Paths(cfg_f).ckpt_dir(), state, 0)  # what evaluate_command restores
+        model = state.model.eval()
+        launches[family] = eval_slice_phase(
+            cfg_f, model, [batch] * (1 + TIMED_BATCHES), prepare, dev, caps, f"25 slice {family}",
+            f"25 forward {family}", b=NU_VAL_FRAMES, n_pts=NU_PTS, warm_up=lambda: evaluate_command(cfg_f, dev),
+        )
+        del state, model
+        torch.cuda.empty_cache()
+    return launches, batch
+
+
+def nu_round_phase(cfg, root, dev, n_sv):
+    """27 (after the grid and nn_band checks): staged and fused NU LiDAL rounds
+    from the same weights, over the frames as the commands enumerate them;
+    returns the kernels' launches in the fused round."""
+    import torch
+
+    from lidal_tpu_torch.active import lidal, lidal_runner
+    from lidal_tpu_torch.cli.commands import _dataset_frames
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    model = init_state(cfg, dev).model.eval()
+    randomise_bn(model, SEED + 7)
+    files, read_fn, frame_id = _dataset_frames(cfg, "train")
+    require(len(files) == NU_TRAIN_FRAMES, f"{len(files)} train frames")
+    by_id = {frame_id(e): e for e in files}
+    cfg_f = dataclasses.replace(cfg, processing_root=os.path.join(root, "Processing_fused"))
+    shutil.copytree(cfg.processing_root, cfg_f.processing_root)
+
+    selections = []
+    select = lidal.select
+
+    def recording_select(*args, **kwargs):
+        selections.append([np.array(a) for a in args[:5]])
+        return select(*args, **kwargs)
+
+    lidal.select = recording_select
+    try:
+        t0 = time.perf_counter()
+        run_prob_inference(lidal_runner._prev_cfg(cfg), model, files, lambda e: read_fn(e, with_labels=False),
+                           frame_id, device=dev)
+        torch.cuda.synchronize()
+        t_inf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_a = lidal_runner.run_lidal_round(cfg, device=dev)
+        t_score = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        res_b = lidal_runner.run_fused_lidal_round(
+            cfg_f, model, lambda seq, name: read_fn(by_id[(seq, name)], with_labels=False)[:2],
+            frame_index={frame_id(e): i for i, e in enumerate(files)}, device=dev,
+        )
+        t_fused = time.perf_counter() - t0
+        launches = read_launches(("lookup_sorted", "subm_conv", "nn_band"))
+    finally:
+        lidal.select = select
+    require(launches["nn_band"] == NU_TRAIN_FRAMES, f"nn_band launched {launches['nn_band']} times")
+    pa, pb = Paths(lidal_runner._prev_cfg(cfg)), Paths(lidal_runner._prev_cfg(cfg_f))
+    worst_sum = 0.0
+    for e in files:
+        name = e["token"]
+        prob_a = np.load(os.path.join(pa.prob_dir(NU_TRAIN_SCENE), f"{name}.npy"))
+        require(prob_a.shape == (NU_PTS, cfg.data.num_classes) and bool(np.isfinite(prob_a).all()), f"prob {name}")
+        worst_sum = max(worst_sum, float(np.abs(prob_a.sum(1) - 1.0).max()))
+        for kind, da, db in (("prob", pa.prob_dir, pb.prob_dir), ("pred", pa.pred_dir, pb.pred_dir)):
+            a = np.load(os.path.join(da(NU_TRAIN_SCENE), f"{name}.npy"))
+            require(np.array_equal(a, np.load(os.path.join(db(NU_TRAIN_SCENE), f"{name}.npy"))),
+                    f"{kind} {name}: staged != fused")
+        flag_a = np.load(os.path.join(Paths(cfg).sv_flag_dir(NU_TRAIN_SCENE), f"{name}.npy"))
+        flag_b = np.load(os.path.join(Paths(cfg_f).sv_flag_dir(NU_TRAIN_SCENE), f"{name}.npy"))
+        require(np.array_equal(flag_a, flag_b), f"sv_flag {name}: staged != fused")
+    require(worst_sum <= PROB_SUM_TOL, f"prob rows sum to 1 within {worst_sum}")
+    require(len(selections) == 2 and all(np.array_equal(a, b) for a, b in zip(*selections)),
+            "supervoxel flags, scores, point counts or centres differ between the staged and the fused round")
+    for a, b in zip(res_a, res_b):
+        require(np.array_equal(a, b), "selections differ between the staged and the fused round")
+    _, sv_interds, _, sv_pnums, sv_centers = selections[0]
+    require(len(sv_interds) == n_sv and bool(np.isfinite(sv_interds).all()), "supervoxel scores")
+    require(float(np.abs(sv_centers[:, :2]).min()) > 500.0, "supervoxel centres not in map coordinates")
+    require(len(res_b.al_added) > 0, "no supervoxel was selected")
+    print(f"[27 round] staged: run_prob_inference {NU_TRAIN_FRAMES} frames x {cfg.inf_reps} views in {t_inf:.2f} s "
+          f"({NU_TRAIN_FRAMES / t_inf:.3f} frames/s), run_lidal_round in {t_score:.2f} s; fused: "
+          f"run_fused_lidal_round in {t_fused:.2f} s = {NU_TRAIN_FRAMES / t_fused:.3f} frames/s; launches {launches}")
+    print(f"[27 round] staged == fused: {NU_TRAIN_FRAMES} prob and pred npys, {n_sv} supervoxel scores, statistics and "
+          f"sv_flag files identical; prob rows sum to 1 within {worst_sum:.1e}; {int((sv_interds > 0).sum())} of "
+          f"{n_sv} supervoxels have divergence > 0; selected {len(res_b.al_added)} for labels "
+          f"({int(sv_pnums[res_b.al_added].sum())} points of a budget of {round(0.01 * cfg.data.train_point_num)}) and "
+          f"{len(res_b.sl_added)} for pseudo labels")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def nu_import_phase(cfg, batch, dev):
+    """28: the seeded NU MinkUNet and SPVCNN exported to a torchsparse-layout
+    ``current.pt`` (names under ``module.``), imported by
+    ``import_torch_command`` and restored by ``_load_eval_variables``: logits
+    on one NU eval batch bit-equal to the source model's."""
+    import torch
+
+    from lidal_tpu_torch.cli.commands import _load_eval_variables, import_torch_command
+    from lidal_tpu_torch.data.pipeline import forward_batch, prepare_eval_batch
+    from lidal_tpu_torch.runtime import checkpoint as ckpt, import_torch
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    for family, export in (("Mink", import_torch.export_minkunet_state_dict),
+                           ("SPVCNN", import_torch.export_spvcnn_state_dict)):
+        cfg_f = dataclasses.replace(cfg, model_name=family, r_id=0,
+                                    checkpoint_root=os.path.join(cfg.checkpoint_root, "imported"))
+        source = init_state(dataclasses.replace(cfg_f, seed=SEED + 9), dev).model.eval()
+        randomise_bn(source, SEED + 10)
+        path = os.path.join(cfg.checkpoint_root, f"current_{family}.pt")
+        sd = export(source.state_dict())
+        torch.save({"model_state_dict": {f"module.{k}": v for k, v in sd.items()}, "iteration": 1234, "ep_id": 3}, path)
+        t0 = time.perf_counter()
+        import_torch_command(cfg_f, path, dev)
+        seconds = time.perf_counter() - t0
+        model = _load_eval_variables(cfg_f, dev)
+        saved = torch.load(ckpt.ckpt_path(Paths(cfg_f).ckpt_dir()), map_location="cpu", weights_only=True)
+        require((saved["iteration"], saved["ep_id"]) == (1234, 3), "imported step and epoch")
+        eb = prepare_eval_batch(torch.Generator(device="cpu").manual_seed(SEED),
+                                *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid")),
+                                level_caps=cfg.data.level_caps, with_points=family == "SPVCNN")
+        with torch.inference_mode():
+            logits, _ = forward_batch(model, eb)
+            logits_src, _ = forward_batch(source, eb)
+        require(torch.equal(logits, logits_src), f"{family}: imported logits differ from the source model's")
+        valid0 = eb.plan.levels[0].valid
+        print(f"[28 import] {family}: {len(sd)} tensors in the torchsparse layout -> import_torch_command "
+              f"({seconds:.2f} s) -> _load_eval_variables: logits on {NU_VAL_FRAMES} NU frames bit-equal to the "
+              f"source model's ({int(valid0.sum())} valid voxels, std {float(logits[valid0].std()):.3f})")
+        del source, model, eb, logits, logits_src
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
     # ---- 1. device ---------------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py drives the port on an NVIDIA GPU")
-    from lidal_tpu_torch.config import SK_CONFIG, RunConfig
+    from lidal_tpu_torch.config import NU_CONFIG, SK_CONFIG, RunConfig
     from lidal_tpu_torch import kernels_build
+    from lidal_tpu_torch.active import lidal
     from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
     from lidal_tpu_torch.models.minkunet import MinkUNet
     from lidal_tpu_torch.models.spvcnn import SPVCNN
     from lidal_tpu_torch.prep.grid import prepare_sk_grids
-    from lidal_tpu_torch.runtime.train_loop import init_state
+    from lidal_tpu_torch.runtime.train_loop import init_state, nu_seq_frames
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1996,9 +2353,39 @@ def main() -> None:
         scoring_phase(cfg_round, root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 24-28. nuScenes: prep, eval, train, the LiDAL round, the checkpoint import -----------
+    root = tempfile.mkdtemp(prefix="lidal_nu_")
+    try:
+        t0 = time.perf_counter()
+        nu_root = write_nu_tree(root, np.random.default_rng(SEED + 11))
+        print(f"[24 prep] wrote the nuScenes tree in {time.perf_counter() - t0:.1f} s")
+        # NU_CONFIG names no train split: the scoring rounds get the scene as the CLI's --train_seqs gives it
+        data = dataclasses.replace(NU_CONFIG, train_split=(NU_TRAIN_SCENE,), train_point_num=NU_TRAIN_FRAMES * NU_PTS)
+        cfg_nu = RunConfig(
+            dataset_name="NU", model_name="Mink", label_unit="sv", metric_name="LiDAL", r_id=2, inf_reps=8,
+            ckpt_every=10**6, seed=SEED, nu_root=nu_root, processing_root=os.path.join(root, "Processing_files"),
+            checkpoint_root=os.path.join(root, "check_points"), data_override=data,
+        )
+        n_sv_nu = nu_prep_phase(cfg_nu)
+        nu_eval, nu_batch = nu_eval_phase(cfg_nu, dev)
+        cfg_nu_train = dataclasses.replace(cfg_nu, label_unit="fr", metric_name="full", r_id=1,
+                                           max_iter=1 + TIMED_STEPS)
+        trained, _, nu_train = train_slice_phase(cfg_nu_train, dev, NU_CONFIG.level_caps, tag="26 slice", n_pts=NU_PTS)
+        del trained
+        torch.cuda.empty_cache()
+        names = [e["token"] for e in nu_seq_frames(cfg_nu)[NU_TRAIN_SCENE]]
+        grid_phase(cfg_nu, dev, seq=NU_TRAIN_SCENE, name=names[NU_TRAIN_FRAMES // 2], n_pts=NU_PTS, tag="27 grid")
+        nn_band_phase(cfg_nu, dev, seq=NU_TRAIN_SCENE, names=names[: lidal.NEI_NUM + 2], n_pts=NU_PTS,
+                      tag="27 nn_band", edge_cases=False)
+        nu_round = nu_round_phase(cfg_nu, root, dev, n_sv_nu)
+        nu_import_phase(cfg_nu, nu_batch, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     # every main path's run, each counted from 0 just before it
     total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18,
-                                       probe_launches))
+                                       probe_launches, nu_eval["Mink"], nu_eval["SPVCNN"], nu_train, nu_round))
              for k in KERNELS}
 
     record = {

@@ -1,8 +1,10 @@
 """lidal_tpu_torch — the PyTorch + CUDA port of ``lidal_tpu`` for NVIDIA Hopper.
 
 Mirrors the subpackages of ``lidal_tpu`` (the JAX reference it is tested
-against).  Ported so far: one whole LiDAL round on SemanticKITTI (training,
-evaluation, multi-view inference, scoring and selection) with MinkUNet or SPVCNN.
+against).  Ported so far: one whole active-learning round on SemanticKITTI or
+nuScenes (training, evaluation, multi-view inference, scoring and selection
+with any of the nine strategies) with MinkUNet or SPVCNN, the offline prep
+and the import of the reference's checkpoints; not yet multi-device runs.
 
 Subpackages
 -----------
@@ -16,14 +18,19 @@ models    MinkUNet and SPVCNN (eval and train mode) as ``nn.Module`` s with
           torchsparse names
 active    hash-grid matching, LiDAL scoring and selection, the neighbour ring,
           the staged and the fused round
-data      SemanticKITTI frames, loader, label-set selection, augmentation +
-          voxelization, train and eval batch preparation
+data      SemanticKITTI frames, the nuScenes manifest and splits, loader,
+          label-set selection, augmentation + voxelization, train and eval
+          batch preparation
+prep      pose registration, k-means / VCCS supervoxels over the native
+          library (``csrc/*.cpp`` built with g++ at first use), surface
+          variation
 runtime   eval loop, train step and loop, checkpoints, weight and Adam-state
-          transfer from the JAX package
-utils     confusion matrix and IoU
+          transfer from the JAX package, the torchsparse checkpoint import
+utils     confusion matrix and IoU, profiling, determinism audit, PCD / PLY IO
 
 Importing the package builds and loads no kernel: ``kernels_build`` compiles
-a kernel's source with nvcc the first time a CUDA tensor reaches its wrapper.
+a kernel's source with nvcc the first time a CUDA tensor reaches its wrapper,
+and ``prep/native`` the host library the first time a prep stage calls it.
 """
 
 __version__ = "0.1.0"

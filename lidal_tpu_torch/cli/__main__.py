@@ -9,13 +9,12 @@ Mirrors the reference's per-script CLIs (``train.py:208-219``,
   evaluate        val-split mIoU for a trained round
   prob-inference  multi-view probability dump over the train split
   score           active selection for --metric_name (frame- or sv-level)
-  prep            offline preprocessing: grids / bootstrap (supervoxels / vccs /
-                  boundary are not ported yet and raise)
-  import-torch    convert a reference current.pt (not ported yet, raises)
+  prep            offline preprocessing: grids / supervoxels / vccs / boundary / bootstrap
+  import-torch    convert a reference current.pt into this framework's checkpoint
   run-experiment  orchestrate full active-learning rounds
 
-Every command runs on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain versions).
+Every command that runs a model runs it on ``--device`` (default ``cuda``; ``cpu``
+runs the kernels' plain versions); ``prep`` runs on the host.
 """
 
 from __future__ import annotations
@@ -131,7 +130,7 @@ def main(argv=None) -> int:
     elif args.command == "import-torch":
         from lidal_tpu_torch.cli.commands import import_torch_command
 
-        import_torch_command(cfg, args.pt_path)
+        import_torch_command(cfg, args.pt_path, device)
     elif args.command == "run-experiment":
         from lidal_tpu_torch.runtime.round import run_experiment
 

@@ -1,12 +1,10 @@
 """Command implementations wiring the run loops, data and checkpoints (port of
-``lidal_tpu/cli/commands.py``: SemanticKITTI, MinkUNet or SPVCNN, every
-selection metric).
+``lidal_tpu/cli/commands.py``: SemanticKITTI and nuScenes, MinkUNet or SPVCNN,
+every selection metric, every ``prep`` stage, ``import-torch``).
 
-Every command runs on ``device`` (default: the CUDA card) and builds the model
-family ``cfg.model_name`` names (``runtime/train_loop.build_model``).  Not
-ported yet, and raising ``NotImplementedError``: the nuScenes branches, the
-``prep`` stages over the native library (supervoxels, vccs, boundary) and
-``import_torch_command``.
+Every command that runs a model runs it on ``device`` (default: the CUDA card)
+and builds the model family ``cfg.model_name`` names
+(``runtime/train_loop.build_model``); ``prep`` is host code.
 """
 
 from __future__ import annotations
@@ -38,13 +36,27 @@ def _load_eval_variables(cfg: RunConfig, device: Device = "cuda") -> torch.nn.Mo
 
 def _dataset_frames(cfg: RunConfig, split: str):
     """(files, read_fn, frame_id_fn) for the requested split ('train'|'val')."""
-    if cfg.dataset_name != "SK":
-        raise NotImplementedError("the port reads SemanticKITTI; nuScenes is not ported yet (ROADMAP item 18)")
-    from lidal_tpu_torch.data import semantic_kitti as sk
+    if cfg.dataset_name == "SK":
+        from lidal_tpu_torch.data import semantic_kitti as sk
 
-    data = cfg.data
-    seqs = data.train_split if split == "train" else data.val_split
-    return sk.list_frames(cfg.data_root, seqs), sk.read_frame, sk.frame_id
+        data = cfg.data
+        seqs = data.train_split if split == "train" else data.val_split
+        return sk.list_frames(cfg.data_root, seqs), sk.read_frame, sk.frame_id
+
+    from lidal_tpu_torch.data import nuscenes as nu
+
+    manifest = nu.build_manifest(cfg.nu_root, cache_path=f"{cfg.processing_root}/NU/manifest.pkl")
+    train, val = nu.load_splits(list(manifest), f"{cfg.nu_root}/splits.json")
+    scenes = train if split == "train" else val
+    files = [e | {"scene": s} for s in scenes for e in manifest[s]]
+
+    def read(e, with_labels=True):
+        return nu.read_frame(e, with_labels=with_labels)
+
+    def fid(e):
+        return e["scene"], e["token"]
+
+    return files, read, fid
 
 
 def evaluate_command(cfg: RunConfig, device: Device = "cuda") -> float:
@@ -123,28 +135,60 @@ def score_command(cfg: RunConfig, device: Device = "cuda") -> None:
 
 
 def prep_command(cfg: RunConfig, stage: str) -> None:
-    """Offline preprocessing on the host: ``grids`` and ``bootstrap`` for
-    SemanticKITTI.  The stages over the native library wait for its port."""
-    if cfg.dataset_name != "SK":
-        raise NotImplementedError("the port prepares SemanticKITTI; nuScenes is not ported yet (ROADMAP item 18)")
-    if stage == "grids":
-        from lidal_tpu_torch.prep.grid import prepare_sk_grids
+    """Offline preprocessing on the host, SemanticKITTI or nuScenes: ``grids``,
+    ``supervoxels`` (native k-means), ``vccs``, ``boundary``, ``bootstrap``."""
+    data = cfg.data
+    if cfg.dataset_name == "NU":
+        from lidal_tpu_torch.data import nuscenes as nu
+        from lidal_tpu_torch.runtime.train_loop import nu_seq_frames
 
-        prepare_sk_grids(cfg, verbose=True)
-    elif stage == "bootstrap":
+        seq_frames = nu_seq_frames(cfg)
+        read_xyz = lambda e: nu.read_frame(e, with_labels=False)[0]  # noqa: E731
+    else:
         from lidal_tpu_torch.data import semantic_kitti as sk
+
+        seq_frames = {s: sk.list_frames(cfg.data_root, [s]) for s in data.train_split}
+        read_xyz = lambda p: sk.read_frame(p, with_labels=False)[0]  # noqa: E731
+
+    if stage == "grids":
+        from lidal_tpu_torch.prep.grid import prepare_nu_grids, prepare_sk_grids
+
+        if cfg.dataset_name == "NU":
+            prepare_nu_grids(cfg, seq_frames, verbose=True)
+        else:
+            prepare_sk_grids(cfg, verbose=True)
+    elif stage == "supervoxels":
+        from lidal_tpu_torch.prep.supervoxel_kmeans import prepare_supervoxels_kmeans
+
+        prepare_supervoxels_kmeans(cfg, seq_frames, read_xyz, verbose=True)
+    elif stage == "vccs":
+        from lidal_tpu_torch.prep.supervoxel_vccs import prepare_supervoxels_vccs
+
+        prepare_supervoxels_vccs(cfg, seq_frames, read_xyz, verbose=True)
+    elif stage == "boundary":
+        from lidal_tpu_torch.prep.surface_variation import prepare_surface_variation
+
+        prepare_surface_variation(cfg, seq_frames, read_xyz, verbose=True)
+    elif stage == "bootstrap":
         from lidal_tpu_torch.data.selection import bootstrap_round0
 
-        bootstrap_round0(cfg, {s: sk.list_frames(cfg.data_root, [s]) for s in cfg.data.train_split})
-    elif stage in ("supervoxels", "vccs", "boundary"):
-        raise NotImplementedError(
-            f"prep stage {stage!r} runs over the native library, which is not ported yet (ROADMAP item 18)"
-        )
+        bootstrap_round0(cfg, seq_frames)
     else:
         raise ValueError(f"unknown prep stage: {stage}")
 
 
-def import_torch_command(cfg: RunConfig, pt_path: str) -> None:
-    raise NotImplementedError(
-        "converting a reference current.pt is not ported yet (ROADMAP item 20: runtime/import_torch.py)"
-    )
+def import_torch_command(cfg: RunConfig, pt_path: str, device: Device = "cuda") -> None:
+    """Convert a reference ``current.pt`` (released round-0 anchors, reference
+    README.md:88-92) into the round's ``current_port.pt``: its weights, step =
+    its iteration, a fresh Adam."""
+    from lidal_tpu_torch.runtime import checkpoint as ckpt
+    from lidal_tpu_torch.runtime.import_torch import load_torch_checkpoint
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    state_dict, iteration, ep_id = load_torch_checkpoint(pt_path, spvcnn=cfg.is_spvcnn)
+    state = init_state(cfg, torch.device(device))
+    state.model.load_state_dict(state_dict, strict=True)
+    state.step = iteration
+    paths = Paths(cfg)
+    ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
+    print(f"Imported {pt_path} (iteration {iteration}) -> {ckpt.ckpt_path(paths.ckpt_dir())}")

@@ -1,5 +1,5 @@
 """Pose-registered per-frame point tables (port of ``lidal_tpu/prep/grid.py``,
-SemanticKITTI branch, numpy only).
+numpy only).
 
 Reference parity: ``dataset/prepare_kdtree_sk.py:77-88`` builds an sklearn
 KDTree per frame over sequence-global coordinates and pickles it; LiDAL scoring
@@ -17,7 +17,7 @@ from typing import Sequence
 import numpy as np
 
 from lidal_tpu_torch.config import RunConfig
-from lidal_tpu_torch.data import semantic_kitti as sk
+from lidal_tpu_torch.data import nuscenes as nu, semantic_kitti as sk
 from lidal_tpu_torch.data.selection import frame_name
 from lidal_tpu_torch.prep.poses import sequence_poses, transform_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
@@ -42,6 +42,23 @@ def prepare_sk_grids(cfg: RunConfig, seqs: Sequence[str] | None = None, verbose:
             np.savez_compressed(os.path.join(out_dir, f"{name}.npz"), xyz=gxyz)
             if verbose:
                 print(f"grid {seq}/{name}: {len(gxyz)} pts")
+
+
+def prepare_nu_grids(cfg: RunConfig, seq_frames: dict | None = None, verbose: bool = False):
+    """nuScenes variant: register each keyframe's points via its manifest
+    sensor->global pose (reference prepare_kdtree_nu.py:27-38 semantics)."""
+    from lidal_tpu_torch.runtime.train_loop import nu_seq_frames
+
+    paths = Paths(cfg)
+    seq_frames = seq_frames or nu_seq_frames(cfg)
+    for scene, entries in seq_frames.items():
+        out_dir = ensure_dir(paths.grid_dir(scene))
+        for e in entries:
+            xyz, _, _ = nu.read_frame(e, with_labels=False)
+            gxyz = transform_points(xyz, e["global_pose"]).astype(np.float32)
+            np.savez_compressed(os.path.join(out_dir, f"{frame_name(e)}.npz"), xyz=gxyz)
+            if verbose:
+                print(f"grid {scene}/{frame_name(e)}: {len(gxyz)} pts")
 
 
 def load_grid_points(path: str) -> np.ndarray:

@@ -1,5 +1,5 @@
 """The per-round training loop (port of ``lidal_tpu/runtime/train_loop.py``,
-SemanticKITTI, single device; reference ``train.py:17-203``).
+SemanticKITTI and nuScenes, single device; reference ``train.py:17-203``).
 
 Mode selection (reference train.py:89-109):
   r_id == 0            -> 1% random fully-labeled frames ('train_frame')
@@ -22,12 +22,14 @@ import torch
 
 from lidal_tpu_torch.config import RunConfig
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
-from lidal_tpu_torch.data import semantic_kitti as sk
+from lidal_tpu_torch.data import nuscenes as nu, semantic_kitti as sk
 from lidal_tpu_torch.data.loader import FrameBatchLoader
 from lidal_tpu_torch.data.pipeline import prepare_train_batch
 from lidal_tpu_torch.data.selection import (
     apply_sv_label_mask,
     bootstrap_round0,
+    frame_flags_for_round,
+    frame_name,
     load_sv_info,
     sv_training_set,
     train_files_frame_level,
@@ -62,9 +64,70 @@ def make_sk_read_fn(cfg: RunConfig, sv_flag_by_frame=None, sv_info_by_frame=None
     return read
 
 
+def nu_seq_frames(cfg: RunConfig) -> dict:
+    """scene -> frame entries of the train split for nuScenes (manifest-based;
+    see data/nuscenes.py).  Frame 'paths' are manifest entries keyed by token."""
+    manifest = nu.build_manifest(cfg.nu_root, cache_path=f"{cfg.processing_root}/NU/manifest.pkl")
+    train, _ = nu.load_splits(list(manifest), f"{cfg.nu_root}/splits.json")
+    return {s: manifest[s] for s in train}
+
+
+def frame_flags_for_round_generic(cfg: RunConfig, split, seq_frames) -> np.ndarray:
+    """Frame flags concatenated over a split; all False where the round's
+    flag files are missing."""
+    try:
+        return frame_flags_for_round(cfg, split)
+    except FileNotFoundError:
+        return np.zeros(sum(len(seq_frames[s]) for s in split), bool)
+
+
+def _build_nu_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLoader:
+    """nuScenes loaders: the same flag trees keyed by scene name; frame 'files'
+    are manifest entries (dicts), named by token (nu_dataloader.py:294-319)."""
+    data = cfg.data
+    seq_frames = nu_seq_frames(cfg)
+    split = sorted(seq_frames)
+    all_entries = [e for s in split for e in seq_frames[s]]
+
+    def read_fn(e):
+        return nu.read_frame(e, with_labels=True)
+
+    if cfg.r_id == 0:
+        bootstrap_round0(cfg, seq_frames)
+        flags = frame_flags_for_round_generic(cfg, split, seq_frames)
+        entries = [e for e, keep in zip(all_entries, flags) if keep]
+    elif cfg.metric_name == "full":
+        entries = all_entries
+    elif cfg.label_unit == "fr":
+        flags = frame_flags_for_round_generic(cfg, split, seq_frames)
+        entries = [e for e, keep in zip(all_entries, flags) if keep]
+    else:  # sv: frames with labeled supervoxels, labels masked per point
+        entries, svf, svi, pse = sv_training_set(cfg, seq_frames)
+        svf_by = dict(zip(map(frame_name, entries), svf))
+        svi_by = dict(zip(map(frame_name, entries), svi))
+        pse_by = dict(zip(map(frame_name, entries), pse)) if pse else None
+
+        def read_fn(e):  # noqa: F811
+            xyz, sig, labels = nu.read_frame(e, with_labels=True)
+            name = frame_name(e)
+            point2sv, _ = load_sv_info(svi_by[name])
+            pseudo = np.load(pse_by[name]) if pse_by is not None else None
+            return xyz, sig, apply_sv_label_mask(labels, point2sv, np.load(svf_by[name]), pseudo)
+
+    print(f"Train_{cfg.r_id}r samples:", len(entries))
+    return FrameBatchLoader(
+        entries,
+        read_fn,
+        point_cap=data.point_cap,
+        batch_size=data.batch_size,
+        shuffle=shuffle,
+        seed=cfg.seed,
+    )
+
+
 def build_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLoader:
-    if cfg.dataset_name != "SK":
-        raise NotImplementedError("the port's train loader reads SemanticKITTI; nuScenes is not ported yet")
+    if cfg.dataset_name == "NU":
+        return _build_nu_train_loader(cfg, shuffle)
     data = cfg.data
     seq_frames = {s: sk.list_frames(cfg.data_root, [s]) for s in data.train_split}
     all_files = [f for s in data.train_split for f in seq_frames[s]]

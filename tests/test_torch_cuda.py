@@ -22,7 +22,8 @@ plain version (the same products and sums in the same order, no FMA);
 version in f64 than 4 times the f32 plain version is, and bit-equal across
 two runs; its transposed map, built on the card, equal to ``build_transpose``'s.
 ``nn_band``'s pruned scan is bit-equal to the plain version and evaluates
-fewer pairs than its bands hold.  The bf16 probe kernels (``conv_gather_first``, ``conv_byte_planes``,
+fewer pairs than its bands hold, also at nuScenes's map coordinates, where
+``build_grid`` on the card equals the CPU's.  The bf16 probe kernels (``conv_gather_first``, ``conv_byte_planes``,
 ``conv_dx_dw_fused``) within 1e-5 of the abs-sum form of their plain versions
 (products of bf16 values are exact in f32, so only the order of the f32 sums
 differs); ``pipelined`` bit-equal to not, the byte planes bit-equal to the bf16
@@ -516,6 +517,38 @@ def test_nn_band_kernel_prunes_groups_exactly(card):
                                  torch.full((1, 1), 2, dtype=torch.int32))]
     d2, row = cuda_nnband.nn_band(*args)
     assert torch.equal(d2, cuda_nnband.nn_band_plain(*args)[0]) and bool((row == 0).all())
+
+
+@pytest.mark.cuda
+def test_nn_band_and_build_grid_at_nuscenes_map_coordinates(card):
+    """nuScenes registers frames into map coordinates of 10^2-10^3 m (here a
+    world around (1500, 1650, 5) m, where an f32 coordinate's ulp is 1.2e-4 m):
+    ``build_grid`` on the card equals the CPU's field by field, and ``nn_band``
+    is bit-equal to its plain version on the card and on the CPU."""
+    from lidal_tpu_torch.active import nn_match
+    from lidal_tpu_torch.ops import cuda_nnband
+
+    n, slots = 20000, 6
+    origin = torch.tensor([1500.0, 1650.0, 5.0])
+    frames = [f + origin for f in _registered_frames(63, slots + 1, n, extent=20.0)]
+    assert float(frames[0][:, 1].max()) > 1650.0
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[n - 100 :] = False
+    on_card = [nn_match.build_grid(f.to(card), valid.to(card), 0.1) for f in frames]
+    on_cpu = [nn_match.build_grid(f, valid, 0.1) for f in frames]
+    for a, b in zip(on_card, on_cpu):
+        for name, x, y in zip(b._fields, a, b):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y), name
+    grids, cpu_grids = nn_match.stack_grids(on_card[1:]), nn_match.stack_grids(on_cpu[1:])
+    pq, pq_c = nn_match.prepared_from_grid(on_card[0]), nn_match.prepared_from_grid(on_cpu[0])
+    blo, nb = nn_match.band_bounds(grids, pq)
+    d2, row = cuda_nnband.nn_band(grids.planar, pq.q_t, blo, nb)
+    d2_p, row_p = cuda_nnband.nn_band_plain(grids.planar, pq.q_t, blo, nb)
+    assert torch.equal(d2, d2_p) and torch.equal(row, row_p)
+    d2_c, row_c = cuda_nnband.nn_band(cpu_grids.planar, pq_c.q_t, *nn_match.band_bounds(cpu_grids, pq_c))
+    assert torch.equal(d2.cpu(), d2_c) and torch.equal(row.cpu(), row_c)
+    matched = (torch.sqrt(d2) <= torch.full((), 0.1, device=card)) & pq.s_ok
+    assert 0.2 < float(matched.float().mean()) < 1.0
 
 
 def _random_map(rng, m, n, density=0.8):

@@ -1,6 +1,7 @@
 """``import lidal_tpu_torch`` and every submodule leaves JAX, the JAX package
 ``lidal_tpu`` and the repository's ``tools`` package unloaded, builds no CUDA
-kernel and runs no probe; ``chip_smoke.py`` names none of them.
+kernel, no native prep library and runs no probe; ``chip_smoke.py`` names none
+of them.
 Runs in a subprocess: this suite's conftest imports jax."""
 
 import ast
@@ -27,8 +28,14 @@ from lidal_tpu_torch.ops import cuda_conv_bf16, cuda_conv_dxdw_fused
 assert cuda_conv_bf16.GATHER_FIRST_LAUNCHES == cuda_conv_bf16.BYTE_PLANES_LAUNCHES == cuda_conv_dxdw_fused.LAUNCHES == 0
 for new in ("ops.devoxelize", "ops.cuda_gather8", "models.spvcnn", "ops.cuda_conv_bf16", "ops.cuda_conv_dxdw_fused",
             "tools.timing", "tools.probe_conv_v3", "tools.probe_int8_gather", "tools.probe_dxdw_features",
-            "active.frame_level", "active.frame_runner", "active.redal", "active.redal_runner", "cli.__main__"):
+            "active.frame_level", "active.frame_runner", "active.redal", "active.redal_runner", "cli.__main__",
+            "data.nuscenes", "data.nuscenes_splits", "prep.native", "prep.supervoxel_kmeans", "prep.supervoxel_vccs",
+            "prep.surface_variation", "runtime.import_torch", "utils.profiling", "utils.determinism", "utils.pcd",
+            "utils.ply"):
     assert "lidal_tpu_torch." + new in names, new
+from lidal_tpu_torch.prep import native
+assert not native._LIBS and not native.BUILD_LOG, "the native library was built at import"
+assert "scipy.spatial" not in sys.modules and "sklearn" not in sys.modules
 print(len(names))
 """
 
@@ -43,7 +50,7 @@ def test_import_leaves_jax_out_and_builds_nothing(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().isdigit(), out.stdout  # a probe that ran at import would have printed
-    assert int(out.stdout.strip()) > 50  # every module of the slices was imported
+    assert int(out.stdout.strip()) > 60  # every module of the slices was imported
     after = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else []
     assert after == before
 
@@ -67,7 +74,7 @@ def test_port_and_smoke_script_name_no_jax_module():
     files = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(_REPO, "lidal_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 52
+    assert len(files) >= 63
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -328,17 +328,22 @@ def test_spvcnn_fused_round_matches_staged_and_the_jax_flags(prepared, tmp_path)
 
 
 def test_commands_refuse_what_is_not_ported(tmp_path):
+    """Every command is ported: each fails on its first missing input, not on
+    ``NotImplementedError``, and the prep stages over the native library run
+    over an empty split without building it."""
     # every metric is dispatched: a ReDAL round on an empty tree fails on its first missing input, not on the metric
     cfg = config.RunConfig(metric_name="ReDAL", r_id=1, processing_root=str(tmp_path))
     with pytest.raises(FileNotFoundError):
         commands.score_command(cfg, device="cpu")
+    empty = dataclasses.replace(cfg, data_root=str(tmp_path / "no_sequences"))
     for stage in ("supervoxels", "vccs", "boundary"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-            commands.prep_command(cfg, stage)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        commands.import_torch_command(cfg, str(tmp_path / "current.pt"))
-    with pytest.raises(NotImplementedError, match="nuScenes"):
-        commands._dataset_frames(config.RunConfig(dataset_name="NU"), "train")
+        commands.prep_command(empty, stage)
+    assert sorted(os.listdir(os.path.join(str(tmp_path), "SK", "super_voxel"))) == ["KMeans", "VCCS"]
+    with pytest.raises(FileNotFoundError):
+        commands.import_torch_command(cfg, str(tmp_path / "current.pt"), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        commands._dataset_frames(config.RunConfig(dataset_name="NU", nu_root=str(tmp_path / "no_nuscenes"),
+                                                  processing_root=str(tmp_path)), "train")
     with pytest.raises(FileNotFoundError):
         commands._load_eval_variables(config.RunConfig(checkpoint_root=str(tmp_path / "none"),
                                                        data_override=config.DataConfig(name="SK", num_classes=3)), "cpu")
