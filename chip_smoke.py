@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's eval, train and LiDAL-round paths, with MinkUNet
 and with SPVCNN, on SemanticKITTI and on nuScenes, its prep stages, its
-checkpoint import, its three probe entry points and every selection metric, on
-an NVIDIA GPU.
+checkpoint import, its three probe entry points, every selection metric and
+its multi-device path, on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -183,6 +183,28 @@ nuScenes's rotation, with 1 cm of noise; ``NU_CONFIG``'s widths and caps.
     ``current.pt``, imported by ``import_torch_command`` and restored by
     ``_load_eval_variables``: logits on the 30-frame batch bit-equal to the
     source model's.
+
+Phase 29 drives the multi-device path (``parallel/mesh.py``, the ``group``
+argument of the entry points) as far as one card allows: NCCL puts no two
+ranks on one GPU.  Any failed group or rank fails the run.
+
+29. (i) after phase 17, a world-size-1 NCCL group (``tcp://127.0.0.1`` on a
+    free port): ``run_train`` at B = 5 with and without the group, 3 steps
+    each from the seed, every tensor bit-equal and ``ALL_REDUCES > 0``; steps/s
+    of 1 + 5 steps without and with the group in six turns (plain, group,
+    group, plain, plain, group) beside phase 8's; ``run_eval`` through the group on phase 5's
+    model, batches and generator gives phase 5's confusion.  (ii) two
+    processes on the card joined by gloo (CUDA tensors all-reduced through
+    the host), one train step at a global B = 4 (2 frames a rank) of the
+    full-width MinkUNet from phase 8's state against one process's B = 4 step
+    from it (phase 9's tolerances), and the eval confusion of 8 frames in
+    global batches of 4 equal to one process's; steps/s of the two ranks at
+    a global B = 4 beside one process's, and a step's small all-reduces
+    through gloo.  (iii) after phase 12, two gloo ranks on the card split
+    phase 12's frames as ``torchrun`` would over cards: ``run_prob_inference``
+    over each rank's ``process_shard`` with maps bit-equal to phase 12's,
+    then ``run_fused_lidal_round`` over the group with flags, saved maps and
+    selections identical to phase 12's, ``nn_band`` launched once a frame.
 
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
@@ -561,7 +583,7 @@ def step_split(state, batch, gen, caps, dev, spvcnn=False):
 def train_slice_phase(cfg, dev, caps, tag="8 slice", n_pts=N_PTS):
     """8 (MinkUNet), 17 (SPVCNN) and 26 (nuScenes): run_train through its
     loader over frames of ``n_pts`` points; returns (the trained state, a
-    batch, each kernel's launches in the run)."""
+    batch, each kernel's launches in the run, its steps/s)."""
     import torch
 
     from lidal_tpu_torch.runtime.paths import Paths
@@ -612,7 +634,7 @@ def train_slice_phase(cfg, dev, caps, tag="8 slice", n_pts=N_PTS):
     descent = [float(train_step(fresh, tb, seeds)) for _ in range(DESCENT_STEPS)]
     require(descent[-1] < descent[0], f"no descent over {DESCENT_STEPS} steps on one batch: {descent}")
     print(f"[{tag}] {DESCENT_STEPS} steps on one batch: loss {descent[0]:.4f} -> {descent[-1]:.4f}")
-    return state, tb, launches
+    return state, tb, launches, TIMED_STEPS / seconds
 
 
 def train_step_parity_phase(state, tb, tag="9 train step"):
@@ -937,8 +959,8 @@ def nn_band_phase(cfg, dev, seq="00", names=None, n_pts=N_PTS, tag="11 nn_band",
 
 
 def lidal_slice_phase(cfg, root, dev, n_sv):
-    """12: staged and fused LiDAL rounds from the same weights; returns the
-    kernels' launches in the fused round."""
+    """12: staged and fused LiDAL rounds from the same weights; returns (the
+    kernels' launches in the fused round, its selection)."""
     import torch
 
     from lidal_tpu_torch.active import lidal, lidal_runner
@@ -1067,7 +1089,7 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
           f"accumulation {t_slot - t_band:.1f} ms; host aggregate {t_agg:.1f} ms (host clock)")
     del model, ring, prob
     torch.cuda.empty_cache()
-    return launches
+    return launches, res_b
 
 
 def active_round_phase(cfg, dev):
@@ -1304,7 +1326,8 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     batches (each of ``b`` frames of ``n_pts`` points) after a warm-up (by
     default run_eval over the first batch; ``warm_up()`` where given), where
     one batch's time goes, and the whole forward on the kernel path against
-    the plain path.  Returns each kernel's launches in the timed run."""
+    the plain path.  Returns (each kernel's launches in the timed run, its
+    confusion matrix)."""
     import torch
 
     from lidal_tpu_torch.data.pipeline import forward_batch
@@ -1369,7 +1392,7 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     require(agree >= ARGMAX_AGREE, f"argmax agreement {agree}")
     print(f"[{forward_tag}] kernel vs plain path: max|d logits| {logit_err:.2e} (tol {LOGIT_TOL}), argmax agreement "
           f"{agree:.6f} over {int(valid0.sum())} valid voxels; logits std {float(logits[valid0].std()):.3f}")
-    return launches
+    return launches, res.confusion
 
 
 def spvcnn_round_phase(cfg_mink, dev, n_sv):
@@ -2054,7 +2077,7 @@ def nu_eval_phase(cfg, dev):
         randomise_bn(state.model, SEED + 1)
         ckpt.save_checkpoint(Paths(cfg_f).ckpt_dir(), state, 0)  # what evaluate_command restores
         model = state.model.eval()
-        launches[family] = eval_slice_phase(
+        launches[family], _ = eval_slice_phase(
             cfg_f, model, [batch] * (1 + TIMED_BATCHES), prepare, dev, caps, f"25 slice {family}",
             f"25 forward {family}", b=NU_VAL_FRAMES, n_pts=NU_PTS, warm_up=lambda: evaluate_command(cfg_f, dev),
         )
@@ -2190,6 +2213,316 @@ def nu_import_phase(cfg, batch, dev):
         torch.cuda.empty_cache()
 
 
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def timed_run_train(cfg, dev, group=None):
+    """run_train for 1 + TIMED_STEPS steps; steps/s of the timed ones (host
+    clock; each step's loss read, as phase 8)."""
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    times = []
+
+    def on_step(step, loss):
+        float(loss)  # waits for the step to finish
+        times.append(time.perf_counter())
+
+    run_train(cfg, max_iter=1 + TIMED_STEPS, log_every=10**9, on_step=on_step, device=dev, group=group)
+    return TIMED_STEPS / (times[-1] - times[0])
+
+
+def group_phase(cfg_train, cfg_eval, root, dev, batches, conf5, rate8):
+    """29 (i): the group path in a world-size-1 NCCL group: ``run_train`` at
+    B = 5 bit-equal to no group after 3 steps, with all-reduces counted, and
+    its steps/s beside no group's (six turns) and
+    phase 8's; ``run_eval`` through the group gives phase 5's confusion."""
+    import torch
+    import torch.distributed as dist
+
+    from lidal_tpu_torch.models.minkunet import MinkUNet
+    from lidal_tpu_torch.parallel import mesh
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    def cfg_at(tag):
+        return dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, f"check_points_29_{tag}"))
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    print(f"[29 group] NCCL group of one rank on {dev} in {time.perf_counter() - t0:.1f} s")
+    group = dist.group.WORLD
+    try:
+        mesh.ALL_REDUCES = 0
+        plain = run_train(cfg_at("plain"), max_iter=3, log_every=10**9, device=dev).model.state_dict()
+        grouped = run_train(cfg_at("group"), max_iter=3, log_every=10**9, device=dev, group=group).model.state_dict()
+        n_all_reduces = mesh.ALL_REDUCES
+        differ = [k for k, v in plain.items() if not torch.equal(v, grouped[k])]
+        require(not differ, f"3 steps through the group differ from 3 without it: {differ[:4]}")
+        require(n_all_reduces > 0, "no all-reduce ran in the group's run_train")
+        turns = ("plain", "group", "group", "plain", "plain", "group")
+        rates = [timed_run_train(cfg_at(f"rate{i}"), dev, group if tag == "group" else None)
+                 for i, tag in enumerate(turns)]
+        by = {tag: sorted(r for t, r in zip(turns, rates) if t == tag) for tag in ("plain", "group")}
+        small = torch.zeros(97, device=dev)  # a BN's count and channel sums
+        t_ar = cuda_ms(lambda: [mesh.all_reduce_(small, group) for _ in range(n_all_reduces // 3)], reps=3)
+        print(f"[29 group] run_train B = {cfg_train.data.batch_size}: after 3 steps {len(plain)} tensors bit-equal "
+              f"with and without the group, {n_all_reduces} all-reduces ({n_all_reduces // 3} a step); steps/s in "
+              f"turns {', '.join(f'{t} {r:.3f}' for t, r in zip(turns, rates))}: plain {by['plain'][0]:.3f}-"
+              f"{by['plain'][-1]:.3f} (median {by['plain'][1]:.3f}), group {by['group'][0]:.3f}-{by['group'][-1]:.3f} "
+              f"(median {by['group'][1]:.3f}); phase 8 {rate8:.3f}; a step's {n_all_reduces // 3} all-reduces "
+              f"alone, of 97 floats each, take {t_ar:.2f} ms (CUDA events)")
+
+        torch.manual_seed(SEED)  # phase 5's model and generator
+        model = MinkUNet(num_classes=cfg_eval.data.num_classes).eval()
+        randomise_bn(model, SEED + 1)
+        model = model.to(dev)
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+        run_eval(cfg_eval, model, batches[:1], dev, gen, group=group)
+        res = run_eval(cfg_eval, model, batches[1:], dev, gen, group=group)
+        require(np.array_equal(res.confusion, conf5), "run_eval through the group differs from phase 5's confusion")
+        print(f"[29 group] run_eval through the group: {TIMED_BATCHES} batches x {B}, confusion equal to phase 5's "
+              f"({int(res.confusion.sum())} points)")
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device):
+    """29 (ii), one of two ranks on ``device`` joined by gloo: training of the
+    global B = 4 (2 frames a rank) up to step ``max_iter``, then eval of
+    global batches of 4; then steps/s of 1 + 5 steps from the seed at the
+    same batch, and the time of a step's small all-reduces alone."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.data.loader import FrameBatchLoader
+    from lidal_tpu_torch.parallel import mesh
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = dist.group.WORLD
+        state = run_train(cfg, max_iter=max_iter, device=dev, group=group)
+        loader = FrameBatchLoader(eval_files, lambda p: sk.read_frame(p, with_labels=True),
+                                  point_cap=cfg.data.point_cap, batch_size=4)
+        res = run_eval(cfg, state.model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9), group=group)
+        np.save(os.path.join(out_dir, f"confusion{rank}.npy"), res.confusion)
+        np.save(os.path.join(out_dir, f"all_reduces{rank}.npy"), mesh.ALL_REDUCES)
+        n0 = mesh.ALL_REDUCES
+        rate = timed_run_train(dataclasses.replace(cfg, checkpoint_root=os.path.join(out_dir, "timed")), dev, group)
+        per_step = (mesh.ALL_REDUCES - n0) // (1 + TIMED_STEPS)
+        small = torch.zeros(97, device=dev)  # a BN's count and channel sums
+        t_ar = cuda_ms(lambda: [mesh.all_reduce_(small, group) for _ in range(per_step)], reps=3)
+        np.save(os.path.join(out_dir, f"timing{rank}.npy"), np.array([rate, per_step, t_ar]))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_phase(cfg_train, root, dev):
+    """29 (ii): two processes on the one card joined by gloo (NCCL puts no two
+    ranks on one GPU): one train step at a global B = 4 of the full-width
+    MinkUNet from phase 8's trained state and Adam moments, as phase 9's step,
+    against one process's B = 4 step from the same state (phase 9's
+    tolerances; from a fresh Adam every near-zero gradient whose sign the sum
+    order flips moves its weight by 2 lr), and the eval confusion of the
+    group-trained weights against one process's."""
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.data.loader import FrameBatchLoader
+    from lidal_tpu_torch.runtime import checkpoint as ckpt
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state, run_train
+
+    out_dir = os.path.join(root, "gloo")
+    os.makedirs(out_dir)
+    cfg2 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_gloo"),
+                               data_override=dataclasses.replace(cfg_train.data, batch_size=2))
+    cfg1 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_one"),
+                               data_override=dataclasses.replace(cfg_train.data, batch_size=4))
+    eval_files = sk.list_frames(cfg_train.data_root, ["00"])[:8]
+    phase8 = ckpt.ckpt_path(Paths(cfg_train).ckpt_dir())
+    for cfg in (cfg1, cfg2):
+        os.makedirs(Paths(cfg).ckpt_dir())
+        shutil.copy(phase8, ckpt.ckpt_path(Paths(cfg).ckpt_dir()))
+    step0 = torch.load(phase8, weights_only=True)["iteration"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank_dev = str(torch.device("cuda", torch.cuda.current_device())) if dev.type == "cuda" else str(dev)
+    tmp_mp.start_processes(gloo_rank, args=(free_port(), cfg2, step0 + 1, eval_files, out_dir, rank_dev), nprocs=2,
+                           join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t0
+    confs = [np.load(os.path.join(out_dir, f"confusion{r}.npy")) for r in range(2)]
+    all_reduces = [int(np.load(os.path.join(out_dir, f"all_reduces{r}.npy"))) for r in range(2)]
+    require(min(all_reduces) > 0 and np.array_equal(*confs), f"the ranks' results differ: {all_reduces}")
+
+    single = run_train(cfg1, max_iter=step0 + 1, log_every=10**9, device=dev).model.state_dict()
+    trained = init_state(cfg2, dev)
+    require(ckpt.restore_checkpoint(Paths(cfg2).ckpt_dir(), trained) is not None and trained.step == step0 + 1,
+            "rank 0 wrote no checkpoint of its step")
+    far = total = 0
+    worst = 0.0
+    for name, got in trained.model.state_dict().items():
+        d = (got - single[name]).abs()
+        if "running" in name:  # BN statistics: phase 9's 1e-4 of max(1, |plain|)
+            require(bool((d <= 1e-4 * single[name].abs().clamp_min(1.0)).all()),
+                    f"BN statistic {name}: {float(d.max())}")
+            continue
+        worst = max(worst, float(d.max()))
+        require(float(d.max()) <= 2 * LR, f"parameter {name} after Adam: {float(d.max())}")
+        far += int((d > 1e-2 * LR).sum())
+        total += d.numel()
+    require(far <= 1e-3 * total, f"{far} of {total} parameters differ by more than 1e-2 * lr after Adam")
+    rate1 = timed_run_train(dataclasses.replace(cfg1, checkpoint_root=os.path.join(out_dir, "timed1")), dev)
+    rate2, per_step, t_ar = np.load(os.path.join(out_dir, "timing0.npy"))
+
+    model = trained.model.eval()
+    loader = FrameBatchLoader(eval_files, lambda p: sk.read_frame(p, with_labels=True),
+                              point_cap=cfg1.data.point_cap, batch_size=4)
+    res = run_eval(cfg1, model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9))
+    require(np.array_equal(res.confusion, confs[0]), "the two ranks' eval confusion differs from one process's")
+    print(f"[29 gloo] 2 processes on {dev} joined by gloo: train step {step0 + 1} at a global B = 4 (2 a rank) and "
+          f"eval of {len(eval_files)} frames in {t_ranks:.1f} s (spawn, start-up and kernel loads included); "
+          f"{all_reduces[0]} all-reduces a rank; after Adam worst |d| {worst:.2e} (tol {2 * LR}), {far} of {total} "
+          f"parameters beyond 1e-2 * lr; eval confusion equal to one process's ({int(res.confusion.sum())} points)")
+    print(f"[29 gloo] train at a global B = 4, {TIMED_STEPS} steps after a warm-up from the seed: 2 gloo ranks on "
+          f"the one card {rate2:.3f} steps/s, one process {rate1:.3f} steps/s ({rate2 / rate1:.2f}x); a step's "
+          f"{int(per_step)} all-reduces through gloo, the small ones alone (97 floats each, CUDA tensors via the "
+          f"host): {t_ar:.2f} ms")
+
+
+def round_rank(rank, port, cfg, ranks_root, out_dir, device):
+    """29 (iii), one of two ranks on ``device`` joined by gloo, on phase 12's
+    tree and weights: ``run_prob_inference`` over this rank's share of the
+    frames (``process_shard``), each map held here against phase 12's staged
+    map, then ``run_fused_lidal_round`` over the group in ``ranks_root``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from lidal_tpu_torch.active import lidal_runner
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.parallel import mesh
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = dist.group.WORLD
+        model = init_state(cfg, dev).model.eval()
+        randomise_bn(model, SEED + 7)  # phase 12's weights
+        files = sk.list_frames(cfg.data_root, cfg.data.train_split)
+        frame_index = {sk.frame_id(p): i for i, p in enumerate(files)}
+        by_id = {sk.frame_id(p): p for p in files}
+        inf_cfg = lidal_runner._prev_cfg(cfg)
+        share = mesh.process_shard(len(files), group)
+        t0 = time.perf_counter()
+        maps = run_prob_inference(inf_cfg, model, files[share.start : share.stop],
+                                  lambda p: sk.read_frame(p, with_labels=False), sk.frame_id, save=False, device=dev,
+                                  first_index=share.start)
+        t_inf = time.perf_counter() - t0
+        staged = Paths(inf_cfg)
+        differ = [name for (seq, name), (prob, pred, _) in maps.items()
+                  if not (np.array_equal(prob, np.load(os.path.join(staged.prob_dir(seq), f"{name}.npy")))
+                          and np.array_equal(pred, np.load(os.path.join(staged.pred_dir(seq), f"{name}.npy"))))]
+        mesh.sync_hosts("inference", group)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = lidal_runner.run_fused_lidal_round(
+            dataclasses.replace(cfg, processing_root=ranks_root), model,
+            lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
+            frame_index=frame_index, device=dev, group=group,
+        )
+        t_fused = time.perf_counter() - t0
+        launches = read_launches(("lookup_sorted", "subm_conv", "nn_band"))
+        torch.save({"inferred": sorted(maps), "differ": differ, "t_inf": t_inf, "t_fused": t_fused,
+                    "launches": launches, "selection": [np.asarray(x) for x in res]},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_round_phase(cfg, root, dev, selection12):
+    """29 (iii): phase 12's inference and fused round split over two gloo
+    ranks on the card, as ``torchrun`` splits them over cards: every frame
+    inferred by one rank, its maps bit-equal to phase 12's; the fused
+    round's selection on both ranks, its flags and its saved prob / pred
+    maps (each written by the rank that owns the frame) identical to phase
+    12's; ``nn_band`` launched once a frame over the two ranks."""
+    import torch
+    import torch.multiprocessing as tmp_mp
+
+    from lidal_tpu_torch.active import lidal_runner
+    from lidal_tpu_torch.runtime.paths import Paths
+
+    fused12 = os.path.join(root, "Processing_fused")  # phase 12's fused tree
+    cfg_r = dataclasses.replace(cfg, processing_root=os.path.join(root, "Processing_ranks"))
+    shutil.copytree(fused12, cfg_r.processing_root)
+    prev_r, prev_12 = Paths(lidal_runner._prev_cfg(cfg_r)), Paths(lidal_runner._prev_cfg(
+        dataclasses.replace(cfg, processing_root=fused12)))
+    for d in (Paths(cfg_r).sv_flag_dir("00"), prev_r.prob_dir("00"), prev_r.pred_dir("00")):
+        shutil.rmtree(d)  # the round writes them anew
+    out_dir = os.path.join(root, "ranks")
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    rank_dev = str(torch.device("cuda", torch.cuda.current_device())) if dev.type == "cuda" else str(dev)
+    t0 = time.perf_counter()
+    tmp_mp.start_processes(round_rank, args=(free_port(), cfg, cfg_r.processing_root, out_dir, rank_dev), nprocs=2,
+                           join=True, start_method="spawn")
+    t_ranks = time.perf_counter() - t0
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    inferred = got[0]["inferred"] + got[1]["inferred"]
+    require(len(inferred) == ROUND_FRAMES == len(set(inferred)), f"{len(inferred)} frames inferred by the ranks")
+    require(not got[0]["differ"] and not got[1]["differ"],
+            f"prob / pred of {got[0]['differ'] + got[1]['differ']}: the ranks differ from phase 12's")
+    nn_band = got[0]["launches"]["nn_band"] + got[1]["launches"]["nn_band"]
+    require(nn_band == ROUND_FRAMES, f"nn_band launched {nn_band} times for {ROUND_FRAMES} frames by two ranks")
+    for g in got:
+        for a, b in zip(selection12, g["selection"]):
+            require(np.array_equal(a, b), "a rank's selection differs from phase 12's")
+    for i in range(ROUND_FRAMES):
+        name = f"{i:06d}.npy"
+        for want, have in ((Paths(dataclasses.replace(cfg, processing_root=fused12)).sv_flag_dir("00"),
+                            Paths(cfg_r).sv_flag_dir("00")), (prev_12.prob_dir("00"), prev_r.prob_dir("00")),
+                           (prev_12.pred_dir("00"), prev_r.pred_dir("00"))):
+            require(np.array_equal(np.load(os.path.join(want, name)), np.load(os.path.join(have, name))),
+                    f"{have}/{name} differs from phase 12's")
+    t_inf = max(g["t_inf"] for g in got)
+    t_fused = max(g["t_fused"] for g in got)
+    print(f"[29 ranks] 2 gloo ranks on {dev} in {t_ranks:.1f} s (spawn and start-up included): run_prob_inference "
+          f"{ROUND_FRAMES} frames x {cfg.inf_reps} views ({len(got[0]['inferred'])} + {len(got[1]['inferred'])}) in "
+          f"{t_inf:.2f} s ({ROUND_FRAMES / t_inf:.3f} frames/s), maps bit-equal to phase 12's; run_fused_lidal_round "
+          f"in {t_fused:.2f} s ({ROUND_FRAMES / t_fused:.3f} frames/s), selection, flags and saved maps identical to "
+          f"phase 12's ({len(selection12.al_added)} + {len(selection12.sl_added)} supervoxels); launches rank 0 "
+          f"{got[0]['launches']}, rank 1 {got[1]['launches']}")
+
+
 def main() -> None:
     import torch
 
@@ -2260,7 +2593,7 @@ def main() -> None:
 
     # ---- 5, 6. the eval slice and the whole forward -------------------------------------------
     del eb
-    launches = eval_slice_phase(cfg, model, batches, prepare, dev, caps, "5 slice", "6 forward")
+    launches, conf5 = eval_slice_phase(cfg, model, batches, prepare, dev, caps, "5 slice", "6 forward")
     del model
     torch.cuda.empty_cache()
 
@@ -2274,7 +2607,7 @@ def main() -> None:
     gather8 = gather8_phase(spvcnn, eb_s)
     del eb_s
     torch.cuda.empty_cache()
-    launches_16 = eval_slice_phase(cfg_spv, spvcnn, batches, prepare, dev, caps, "16 slice", "16 forward")
+    launches_16, _ = eval_slice_phase(cfg_spv, spvcnn, batches, prepare, dev, caps, "16 slice", "16 forward")
     del spvcnn
     torch.cuda.empty_cache()
 
@@ -2305,7 +2638,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         probe_launches = probes_phase(dev)
         torch.cuda.empty_cache()
-        trained, tb8, train_launches = train_slice_phase(cfg_train, dev, caps)
+        trained, tb8, train_launches, rate8 = train_slice_phase(cfg_train, dev, caps)
         train_step_parity_phase(trained, tb8)
         del trained, tb8
         torch.cuda.empty_cache()
@@ -2321,9 +2654,13 @@ def main() -> None:
         scatter8 = scatter8_phase(train_state, tb15)
         del train_state, tb15, b15
         torch.cuda.empty_cache()
-        trained, tb17, launches_17 = train_slice_phase(cfg_train_spv, dev, caps, tag="17 slice")
+        trained, tb17, launches_17, _ = train_slice_phase(cfg_train_spv, dev, caps, tag="17 slice")
         train_step_parity_phase(trained, tb17, tag="17 train step")
         del trained, tb17
+        torch.cuda.empty_cache()
+        # ---- 29 (i, ii). a world-size-1 NCCL group; two ranks on the card joined by gloo -------------
+        group_phase(cfg_train, cfg, root, dev, batches, conf5, rate8)
+        gloo_phase(cfg_train, root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2347,7 +2684,8 @@ def main() -> None:
               f"registered by prepare_sk_grids: {time.perf_counter() - t0:.1f} s")
         grid_phase(cfg_round, dev)
         nn_band = nn_band_phase(cfg_round, dev)
-        round_launches = lidal_slice_phase(cfg_round, root, dev, n_sv)
+        round_launches, selection12 = lidal_slice_phase(cfg_round, root, dev, n_sv)
+        rank_round_phase(cfg_round, root, dev, selection12)
         active_round_phase(cfg_round, dev)
         launches_18 = spvcnn_round_phase(cfg_round, dev, n_sv)
         scoring_phase(cfg_round, root, dev)
@@ -2372,7 +2710,8 @@ def main() -> None:
         nu_eval, nu_batch = nu_eval_phase(cfg_nu, dev)
         cfg_nu_train = dataclasses.replace(cfg_nu, label_unit="fr", metric_name="full", r_id=1,
                                            max_iter=1 + TIMED_STEPS)
-        trained, _, nu_train = train_slice_phase(cfg_nu_train, dev, NU_CONFIG.level_caps, tag="26 slice", n_pts=NU_PTS)
+        trained, _, nu_train, _ = train_slice_phase(cfg_nu_train, dev, NU_CONFIG.level_caps, tag="26 slice",
+                                                    n_pts=NU_PTS)
         del trained
         torch.cuda.empty_cache()
         names = [e["token"] for e in nu_seq_frames(cfg_nu)[NU_TRAIN_SCENE]]

@@ -1,5 +1,5 @@
-"""LiDAL scoring round orchestrator (port of ``lidal_tpu/active/lidal_runner.py``,
-single device; reference ``score/sv_level/LiDAL.py`` main).
+"""LiDAL scoring round orchestrator (port of ``lidal_tpu/active/lidal_runner.py``;
+reference ``score/sv_level/LiDAL.py`` main).
 
 Flow per round r >= 1 (all paths per the reference taxonomy):
 
@@ -20,7 +20,16 @@ the caller's thread scores frame i and aggregates frame i - 1.  Both threads
 queue their device work on the one current stream, and the score of frame i
 is queued before the prefetch of frame i + 1 is submitted, so a slot write
 never overtakes a score that still reads the slot.  ``torch.inference_mode``
-and the current device are per thread: the worker enters its own.
+and the current device are per thread: the worker enters its own.  The
+kernels' launch counts stay exact across the two threads: each wrapper adds
+to its count under ``kernels_build.LAUNCH_LOCK``.
+
+Over a process group (``group``) each rank scores its contiguous share of
+every sequence's frames (``parallel/mesh.process_shard``; its ring also
+loads the neighbours beyond the share), the ranks' per-supervoxel scores are
+summed (each supervoxel belongs to one frame, so a sum of one score and
+zeros), every rank selects, and rank 0 alone writes the flags and the
+statistics.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lidal_tpu_torch.active import lidal
 from lidal_tpu_torch.active.nn_match import HashGrid, build_grid
@@ -42,6 +52,7 @@ from lidal_tpu_torch.data.pipeline import pad_points
 from lidal_tpu_torch.data.selection import load_sv_info
 from lidal_tpu_torch.ops.cuda_nnband import BIG_COORD, TN
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
+from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.prep.grid import load_grid_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.runtime.prob_inference import check_writes, frame_generator, make_multiview_fn, to_host
@@ -79,7 +90,13 @@ class NeighborRing:
     rewritten, in place.  Duplicate neighbor ids (the reference's
     end-of-sequence reflection) ride a per-frame weight vector.  Slots that
     hold no frame carry sentinel keys and BIG coordinates, so their bands are
-    empty."""
+    empty.
+
+    A frame's scores are summed over the slots in slot order, so they depend
+    on which slot holds which neighbour, which the ring's history decides.  A
+    rank whose share starts mid-sequence replays the slot assignments of the
+    frames before its share (:meth:`ensure` without a loader) and so sums in
+    the same order as one ring over the whole sequence."""
 
     def __init__(self, nslots: int, cap: int, device: Union[torch.device, str] = "cuda"):
         self.nslots = nslots
@@ -89,7 +106,7 @@ class NeighborRing:
         self.key2slot: Dict = {}
         self.free = list(range(nslots))
         self.state = None  # allocated on first ensure() (class count from data)
-        self.meta: Dict = {}  # key -> (true point count, host xyz) for aggregation
+        self.meta: Dict = {}  # key -> (true point count, host xyz) for aggregation; the keys loaded
 
     def _alloc(self, num_classes: int) -> None:
         s, cap, dev = self.nslots, self.cap, self.device
@@ -116,24 +133,28 @@ class NeighborRing:
             prob_pad = torch.cat([prob_pad, prob_pad.new_zeros((self.cap - self.cap_in, prob_pad.shape[1]))])
         probs[slot] = prob_pad[grid.src_idx.long()]
 
-    def ensure(self, keys: Sequence, loader: Callable) -> None:
+    def ensure(self, keys: Sequence, loader: Optional[Callable]) -> None:
         """Make every key resident; ``loader(key) -> (xyz [n,3], prob [n,c])``
         with ``prob`` a numpy array or, in the fused round, a device tensor
-        [cap_in, c]."""
+        [cap_in, c].  Without a loader only assign the keys their slots (a
+        replay: they load when a later call still wants them)."""
         wanted = set(keys)
         missing = [k for k in wanted if k not in self.key2slot]
-        if not missing:
+        if missing:
+            for k in [k for k in list(self.key2slot) if k not in wanted]:
+                self.free.append(self.key2slot.pop(k))
+                self.meta.pop(k, None)
+            for k in missing:
+                self.key2slot[k] = self.free.pop()
+        if loader is None:
             return
-        for k in [k for k in list(self.key2slot) if k not in wanted]:
-            self.free.append(self.key2slot.pop(k))
-            self.meta.pop(k, None)
-        for k in missing:
+        for k in [k for k in wanted if k not in self.meta]:
             xyz, prob = loader(k)
             if self.state is None:
                 self._alloc(int(prob.shape[1]))
             n = min(len(xyz), self.cap_in)
             self.meta[k] = (n, xyz)
-            slot = self.free.pop()
+            slot = self.key2slot[k]
             if isinstance(prob, torch.Tensor):
                 # fused-round path: prob is the inference output [cap_in, C],
                 # already on the device; upload only the registered coords.
@@ -151,7 +172,6 @@ class NeighborRing:
                 buf[:n, 3:] = prob[:n]
                 dbuf = torch.from_numpy(buf).to(self.device)
                 self._insert(slot, dbuf[:, :3].contiguous(), n, dbuf[:, 3:])
-            self.key2slot[k] = slot
 
     def weights(self, keys: Sequence) -> np.ndarray:
         """Per-slot multiplicity of ``keys`` (0 for unused slots)."""
@@ -240,18 +260,30 @@ class _SvAggregator:
             np.save(self.pnums_path, self.sv_pnums)
             np.save(self.centers_path, self.sv_centers)
 
+    def all_reduce(self, group: Optional[dist.ProcessGroup], device: torch.device) -> None:
+        """Sum what the ranks aggregated (each rank wrote its frames'
+        supervoxels and left the others 0; loaded statistics stay as loaded)."""
+        if group is None:
+            return
+        arrays = [self.sv_interds, self.sv_interes] + ([] if self.pre else [self.sv_pnums, self.sv_centers])
+        for a in arrays:
+            a[...] = mesh.all_reduce_(torch.from_numpy(a).to(device), group).cpu().numpy()
 
-def _score_sequence(n_frames: int, device: torch.device, cap: int, loader: Callable, aggregate: Callable,
-                    after_frame: Callable = lambda: None) -> None:
-    """Score frames 0..n_frames-1 of one sequence through a ring:
-    ``loader(frame index) -> (xyz, prob)`` fills it (on the prefetch thread),
-    ``aggregate(fi, p, q_xyz, scores)`` folds each frame's result."""
-    if n_frames == 0:
+
+def _score_frames(chunk: range, n_frames: int, device: torch.device, cap: int, loader: Callable,
+                  aggregate: Callable, after_frame: Callable = lambda: None) -> None:
+    """Score the frames of ``chunk`` (of a sequence of ``n_frames``) through
+    a ring on ``device``: ``loader(frame index) -> (xyz, prob)`` fills it (on
+    the prefetch thread), ``aggregate(fi, p, q_xyz, scores)`` folds each
+    frame's result."""
+    if not chunk:
         return
     # +2 slots: the query frame itself stays resident (it becomes a neighbor
     # of the next 12 frames with no re-upload), plus slack for
     # end-of-sequence reflection windows.
     ring = NeighborRing(lidal.NEI_NUM + 2, cap, device=device)
+    for fi in range(chunk.start):  # the slots a ring over the whole sequence holds here
+        ring.ensure([fi] + lidal.neighbor_ids(fi, n_frames), None)
 
     def prefetch(fi):
         """Warm the ring for frame fi on the IO thread."""
@@ -266,16 +298,16 @@ def _score_sequence(n_frames: int, device: torch.device, cap: int, loader: Calla
     io = ThreadPoolExecutor(max_workers=1)
     try:
         with _device_scope(device):
-            nxt = io.submit(prefetch, 0)
+            nxt = io.submit(prefetch, chunk[0])
             pending = None  # (fi, p, q_xyz, stacked [2, cap] scores on the host, copy event)
-            for fi in range(n_frames):
+            for fi in chunk:
                 nxt.result()
                 w = ring.weights(lidal.neighbor_ids(fi, n_frames))
                 p, q_xyz = ring.meta[fi]
                 scores, copied = to_host(lidal.score_slot(ring.state, ring.key2slot[fi], w))
                 # submitted after the score is queued: the slot writes of
                 # frame fi + 1 follow it on the stream
-                if fi + 1 < n_frames:
+                if fi + 1 in chunk:
                     nxt = io.submit(prefetch, fi + 1)
                 if pending is not None:
                     drain(*pending)  # frame i-1, while frame i computes
@@ -286,12 +318,19 @@ def _score_sequence(n_frames: int, device: torch.device, cap: int, loader: Calla
         io.shutdown(wait=True, cancel_futures=True)
 
 
-def _select_and_save(sv_flags, agg: _SvAggregator, tpn: int, save_paths, frame_sv_offsets):
-    """Stage 4: greedy selection over the aggregated scores, one flag npy per frame."""
-    agg.save_stats()
+def _select_and_save(sv_flags, agg: _SvAggregator, tpn: int, save_paths, frame_sv_offsets,
+                     group: Optional[dist.ProcessGroup], device: torch.device):
+    """Stage 4: greedy selection over the aggregated scores, one flag npy per
+    frame (under a group: the group's scores, written by rank 0)."""
+    lead = mesh.rank(group) == 0
+    agg.all_reduce(group, device)
+    if lead:
+        agg.save_stats()
     result = lidal.select(sv_flags, agg.sv_interds, agg.sv_interes, agg.sv_pnums, agg.sv_centers, tpn)
-    for i, sp in enumerate(save_paths):
-        np.save(sp, result.sv_flags[frame_sv_offsets[i] : frame_sv_offsets[i + 1]])
+    if lead:
+        for i, sp in enumerate(save_paths):
+            np.save(sp, result.sv_flags[frame_sv_offsets[i] : frame_sv_offsets[i + 1]])
+    mesh.sync_hosts("select", group)
     return result
 
 
@@ -301,9 +340,11 @@ def run_lidal_round(
     train_point_num: int | None = None,
     verbose: bool = False,
     device: Union[torch.device, str] = "cuda",
+    group: Optional[dist.ProcessGroup] = None,
 ) -> lidal.SelectionResult:
-    """Execute one full LiDAL scoring + selection round on ``device`` from the
-    previous round's prob npys; writes flag files and returns the selection."""
+    """Execute one full LiDAL scoring + selection round on ``device`` (over
+    the ranks of ``group``) from the previous round's prob npys; writes flag
+    files and returns the selection."""
     assert cfg.r_id >= 1
     assert cfg.metric_name.startswith("LiDAL")
     device = torch.device(device)
@@ -327,9 +368,10 @@ def run_lidal_round(
             return xyz, prob
 
         aggregate = agg.make_aggregate(seq, seq_idx, paths.supervoxel_dir(seq, "KMeans"), names, verbose)
-        _score_sequence(len(names), device, data.point_cap, load_frame, aggregate)
+        _score_frames(mesh.process_shard(len(names), group), len(names), device, data.point_cap, load_frame,
+                      aggregate)
 
-    return _select_and_save(sv_flags, agg, tpn, save_paths, frame_sv_offsets)
+    return _select_and_save(sv_flags, agg, tpn, save_paths, frame_sv_offsets, group, device)
 
 
 def run_fused_lidal_round(
@@ -342,6 +384,7 @@ def run_fused_lidal_round(
     verbose: bool = False,
     device: Union[torch.device, str] = "cuda",
     frame_index: Optional[Dict] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> lidal.SelectionResult:
     """FUSED single-pass active round: multi-view probability inference and
     LiDAL scoring stream through the device together.
@@ -358,6 +401,10 @@ def run_fused_lidal_round(
     (reference ``sk_dataset.py:122-141``), and a staged run can reuse the prob
     dumps.  A failed write fails the round: each write is checked as it
     completes, and all of them at the end.
+
+    Ranks split the frames as :func:`run_lidal_round` does; a rank also
+    infers the neighbours beyond its share, and saves only its own frames'
+    maps.
 
     Parity: probabilities come from the same function as
     :func:`runtime.prob_inference.run_prob_inference`, with each frame's
@@ -403,6 +450,7 @@ def run_fused_lidal_round(
         for seq_idx, seq in enumerate(split):
             grid_dir = paths.grid_dir(seq)
             names = frame_names[seq]
+            share = mesh.process_shard(len(names), group)
             prob_dir = ensure_dir(inf_paths.prob_dir(seq)) if save_prob else None
             pred_dir = ensure_dir(inf_paths.pred_dir(seq)) if save_prob else None
 
@@ -421,17 +469,17 @@ def run_fused_lidal_round(
                     frame_generator(inf_cfg.seed, frame_index[(seq, name)]),
                     *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
                 )
-                if save_prob:
+                if save_prob and ni in share:  # a neighbour beyond the share is saved by its own rank
                     writes.append(writer.submit(save_frame, name, len(xyz_raw), prob_t, pred_t))
                 gxyz = load_grid_points(os.path.join(grid_dir, f"{name}.npz")).astype(np.float32)
                 return gxyz, prob_t
 
             aggregate = agg.make_aggregate(seq, seq_idx, paths.supervoxel_dir(seq, "KMeans"), names, verbose)
-            _score_sequence(len(names), device, cap, infer_frame, aggregate,
-                            after_frame=lambda: check_writes(writes, wait=False))
+            _score_frames(share, len(names), device, cap, infer_frame, aggregate,
+                          after_frame=lambda: check_writes(writes, wait=False))
         writer.shutdown(wait=True)
         check_writes(writes, wait=True)
     finally:
         writer.shutdown(wait=True)
 
-    return _select_and_save(sv_flags, agg, tpn, save_paths, frame_sv_offsets)
+    return _select_and_save(sv_flags, agg, tpn, save_paths, frame_sv_offsets, group, device)

@@ -15,15 +15,27 @@ Mirrors the reference's per-script CLIs (``train.py:208-219``,
 
 Every command that runs a model runs it on ``--device`` (default ``cuda``; ``cpu``
 runs the kernels' plain versions); ``prep`` runs on the host.
+
+Under ``torchrun`` (``torchrun --nproc_per_node=N -m lidal_tpu_torch.cli
+<command> ...``) every rank joins one process group first
+(``parallel/mesh.init_from_env``): ``--device cuda`` becomes
+``cuda:LOCAL_RANK``, and ``train``, ``evaluate``, ``prob-inference``,
+``score``, ``fused-score`` and ``run-experiment`` run over the ranks.
+``prep`` and ``import-torch`` join no group: rank 0 runs them alone and the
+other ranks return at once.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
+import torch.distributed as dist
+
 from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.parallel import mesh
 
 
 def _add_run_args(p: argparse.ArgumentParser) -> None:
@@ -101,41 +113,56 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     cfg = _cfg(args)
-    device = args.device
+    if args.command in ("prep", "import-torch"):
+        if int(os.environ.get("RANK", "0")) == 0:  # host work: one process, no collective to wait in
+            _run_host(args, cfg)
+        return 0
+    device = mesh.init_from_env(args.device)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    try:
+        _run(args, cfg, device, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+    return 0
 
+
+def _run(args, cfg: RunConfig, device, group) -> None:
     if args.command == "train":
         from lidal_tpu_torch.runtime.train_loop import run_train
 
-        run_train(cfg, device=device)
+        run_train(cfg, device=device, group=group)
     elif args.command == "evaluate":
         from lidal_tpu_torch.cli.commands import evaluate_command
 
-        evaluate_command(cfg, device)
+        evaluate_command(cfg, device, group)
     elif args.command == "prob-inference":
         from lidal_tpu_torch.cli.commands import prob_inference_command
 
-        prob_inference_command(cfg, device)
+        prob_inference_command(cfg, device, group)
     elif args.command == "score":
         from lidal_tpu_torch.cli.commands import score_command
 
-        score_command(cfg, device)
+        score_command(cfg, device, group)
     elif args.command == "fused-score":
         from lidal_tpu_torch.cli.commands import fused_score_command
 
-        fused_score_command(cfg, device)
-    elif args.command == "prep":
-        from lidal_tpu_torch.cli.commands import prep_command
-
-        prep_command(cfg, args.stage)
-    elif args.command == "import-torch":
-        from lidal_tpu_torch.cli.commands import import_torch_command
-
-        import_torch_command(cfg, args.pt_path, device)
+        fused_score_command(cfg, device, group)
     elif args.command == "run-experiment":
         from lidal_tpu_torch.runtime.round import run_experiment
 
-        run_experiment(cfg, rounds=args.rounds, evaluate=not args.no_eval, device=device)
-    return 0
+        run_experiment(cfg, rounds=args.rounds, evaluate=not args.no_eval, device=device, group=group)
+
+
+def _run_host(args, cfg: RunConfig) -> None:
+    if args.command == "prep":
+        from lidal_tpu_torch.cli.commands import prep_command
+
+        prep_command(cfg, args.stage)
+    else:
+        from lidal_tpu_torch.cli.commands import import_torch_command
+
+        import_torch_command(cfg, args.pt_path, args.device)
 
 
 if __name__ == "__main__":

@@ -5,18 +5,26 @@ every selection metric, every ``prep`` stage, ``import-torch``).
 Every command that runs a model runs it on ``device`` (default: the CUDA card)
 and builds the model family ``cfg.model_name`` names
 (``runtime/train_loop.build_model``); ``prep`` is host code.
+
+Under a process group (``group``: the command line under ``torchrun``,
+``parallel/mesh.init_from_env``) evaluation and the LiDAL rounds run over its
+ranks, inference takes this rank's contiguous share of the frames, and the
+other selection metrics run on rank 0 while the other ranks wait.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.runtime.paths import Paths
 
 Device = Union[torch.device, str]
+Group = Optional[dist.ProcessGroup]
 
 
 def _load_eval_variables(cfg: RunConfig, device: Device = "cuda") -> torch.nn.Module:
@@ -59,7 +67,7 @@ def _dataset_frames(cfg: RunConfig, split: str):
     return files, read, fid
 
 
-def evaluate_command(cfg: RunConfig, device: Device = "cuda") -> float:
+def evaluate_command(cfg: RunConfig, device: Device = "cuda", group: Group = None) -> float:
     from lidal_tpu_torch.data.loader import FrameBatchLoader
     from lidal_tpu_torch.runtime.evaluate import run_eval
 
@@ -71,16 +79,22 @@ def evaluate_command(cfg: RunConfig, device: Device = "cuda") -> float:
         files,
         lambda p: read_fn(p, with_labels=True),
         point_cap=data.point_cap,
-        batch_size=2 * data.batch_size,  # reference sk_dataloader.py:44-46 (2x train batch)
+        # reference sk_dataloader.py:44-46 (2x train batch), per rank
+        batch_size=2 * data.batch_size * mesh.world(group),
     )
-    return run_eval(cfg, model, loader, device, verbose=True).miou
+    return run_eval(cfg, model, loader, device, verbose=True, group=group).miou
 
 
-def prob_inference_command(cfg: RunConfig, device: Device = "cuda") -> None:
+def prob_inference_command(cfg: RunConfig, device: Device = "cuda", group: Group = None) -> None:
+    """Multi-view inference over this rank's contiguous share of the train
+    frames (``parallel/mesh.process_shard``: all of them without a process
+    group), each frame's views seeded by its index in the whole list."""
     from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
 
     model = _load_eval_variables(cfg, device)
     files, read_fn, frame_id_fn = _dataset_frames(cfg, "train")
+    share = mesh.process_shard(len(files), group)  # reference sk_dataloader.py:196-198
+    files = files[share.start : share.stop]
     print("Score samples:", len(files))
     run_prob_inference(
         cfg,
@@ -90,10 +104,12 @@ def prob_inference_command(cfg: RunConfig, device: Device = "cuda") -> None:
         frame_id_fn=frame_id_fn,
         verbose=True,
         device=device,
+        first_index=share.start,
     )
+    mesh.sync_hosts("prob_inference", group)
 
 
-def fused_score_command(cfg: RunConfig, device: Device = "cuda") -> None:
+def fused_score_command(cfg: RunConfig, device: Device = "cuda", group: Group = None) -> None:
     """Fused inference + LiDAL scoring round (``cfg.r_id`` >= 1): one streaming
     pass computes the previous round's multi-view prob maps on the device and
     scores them without the npy round trip (same artifacts, same selections
@@ -111,16 +127,20 @@ def fused_score_command(cfg: RunConfig, device: Device = "cuda") -> None:
         xyz, sig, _ = read_fn(by_id[(seq, name)], with_labels=False)
         return xyz, sig
 
-    run_fused_lidal_round(cfg, model, read_raw, frame_index=frame_index, verbose=True, device=device)
+    run_fused_lidal_round(cfg, model, read_raw, frame_index=frame_index, verbose=True, device=device, group=group)
 
 
-def score_command(cfg: RunConfig, device: Device = "cuda") -> None:
+def score_command(cfg: RunConfig, device: Device = "cuda", group: Group = None) -> None:
     m = cfg.metric_name
     if m.startswith("LiDAL"):
         from lidal_tpu_torch.active.lidal_runner import run_lidal_round
 
-        run_lidal_round(cfg, verbose=True, device=device)
-    elif m == "ReDAL":
+        run_lidal_round(cfg, verbose=True, device=device, group=group)
+        return
+    if mesh.rank(group) != 0:  # rank 0 scores and writes the flags
+        mesh.sync_hosts("score", group)
+        return
+    if m == "ReDAL":
         from lidal_tpu_torch.active.redal_runner import run_redal_round
 
         run_redal_round(cfg, verbose=True)
@@ -132,6 +152,7 @@ def score_command(cfg: RunConfig, device: Device = "cuda") -> None:
         from lidal_tpu_torch.active.frame_runner import run_frame_metric_round
 
         run_frame_metric_round(cfg, m, verbose=True, device=device)
+    mesh.sync_hosts("score", group)
 
 
 def prep_command(cfg: RunConfig, stage: str) -> None:

@@ -10,9 +10,10 @@ on the device — the host does no more than file IO and label remap.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import copy
 import queue
 import threading
-from typing import Callable, Iterator, List, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +33,8 @@ class FrameBatchLoader:
       rank/world: contiguous static shard of the file list (score loader parity,
         reference sk_dataloader.py:196-198) when ``contiguous_shard`` else strided.
       drop_last: drop the ragged final batch.
+
+    :meth:`with_rows` gives one rank's share of data-parallel batches.
     """
 
     def __init__(
@@ -61,7 +64,19 @@ class FrameBatchLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.rows: Optional[Tuple[int, int]] = None
         self.epoch = 0
+
+    def with_rows(self, lo: int, hi: int) -> "FrameBatchLoader":
+        """A copy that yields rows ``lo:hi`` of each of this loader's batches
+        (same files, order and epoch) and reads only their frames.  The
+        ragged final batch is padded with invalid frames before the rows are
+        cut, so every share has ``hi - lo`` rows."""
+        if not 0 <= lo < hi <= self.batch_size:
+            raise ValueError(f"rows {lo}:{hi} of batches of {self.batch_size}")
+        out = copy.copy(self)
+        out.rows = (lo, hi)
+        return out
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -97,6 +112,10 @@ class FrameBatchLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        bsz = self.batch_size
+        if self.rows is not None:
+            lo, bsz = self.rows[0], self.rows[1] - self.rows[0]
+            batches = [b[lo : lo + bsz] for b in batches]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -118,7 +137,6 @@ class FrameBatchLoader:
                     items = list(pool.map(self._load_one, bfiles))
                     b = len(items)
                     # pad the ragged final batch with invalid frames (static shapes)
-                    bsz = self.batch_size
                     xyz = np.zeros((bsz, self.point_cap, 3), np.float32)
                     sig = np.zeros((bsz, self.point_cap), np.float32)
                     valid = np.zeros((bsz, self.point_cap), bool)

@@ -135,8 +135,10 @@ def build_manifest(
 
     if cache_path:
         os.makedirs(os.path.dirname(cache_path), exist_ok=True)
-        with open(cache_path, "wb") as f:
+        tmp = f"{cache_path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
             pickle.dump(manifest, f)
+        os.replace(tmp, cache_path)  # ranks building it at once never read a partial file
     return manifest
 
 

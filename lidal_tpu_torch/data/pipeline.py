@@ -46,12 +46,15 @@ def prepare_train_batch(
     scale: float = 20.0,
     full_scale: int = 8192,
     augment: bool = True,
+    draws: Optional[AugmentDraws] = None,
     with_points: bool = False,
 ) -> TrainBatch:
     """A voxel's label is its first point's (np.unique keep-first,
     reference ``sk_dataset.py:167-171``); invalid voxels get IGNORE_LABEL.
+    ``draws`` gives the augmentation parameters instead of drawing them from
+    ``generator`` (a rank's rows of a global batch's draws);
     ``with_points`` adds the SPVCNN point plan."""
-    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment)
+    vf = augment_and_voxelize(generator, xyz, sig, valid, level_caps[0], scale, full_scale, augment, draws)
     plan = build_unet_plan(vf.uv.coords, vf.uv.valid, level_caps)
     labels_v = labels_p.gather(1, vf.uv.first_src.long())
     labels_v = torch.where(vf.uv.valid, labels_v, IGNORE_LABEL).to(torch.int32)

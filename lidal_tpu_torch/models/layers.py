@@ -32,6 +32,7 @@ from lidal_tpu_torch.ops.conv import (
     up_conv_bn_batched,
 )
 from lidal_tpu_torch.ops.kernel_map import K2, K3, DownPlan, LevelPlan
+from lidal_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class _SparseConv(nn.Module):
@@ -103,13 +104,21 @@ class MaskedBatchNorm(nn.Module):
     estimate, ``running = (1 - momentum) * running + momentum * batch``; an
     all-invalid batch counts as one voxel.  Eval mode uses the running
     statistics.  Parameters and buffers use torch BatchNorm1d's names
-    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+    (``weight``, ``bias``, ``running_mean``, ``running_var``).
+
+    ``group`` (a ``torch.distributed`` process group, set by
+    :func:`sync_batchnorm`; data parallel): the batch is the union of every
+    rank's rows.  Train mode sums over the group first the count and the
+    channel sums (one tensor), then the centred squares, as the JAX
+    package's ``bn_axis`` psums do, so every rank normalises with, and keeps,
+    the global statistics.  ``nn.SyncBatchNorm`` has no mask."""
 
     momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -128,15 +137,30 @@ class MaskedBatchNorm(nn.Module):
             return y * valid[..., None]
         m = valid.to(x.dtype)[..., None]
         dims = tuple(range(x.dim() - 1))
-        cnt = m.sum().clamp_min(1.0)
-        mean = (x * m).sum(dims) / cnt
-        var = ((x - mean).square() * m).sum(dims) / cnt
+        if self.group is None:
+            cnt = m.sum().clamp_min(1.0)
+            mean = (x * m).sum(dims) / cnt
+            var = ((x - mean).square() * m).sum(dims) / cnt
+        else:
+            sums = all_reduce_sum(torch.cat([m.sum().reshape(1), (x * m).sum(dims)]), self.group)
+            cnt = sums[0].clamp_min(1.0)
+            mean = sums[1:] / cnt
+            var = all_reduce_sum(((x - mean).square() * m).sum(dims), self.group) / cnt
         with torch.no_grad():
             unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * unbiased)
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y * valid[..., None]
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Sum every :class:`MaskedBatchNorm` of ``model`` over ``group`` in
+    train mode (``None``: each over its own rows); returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.group = group
+    return model
 
 
 def conv_bn(conv: nn.Module, bn: MaskedBatchNorm, x: torch.Tensor, graph, valid: torch.Tensor,

@@ -1,5 +1,5 @@
 """Multi-view probability inference over the train split (port of
-``lidal_tpu/runtime/prob_inference.py``, single device).
+``lidal_tpu/runtime/prob_inference.py``).
 
 Reference parity: ``score/prob_inference.py:21-133`` — for every train frame run
 ``inf_reps`` (8) independently-augmented forward passes, softmax, average over
@@ -13,7 +13,8 @@ Frames run one after another in a Python loop (the JAX package's
 ``frames_per_dispatch`` blocks only amortised its dispatch cost), with one
 frame of IO readahead, one frame of lookahead on the device (it computes frame
 i + 1 while the host saves frame i) and asynchronous npy writes; a failed
-write fails the run.
+write fails the run.  Over a process group each rank runs its contiguous
+share of the frame list (``cli/commands.prob_inference_command``).
 
 Randomness: each frame's views are drawn from a ``torch.Generator`` seeded
 from ``(cfg.seed, global frame index)``, all views at once, so a frame's
@@ -130,10 +131,13 @@ def run_prob_inference(
     verbose: bool = False,
     device: Union[torch.device, str] = "cuda",
     augment: bool = True,
+    first_index: int = 0,
 ):
     """Run the full multi-view dump on ``device``; returns {(seq, frame):
     (prob, pred, feat|None)} when ``save`` is False (for tests), else writes npy
-    files and returns None.  ``model`` is put into eval mode."""
+    files and returns None.  ``model`` is put into eval mode.
+    ``first_index``: the index of ``files[0]`` in the whole list (a rank's
+    share of it), which seeds the frames' views."""
     device = torch.device(device)
     paths = Paths(cfg)
     cap = point_cap or cfg.data.point_cap
@@ -180,7 +184,7 @@ def run_prob_inference(
                 if idx + 1 < len(files):
                     next_load = reader.submit(load, idx + 1)
                 out = fn(
-                    frame_generator(cfg.seed, idx),
+                    frame_generator(cfg.seed, first_index + idx),
                     *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
                 )
                 hosts, event = [], None

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from lidal_tpu_torch.config import RunConfig
 
@@ -45,8 +46,10 @@ def run_active_round(
     max_iter: Optional[int] = None,
     log: Callable[[str], None] = print,
     device: Union[torch.device, str] = "cuda",
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Dict[str, object]:
-    """Run one full round on ``device``; returns {'miou': float} when it evaluated."""
+    """Run one full round on ``device`` (over the ranks of ``group``, see
+    ``cli/commands``); returns {'miou': float} when it evaluated."""
     from lidal_tpu_torch.cli.commands import (
         evaluate_command,
         fused_score_command,
@@ -59,11 +62,11 @@ def run_active_round(
 
     tc = train_cfg_for_round(cfg, r_id)
     log(f"[round {r_id}] training ({tc.metric_name}/{tc.label_unit})")
-    run_train(tc, max_iter=max_iter, device=device)
+    run_train(tc, max_iter=max_iter, device=device, group=group)
 
     if evaluate:
         log(f"[round {r_id}] evaluating")
-        out["miou"] = evaluate_command(tc, device)
+        out["miou"] = evaluate_command(tc, device, group)
 
     sc = dataclasses.replace(cfg, r_id=r_id + 1)
     # Fused single-pass rounds (LiDAL, r >= 1): inference feeds scoring on
@@ -72,15 +75,15 @@ def run_active_round(
     # provides the outfeat npys of the reference's r0 contract).
     if cfg.fused_round and cfg.metric_name.startswith("LiDAL") and r_id >= 1:
         log(f"[round {r_id}] fused inference + scoring for round {r_id + 1}")
-        fused_score_command(sc, device)
+        fused_score_command(sc, device, group)
         return out
 
     ic = inference_cfg_for_round(cfg, r_id)
     log(f"[round {r_id}] multi-view prob inference")
-    prob_inference_command(ic, device)
+    prob_inference_command(ic, device, group)
 
     log(f"[round {r_id}] scoring + selection for round {r_id + 1}")
-    score_command(sc, device)
+    score_command(sc, device, group)
     return out
 
 
@@ -91,9 +94,10 @@ def run_experiment(
     max_iter: Optional[int] = None,
     log: Callable[[str], None] = print,
     device: Union[torch.device, str] = "cuda",
+    group: Optional[dist.ProcessGroup] = None,
 ) -> List[Dict[str, object]]:
     """Rounds 0..rounds-1 of the full active-learning loop."""
     return [
-        run_active_round(cfg, r, evaluate=evaluate, max_iter=max_iter, log=log, device=device)
+        run_active_round(cfg, r, evaluate=evaluate, max_iter=max_iter, log=log, device=device, group=group)
         for r in range(rounds)
     ]

@@ -1,5 +1,6 @@
 """The per-round training loop (port of ``lidal_tpu/runtime/train_loop.py``,
-SemanticKITTI and nuScenes, single device; reference ``train.py:17-203``).
+SemanticKITTI and nuScenes, one device or data parallel over a process group;
+reference ``train.py:17-203``).
 
 Mode selection (reference train.py:89-109):
   r_id == 0            -> 1% random fully-labeled frames ('train_frame')
@@ -11,6 +12,12 @@ Loop: epochs over the loader until step >= max_iter; checkpoint every
 ``ckpt_every`` steps and at the end (reference train.py:114-158).  One step
 is one Python iteration: prepare the batch on the device, then
 ``runtime/train.train_step``.
+
+Data parallel (``group``, reference ``train.py:26-53``): the global batch is
+``batch_size`` frames per rank; rank r reads and prepares rows
+``[r * b, (r + 1) * b)`` of every global batch, augmented with its rows of
+the global batch's draws, and the parameters start from rank 0's.  Files are
+written by rank 0 alone, behind a barrier.
 """
 
 from __future__ import annotations
@@ -19,10 +26,12 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lidal_tpu_torch.config import RunConfig
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.data import nuscenes as nu, semantic_kitti as sk
+from lidal_tpu_torch.data.augment import sample_augment
 from lidal_tpu_torch.data.loader import FrameBatchLoader
 from lidal_tpu_torch.data.pipeline import prepare_train_batch
 from lidal_tpu_torch.data.selection import (
@@ -34,17 +43,27 @@ from lidal_tpu_torch.data.selection import (
     sv_training_set,
     train_files_frame_level,
 )
+from lidal_tpu_torch.models.layers import sync_batchnorm
 from lidal_tpu_torch.models.minkunet import MinkUNet
 from lidal_tpu_torch.models.spvcnn import SPVCNN
+from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.runtime import checkpoint as ckpt
-from lidal_tpu_torch.runtime.train import TrainState, make_optimizer, train_step
+from lidal_tpu_torch.runtime.train import TrainState, flat_buckets, make_optimizer, train_step
 
 
-def build_model(cfg: RunConfig) -> MinkUNet:
+def build_model(cfg: RunConfig, group: Optional[dist.ProcessGroup] = None) -> MinkUNet:
     """The model family ``cfg.model_name`` names (SPVCNN is a MinkUNet trunk
-    with a point branch)."""
+    with a point branch); with ``group`` every BN, SPVCNN's point-branch BNs
+    included, sums its train-mode statistics over the group."""
     cls = SPVCNN if cfg.is_spvcnn else MinkUNet
-    return cls(num_classes=cfg.data.num_classes)
+    return sync_batchnorm(cls(num_classes=cfg.data.num_classes), group)
+
+
+def _bootstrap_round0(cfg: RunConfig, seq_frames: dict, group: Optional[dist.ProcessGroup]) -> None:
+    """The round-0 flag trees, written by rank 0 while the others wait."""
+    if mesh.rank(group) == 0:
+        bootstrap_round0(cfg, seq_frames)
+    mesh.sync_hosts("bootstrap", group)
 
 
 def make_sk_read_fn(cfg: RunConfig, sv_flag_by_frame=None, sv_info_by_frame=None, pseudo_by_frame=None):
@@ -81,7 +100,8 @@ def frame_flags_for_round_generic(cfg: RunConfig, split, seq_frames) -> np.ndarr
         return np.zeros(sum(len(seq_frames[s]) for s in split), bool)
 
 
-def _build_nu_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLoader:
+def _build_nu_train_loader(cfg: RunConfig, shuffle: bool = True,
+                           group: Optional[dist.ProcessGroup] = None) -> FrameBatchLoader:
     """nuScenes loaders: the same flag trees keyed by scene name; frame 'files'
     are manifest entries (dicts), named by token (nu_dataloader.py:294-319)."""
     data = cfg.data
@@ -93,7 +113,7 @@ def _build_nu_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLo
         return nu.read_frame(e, with_labels=True)
 
     if cfg.r_id == 0:
-        bootstrap_round0(cfg, seq_frames)
+        _bootstrap_round0(cfg, seq_frames, group)
         flags = frame_flags_for_round_generic(cfg, split, seq_frames)
         entries = [e for e, keep in zip(all_entries, flags) if keep]
     elif cfg.metric_name == "full":
@@ -119,22 +139,26 @@ def _build_nu_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLo
         entries,
         read_fn,
         point_cap=data.point_cap,
-        batch_size=data.batch_size,
+        batch_size=data.batch_size * mesh.world(group),
         shuffle=shuffle,
         seed=cfg.seed,
     )
 
 
-def build_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLoader:
+def build_train_loader(cfg: RunConfig, shuffle: bool = True,
+                       group: Optional[dist.ProcessGroup] = None) -> FrameBatchLoader:
+    """The round's training loader; its batch is ``batch_size`` frames per
+    rank of ``group`` (the global batch).  Round 0 first writes its flag
+    trees (rank 0, behind a barrier)."""
     if cfg.dataset_name == "NU":
-        return _build_nu_train_loader(cfg, shuffle)
+        return _build_nu_train_loader(cfg, shuffle, group)
     data = cfg.data
     seq_frames = {s: sk.list_frames(cfg.data_root, [s]) for s in data.train_split}
     all_files = [f for s in data.train_split for f in seq_frames[s]]
 
     read_fn = make_sk_read_fn(cfg)
     if cfg.r_id == 0:
-        bootstrap_round0(cfg, seq_frames)
+        _bootstrap_round0(cfg, seq_frames, group)
         files = train_files_frame_level(cfg, all_files, data.train_split)
     elif cfg.metric_name == "full":
         files = all_files
@@ -153,19 +177,34 @@ def build_train_loader(cfg: RunConfig, shuffle: bool = True) -> FrameBatchLoader
         files,
         read_fn,
         point_cap=data.point_cap,
-        batch_size=data.batch_size,
+        batch_size=data.batch_size * mesh.world(group),
         shuffle=shuffle,
         seed=cfg.seed,
     )
 
 
-def init_state(cfg: RunConfig, device: torch.device) -> TrainState:
-    """A fresh model and Adam, the weights drawn from ``cfg.seed``."""
+def init_state(cfg: RunConfig, device: torch.device, group: Optional[dist.ProcessGroup] = None) -> TrainState:
+    """A fresh model (its BNs synced over ``group``) and Adam, the weights
+    drawn from ``cfg.seed``."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = build_model(cfg)
+        model = build_model(cfg, group)
     model = model.to(device)
     return TrainState(step=0, model=model, optimizer=make_optimizer(model))
+
+
+def broadcast_model(model: torch.nn.Module, group: Optional[dist.ProcessGroup]) -> None:
+    """Rank 0's parameters and buffers onto every rank of ``group``, one
+    broadcast per flat bucket (nothing without a group)."""
+    if group is None:
+        return
+    src = dist.get_global_rank(group, 0)
+    with torch.no_grad():
+        for bucket in flat_buckets(list(model.parameters()) + list(model.buffers())):
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.broadcast(flat, src, group=group)
+            for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+                t.copy_(part.view_as(t))
 
 
 def run_train(
@@ -176,22 +215,35 @@ def run_train(
     on_step: Optional[Callable] = None,
     *,
     device: Union[torch.device, str] = "cuda",
+    group: Optional[dist.ProcessGroup] = None,
 ) -> TrainState:
     """Train one round on ``device``; returns the final :class:`TrainState`.
 
-    The batch is ``cfg.data.batch_size`` frames.  Augmentation and SPVCNN's
-    per-frame dropout seeds draw from a CPU ``torch.Generator`` seeded from
-    ``cfg.seed``.  ``on_step(step, loss)`` gets the loss as a device tensor;
-    the log line reads it every ``log_every`` steps."""
+    The batch is ``cfg.data.batch_size`` frames per rank of ``group`` (one
+    rank without it), as the reference's per-GPU batch under DDP
+    (``sk_dataloader.py:21,39-42``).  A caller's ``loader`` yields global
+    batches, which the ranks must split evenly.  Augmentation and SPVCNN's per-frame dropout seeds draw
+    from a CPU ``torch.Generator`` seeded from ``cfg.seed``, for the global
+    batch.  ``on_step(step, loss)`` gets the loss as a device tensor; the log
+    line reads it every ``log_every`` steps."""
     device = torch.device(device)
     data = cfg.data
     paths = Paths(cfg)
     ensure_dir(paths.ckpt_dir())
-    loader = loader or build_train_loader(cfg)
+    loader = loader or build_train_loader(cfg, group=group)
     assert len(loader.files) > 0, "empty training set"
     max_iter = max_iter if max_iter is not None else cfg.max_iter
+    n_global, n_ranks = loader.batch_size, mesh.world(group)
+    if n_global % n_ranks:
+        raise ValueError(f"a train batch of {n_global} frames does not split over {n_ranks} ranks")
+    rows = mesh.process_shard(n_global, group)
+    lo, hi = rows.start, rows.stop
+    if n_ranks > 1:
+        loader = loader.with_rows(lo, hi)
+    lead = mesh.rank(group) == 0
 
-    state, ep_id = ckpt.resume_or_warm_start(paths, init_state(cfg, device))
+    state, ep_id = ckpt.resume_or_warm_start(paths, init_state(cfg, device, group))
+    broadcast_model(state.model, group)
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
 
     def batches():
@@ -211,28 +263,34 @@ def run_train(
         b = next(stream, None)
         if b is None:
             break
+        draws = sample_augment(gen, n_global)
         tb = prepare_train_batch(
-            gen,
+            None,
             *(torch.as_tensor(b[k]).to(device, non_blocking=True) for k in ("xyz", "sig", "valid", "labels")),
             level_caps=data.level_caps,
             scale=data.scale,
             full_scale=data.full_scale,
+            draws=draws.rows(lo, hi),
             with_points=cfg.is_spvcnn,
         )
         # SPVCNN's dropout: one seed per frame, so a frame's masks do not
         # depend on its batch mates (models/layers.PerFrameDropout)
-        seeds = torch.randint(0, 2**62, (len(tb.feats),), generator=gen).tolist() if cfg.is_spvcnn else None
-        loss = train_step(state, tb, seeds)
+        seeds = torch.randint(0, 2**62, (n_global,), generator=gen)[lo:hi].tolist() if cfg.is_spvcnn else None
+        loss = train_step(state, tb, seeds, group)
         if b.get("trunc_points", 0):
             print(f"WARNING: point_cap truncated {b['trunc_points']} points this batch")
         step = state.step
         if on_step is not None:
             on_step(step, loss)
         if step % log_every == 0:
-            ovf = int(tb.overflow.sum())
-            extra = f" voxel_overflow: {ovf}" if ovf else ""
-            print(f"Iteration: {step} loss: {float(loss):.4f}{extra}")
-        if step % cfg.ckpt_every == 0:
+            ovf = mesh.all_reduce_(tb.overflow.sum(), group)
+            if lead:
+                ovf = int(ovf)
+                extra = f" voxel_overflow: {ovf}" if ovf else ""
+                print(f"Iteration: {step} loss: {float(loss):.4f}{extra}")
+        if step % cfg.ckpt_every == 0 and lead:
             ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
-    ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
+    if lead:
+        ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
+    mesh.sync_hosts("train", group)
     return state

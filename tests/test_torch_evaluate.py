@@ -2,7 +2,8 @@
 raw points -> prepare_eval_batch -> MinkUNet -> projection -> confusion ->
 mIoU, JAX package vs port on the same frames and weights; plus ``run_eval``
 over a list of loader-style batch dicts.  The same for SPVCNN
-(``model_name="SPVCNN"``: the batch carries the point plan)."""
+(``model_name="SPVCNN"``: the batch carries the point plan).  The overflow
+warnings drain at the JAX package's points of the loop (``_OVF_DRAIN``)."""
 
 import jax
 import jax.numpy as jnp
@@ -167,3 +168,48 @@ def test_spvcnn_eval_slice_confusion_equals_jax_and_run_eval_takes_the_point_pla
         want = batch_confusion(forward_batch(model, eb)[0], eb.inverse, eb.point_valid, torch.from_numpy(labels), 19)
     np.testing.assert_array_equal(res.confusion, want.numpy())
     assert res.points == int(valid.sum())
+
+
+def test_overflow_warnings_drain_where_jax_drains_them(narrow_models, monkeypatch):
+    """With the drain window at 2 in both packages, over 5 batches that
+    overflow a level cap, each warning is printed after the same number of
+    batches has left the loader: batches 0-1 after 2, 2-3 after 4, 4 after
+    the loop, as the window's own docstring in each package says."""
+    from lidal_tpu.runtime.train import make_eval_step
+    from lidal_tpu_torch.runtime import evaluate
+
+    jmodel, variables, model = narrow_models
+    data = DataConfig(name="SK", num_classes=19, point_cap=1024, level_caps=OVERFLOW_CAPS)
+    batches = []
+    for seed in range(50, 55):
+        xyz, sig, valid, labels = surface_frames(seed, b=2)
+        batches.append({"xyz": xyz, "sig": sig, "valid": valid, "labels": labels, "trunc_points": 0})
+
+    def counting(module):
+        """(loader over the batches, [(batches yielded, warning)]): ``module.print`` records."""
+        seen = {"n": 0}
+        printed = []
+
+        def loader():
+            for b in batches:
+                seen["n"] += 1
+                yield b
+
+        monkeypatch.setattr(module, "_OVF_DRAIN", 2)
+        monkeypatch.setattr(module, "print", lambda *a, **k: printed.append((seen["n"], " ".join(map(str, a)))),
+                            raising=False)
+        return loader(), printed
+
+    loader, jax_printed = counting(jax_evaluate)
+    jax_evaluate.run_eval(RunConfig(data_override=data), make_eval_step(jmodel, with_points=False), variables,
+                          loader, verbose=False, n_devices=1)
+    loader, port_printed = counting(evaluate)
+    res = run_eval(RunConfig(data_override=data), model, loader, torch.device("cpu"))
+
+    def points(printed):
+        return [(n, msg.rsplit(" ", 1)[1]) for n, msg in printed if msg.startswith("WARNING: capacity overflow")]
+
+    want = [(2, "0"), (2, "1"), (4, "2"), (4, "3"), (5, "4")]
+    assert points(jax_printed) == want
+    assert points(port_printed) == want
+    assert res.overflow.sum() > 0

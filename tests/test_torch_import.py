@@ -1,7 +1,7 @@
 """``import lidal_tpu_torch`` and every submodule leaves JAX, the JAX package
 ``lidal_tpu`` and the repository's ``tools`` package unloaded, builds no CUDA
-kernel, no native prep library and runs no probe; ``chip_smoke.py`` names none
-of them.
+kernel, no native prep library, creates no process group and runs no probe;
+``chip_smoke.py`` names none of them.
 Runs in a subprocess: this suite's conftest imports jax."""
 
 import ast
@@ -35,6 +35,10 @@ for new in ("ops.devoxelize", "ops.cuda_gather8", "models.spvcnn", "ops.cuda_con
     assert "lidal_tpu_torch." + new in names, new
 from lidal_tpu_torch.prep import native
 assert not native._LIBS and not native.BUILD_LOG, "the native library was built at import"
+import torch.distributed
+assert not torch.distributed.is_initialized(), "a process group was created at import"
+from lidal_tpu_torch.parallel import mesh
+assert mesh.ALL_REDUCES == 0 and "lidal_tpu_torch.parallel.mesh" in names
 assert "scipy.spatial" not in sys.modules and "sklearn" not in sys.modules
 print(len(names))
 """

@@ -22,6 +22,7 @@ The tests build the library under a temporary directory, not the checkout's
 """
 
 import dataclasses
+import importlib.util
 import os
 from pathlib import Path
 
@@ -55,7 +56,12 @@ def _frames(seed, n_frames=3, n=3000):
 
 
 def test_build_is_named_by_its_sources_and_rebuilds_on_change(tmp_path, monkeypatch):
-    assert native.BUILD_DIR == Path(_REPO, "lidal_tpu_torch", "_build")
+    # the module's own default, read from a fresh copy of it: the session fixture
+    # native_build_dir (used by other files a worker may have run first) patches BUILD_DIR
+    spec = importlib.util.find_spec(native.__name__)
+    fresh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fresh)
+    assert fresh.BUILD_DIR == Path(_REPO, "lidal_tpu_torch", "_build")
     assert native.CSRC == Path(_REPO, "csrc")
     src = tmp_path / "csrc"
     src.mkdir()
