@@ -123,8 +123,10 @@ or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
     with rows summing to 1, some supervoxel selected, frames/s.
 
 Phases 19-22 hold the three bf16 probe kernels (operands rounded to bf16, f32
-sums, ``mma.sync``) and drive the probe entry points; they run beside the phase
-whose maps they share (19 and 20 after 4, 21 and 22 after 7).
+sums: the gather-first tile on ``wgmma``, the fused backward's dw on
+``mma.sync`` over per-tap pair lists) and drive the probe entry points; they
+run beside the phase whose maps they share (19 and 20 after 4, 21 and 22 after
+7).
 
 19. ``conv_gather_first``, unpipelined and pipelined, vs its plain version at
     the six shapes of ``tools/probe_conv_v3`` (its maps and data) and at three
@@ -134,7 +136,8 @@ whose maps they share (19 and 20 after 4, 21 and 22 after 7).
     sums differs), ``pipelined`` bit-equal to not, bit-equal across two runs;
     ms of the wrapper (casts included) for both, of the kernel alone on packed
     operands, of the plain version and of the f32 ``subm_conv`` kernel, and
-    the bound.
+    the bound; the kernel's TFLOP/s on the real pairs and on the products its
+    tiles issue (``cuda_conv_bf16.tile_products``), and their ratio.
 20. ``conv_byte_planes`` bit-equal to ``conv_gather_first`` at the two shapes of
     ``tools/probe_int8_gather``, on an all-sentinel map and on an unsorted map
     with out-of-range indices; ms of both kernels on packed operands.
@@ -143,8 +146,10 @@ whose maps they share (19 and 20 after 4, 21 and 22 after 7).
     and dw within PROBE_TOL of the abs-sum form of the plain version,
     ``dx_zero_dw`` gives zeros, dx equal in all modes, dw bit-equal across two
     runs, neither further from the plain version in f64 than F64_FACTOR times
-    the f32 plain version is; ms per mode beside the f32 ``conv_dx_dw`` kernel,
-    the plain version and the bound, per shape and per train step.
+    the f32 plain version is; ms per mode beside the f32 ``conv_dx_dw`` kernel
+    (phase 7's time on the same arguments), the plain version and the bound,
+    per shape and per train step; TFLOP/s on the real pairs and on the
+    products issued (dx's tiles and dw's pairs), and their ratio.
 22. the three probes through their entry points (``main()`` of
     ``lidal_tpu_torch.tools.probe_conv_v3``, ``probe_int8_gather`` and
     ``probe_dxdw_features``): their own checks pass and each kernel launched.
@@ -1485,7 +1490,8 @@ def gather_first_phase(real_convs, dev):
             del want, abs_sum, d, piped
             table, wt = cb.pack_table(feats), cb.pack_weights(w)
             pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * table.shape[1])
-            b = (least if of_probe else Bound()).add(row_bytes + nbytes(wt, nbr, got), 2.0 * pairs * cin * cout, PEAK_BF16)
+            real, issued = 2.0 * pairs * cin * cout, 2.0 * cb.tile_products(nbr, n, table.shape[1], cout)
+            b = (least if of_probe else Bound()).add(row_bytes + nbytes(wt, nbr, got), real, PEAK_BF16)
             ms = {
                 "ms": cuda_ms(lambda: cb.conv_gather_first(feats, w, nbr)),
                 "piped": cuda_ms(lambda: cb.conv_gather_first(feats, w, nbr, pipelined=True)),
@@ -1501,7 +1507,9 @@ def gather_first_phase(real_convs, dev):
             print(f"[19 gather-first] {label}: K={k} cin={cin} cout={cout} m={m} n={n}: max|d|={e:.2e} = {share:.1e} of the "
                   f"abs-sum (tol {PROBE_TOL}), pipelined bit-equal, bit-equal across runs; wrapper {ms['ms']:.3f} ms, "
                   f"pipelined {ms['piped']:.3f} ms, kernel alone {ms['packed']:.3f} / {ms['packed_piped']:.3f} ms, plain "
-                  f"{ms['plain_ms']:.3f} ms, f32 subm_conv kernel {ms['f32']:.3f} ms, bound {b:.3f} ms ({pairs} real pairs)")
+                  f"{ms['plain_ms']:.3f} ms, f32 subm_conv kernel {ms['f32']:.3f} ms, bound {b:.3f} ms ({pairs} real pairs); "
+                  f"kernel alone {real / ms['packed'] / 1e9:.1f} TFLOP/s on the real pairs, {issued / ms['packed'] / 1e9:.1f} on "
+                  f"the products issued, issue/real {issued / max(real, 1.0):.2f}")
             del got, table, wt
     print(f"[19 gather-first] the probe's {len(probe_conv_v3.SHAPES)} shapes in all: wrapper {total['ms']:.2f} ms, pipelined "
           f"{total['piped']:.2f} ms, kernel alone {total['packed']:.2f} ms, plain {total['plain_ms']:.2f} ms, f32 subm_conv "
@@ -1568,7 +1576,7 @@ def fused_backward_phase(captured, calls, f32_ms, dev):
     ``dx_dw``, summed over the probe's shapes)."""
     import torch
 
-    from lidal_tpu_torch.ops import cuda_conv_dxdw, cuda_conv_dxdw_fused as fz
+    from lidal_tpu_torch.ops import cuda_conv_bf16 as cb, cuda_conv_dxdw, cuda_conv_dxdw_fused as fz
     from lidal_tpu_torch.tools import probe_dxdw_features as probe
 
     rng = np.random.default_rng(0)  # the probe's generator and order of draws
@@ -1608,9 +1616,11 @@ def fused_backward_phase(captured, calls, f32_ms, dev):
             notes.append(f"{name} from f64 {e_k:.1e} (plain {e_p:.1e})")
         del want, bound, ref
         pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * c_src)
+        real = 2.0 * pairs * c_src * (c_dst + c_f)
+        c_s, c_d, c_ff = fz.padded_channels(c_src, c_dst, c_f)
+        issued = 2.0 * (cb.tile_products(nbr, n, c_s, c_d) + pairs * c_s * c_ff)  # dx's tile, dw's pair lists
         b_ms = (least if of_probe else step_least).add(
-            row_bytes + nbytes(nbr, dx, dw) + 2 * (w2.numel() + f.numel()), 2.0 * pairs * c_src * (c_dst + c_f), PEAK_BF16,
-            calls=n_calls)
+            row_bytes + nbytes(nbr, dx, dw) + 2 * (w2.numel() + f.numel()), real, PEAK_BF16, calls=n_calls)
         del dx, dw
         ms = {mode: cuda_ms(lambda: fz.conv_dx_dw_fused(src, w2, nbr, f, mode), reps=3) for mode in fz.MODES}
         if of_probe:
@@ -1628,7 +1638,8 @@ def fused_backward_phase(captured, calls, f32_ms, dev):
         print(f"[21 fused backward] {label}: c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} x{n_calls}: max|d|={e:.2e} (tol "
               f"{PROBE_TOL} of the abs-sum), {', '.join(notes)}, modes agree on dx, dx_zero_dw gives zeros, bit-equal across "
               f"runs; dx {ms['dx']:.3f} ms, dx_zero_dw {ms['dx_zero_dw']:.3f} ms, dx_dw {ms['dx_dw']:.3f} ms, {beside}, bound "
-              f"{b_ms:.3f} ms ({pairs} real pairs)")
+              f"{b_ms:.3f} ms ({pairs} real pairs); dx_dw {real / ms['dx_dw'] / 1e9:.1f} TFLOP/s on the real pairs, "
+              f"{issued / ms['dx_dw'] / 1e9:.1f} on the products issued, issue/real {issued / max(real, 1.0):.2f}")
     print(f"[21 fused backward] the probe's {1 + len(probe.STEP_SHAPES)} shapes in all: dx {probe_total['dx']:.2f} ms, dx_zero_dw "
           f"{probe_total['dx_zero_dw']:.2f} ms, dx_dw {probe_total['dx_dw']:.2f} ms, plain {probe_total['plain']:.2f} ms, bound "
           f"{least.total:.3f} ms (by {least.by})")

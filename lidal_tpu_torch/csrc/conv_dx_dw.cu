@@ -10,10 +10,12 @@
 // identity.  The TPU kernel pays its one-hot "gather" once for both products,
 // in a banded pass whose sequential grid revisits one whole-dW accumulator in
 // VMEM.  None of that carries over: CUDA blocks run in no order, and no block
-// may carry a sum to another.  So the two products are separate kernels here.
-// A single gather for both (conv_dx_dw_fused.cu, the probe's design) would
-// make dx a read-modify-write of [m, c_dst] once per tap: slower than the
-// row-tile dx below even on bf16 operands.
+// may carry a sum to another.  So the two products are separate kernels here,
+// each with the loop it wants: dx sums over the taps of a row, dwg over the
+// rows of a tap.  The bf16 probe's backward (conv_dx_dw_fused.cu) is split the
+// same way: its first, one-gather design made dx a read-modify-write of
+// [m, c_dst] once per tap, and that dx lost to the row-tile dx below even on
+// bf16 operands.
 //
 // * dx is the forward's gather-GEMM with no epilogue: the split-TF32 tensor-
 //   core tile kernel of gather_gemm.cuh, which subm_conv.cu launches too.
@@ -24,13 +26,10 @@
 //   tap of 8 a row, and at level 0 of a B = 5 train step 4 % of the [m, 27]
 //   entries are real (the caps leave rows empty).  So:
 //
-//   1. Pair lists.  Two small kernels compact nbr_t [K, m] (the map
-//      transposed, so a tap's column is contiguous) into rows [K, m]: for tap
-//      k the rows i with 0 <= nbr_t[k, i] < n, ascending, and counts[k].  The
-//      first counts the real entries of each 4096-row segment; the second
-//      places each segment's rows at the sum of the earlier segments' counts
-//      (warp ballots, then a prefix over the block's 128 warp rounds).  The
-//      counts stay on the device: the host never waits on them.
+//   1. Pair lists (pair_lists.cuh, shared with conv_dx_dw_fused.cu): two
+//      small kernels compact nbr_t [K, m] (the map transposed) into each
+//      tap's ascending list of the rows i with a real nbr_t[k, i], and its
+//      count, which stays on the device: the host never waits on it.
 //   2. Products.  A block owns (column tile, chunk of P pairs, tap) and walks
 //      its chunk in stages of 64 pairs.  Each stage gathers, with cp.async
 //      into shared memory, the pairs' f rows and src rows (zero-fill past the
@@ -55,8 +54,8 @@
 //      from m, the worst case: a block whose chunk starts at or past its tap's
 //      count exits at once, except chunk 0, which writes zeros for an empty
 //      tap.  Each block writes its partial to a workspace [K, S, c_f, c_src]
-//      (straight to dwg when S == 1), and a second kernel sums, per tap, the
-//      first max(1, ceil(count / P)) partials in chunk order.  P depends on
+//      (straight to dwg when S == 1), and a second kernel (pair_lists.cuh)
+//      sums, per tap, the first max(1, ceil(count / P)) partials in chunk order.  P depends on
 //      the shape only, so the same input gives bit-equal dwg on every run: 1024
 //      pairs, or more where the workspace would not fit (smaller chunks
 //      measured slower, since the blocks past a tap's count still launch).
@@ -70,6 +69,7 @@
 // products).  A tile gathers each pair's rows once per column tile.
 
 #include "gather_gemm.cuh"
+#include "pair_lists.cuh"
 
 namespace {
 
@@ -77,110 +77,7 @@ using namespace cp_async_util;
 using namespace tf32_mma;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kSegRows = 4096;  // rows of nbr_t a list block scans, 16 a thread
 constexpr int kStage = 64;      // pairs a dwg block stages at a time (_PAIRS_PER_STAGE in the wrapper)
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// seg_counts[tap][seg] = the real entries of nbr_t[tap] in rows
-// [seg * kSegRows, (seg + 1) * kSegRows)
-__global__ void __launch_bounds__(kThreads)
-pair_count_kernel(const int* __restrict__ nbr_t, int* __restrict__ seg_counts, int m, int n) {
-  __shared__ int s_sum[kThreads / 32];
-  const int tap = blockIdx.y;
-  const int* col = nbr_t + (long long)tap * m;
-  const int base = blockIdx.x * kSegRows + threadIdx.x;
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kSegRows / kThreads; ++r) {
-    const int i = base + r * kThreads;
-    if (i < m) c += (unsigned)col[i] < (unsigned)n;
-  }
-  c = warp_sum(c);
-  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kThreads / 32; ++w) total += s_sum[w];
-    seg_counts[(long long)tap * gridDim.x + blockIdx.x] = total;
-  }
-}
-
-// rows[tap][0, counts[tap]) = the rows i with 0 <= nbr_t[tap, i] < n, ascending
-__global__ void __launch_bounds__(kThreads)
-pair_list_kernel(const int* __restrict__ nbr_t, const int* __restrict__ seg_counts,
-                 int* __restrict__ rows, int* __restrict__ counts, int m, int n) {
-  constexpr int R = kSegRows / kThreads;  // rounds: row = segment start + r * kThreads + thread
-  constexpr int W = kThreads / 32;
-  constexpr int PER = R * W / 32;  // (round, warp) counts a lane of warp 0 scans
-  __shared__ int s_pre[R * W];     // real rows per (round, warp), then their exclusive prefix
-  __shared__ int s_base;
-  const int tap = blockIdx.y;
-  const int seg = blockIdx.x;
-  const int segs = gridDim.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int* col = nbr_t + (long long)tap * m;
-  const int* sc = seg_counts + (long long)tap * segs;
-  if (warp == 0) {  // where this segment's rows start in the list; segment 0 writes the count
-    int before = 0, all = 0;
-    for (int s = lane; s < segs; s += 32) {
-      const int c = sc[s];
-      all += c;
-      before += s < seg ? c : 0;
-    }
-    before = warp_sum(before);
-    all = warp_sum(all);
-    if (lane == 0) {
-      s_base = before;
-      if (seg == 0) counts[tap] = all;
-    }
-  }
-  const int base = seg * kSegRows + threadIdx.x;
-  const unsigned below = (1u << lane) - 1u;
-  unsigned real_bits = 0;  // bit r: this thread's row of round r is real
-  int rank[R];             // its place among its warp's real rows of round r
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = base + r * kThreads;
-    const bool real = i < m && (unsigned)col[i] < (unsigned)n;
-    const unsigned ballot = __ballot_sync(0xffffffffu, real);
-    if (lane == 0) s_pre[r * W + warp] = __popc(ballot);
-    rank[r] = __popc(ballot & below);
-    real_bits |= (unsigned)real << r;
-  }
-  __syncthreads();
-  if (warp == 0) {  // exclusive prefix in (round, warp) order, which is row order
-    int v[PER];
-    int sum = 0;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      v[e] = s_pre[lane * PER + e];
-      sum += v[e];
-    }
-    int inc = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += t;
-    }
-    int run = inc - sum;
-#pragma unroll
-    for (int e = 0; e < PER; ++e) {
-      s_pre[lane * PER + e] = run;
-      run += v[e];
-    }
-  }
-  __syncthreads();
-  int* out = rows + (long long)tap * m + s_base;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    if ((real_bits >> r) & 1u) out[s_pre[r * W + warp] + rank[r]] = base + r * kThreads;
-}
 
 // The output tile of a dwg block: TM rows of the M operand X by TN columns of
 // the N operand Y, out[a][b] = sum_p X[p][a] Y[p][b] over the block's pairs.
@@ -384,36 +281,6 @@ dwg_partial_kernel(const float* __restrict__ src, const int* __restrict__ nbr_t,
   }
 }
 
-// dwg[tap] = the sum of the tap's first max(1, ceil(count / P)) partials, in chunk order
-__global__ void dwg_reduce_kernel(const float4* __restrict__ part, const int* __restrict__ counts,
-                                  float4* __restrict__ dwg, int per_tap4, int k, int chunks,
-                                  int pairs_per_chunk) {
-  const long long total4 = (long long)k * per_tap4;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total4;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int tap = (int)(e / per_tap4);
-    const int used = max(1, (int)(((long long)counts[tap] + pairs_per_chunk - 1) / pairs_per_chunk));
-    const float4* p = part + (long long)tap * chunks * per_tap4 + (e - (long long)tap * per_tap4);
-    float4 acc = p[0];
-    for (int s = 1; s < used; ++s) {
-      const float4 v = p[(long long)s * per_tap4];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    dwg[e] = acc;
-  }
-}
-
-cudaError_t launch_lists(const int* nbr_t, int* rows, int* counts, int* seg_counts, int m, int n,
-                         int k, cudaStream_t stream) {
-  const dim3 grid((m + kSegRows - 1) / kSegRows, k);
-  pair_count_kernel<<<grid, kThreads, 0, stream>>>(nbr_t, seg_counts, m, n);
-  pair_list_kernel<<<grid, kThreads, 0, stream>>>(nbr_t, seg_counts, rows, counts, m, n);
-  return cudaGetLastError();
-}
-
 template <int TM, int TN>
 cudaError_t launch_partial(const float* src, const int* nbr_t, const float* f, const int* rows,
                            const int* counts, float* part, int m, int k, int c_src, int c_f,
@@ -437,7 +304,7 @@ cudaError_t launch_partial(const float* src, const int* nbr_t, const float* f, c
 cudaError_t launch_dwg(const float* src, const int* nbr_t, const float* f, float* dwg, float* ws,
                        int* rows, int* counts, int* seg_counts, int m, int n, int k, int c_src,
                        int c_f, int chunks, int pairs_per_chunk, cudaStream_t stream) {
-  cudaError_t err = launch_lists(nbr_t, rows, counts, seg_counts, m, n, k, stream);
+  cudaError_t err = pair_lists::launch_lists(nbr_t, rows, counts, seg_counts, m, n, k, stream);
   if (err != cudaSuccess) return err;
   float* part = chunks == 1 ? dwg : ws;
   const bool n64 = c_src % 64 == 0;
@@ -453,13 +320,7 @@ cudaError_t launch_dwg(const float* src, const int* nbr_t, const float* f, float
     err = n64 ? DWG_TILE(64, 8) : DWG_TILE(32, 8);
 #undef DWG_TILE
   if (err != cudaSuccess || chunks == 1) return err;
-  const int per_tap4 = c_f * c_src / 4;
-  const long long total4 = (long long)k * per_tap4;
-  const int blocks = (int)((total4 + 255) / 256 < 4096 ? (total4 + 255) / 256 : 4096);
-  dwg_reduce_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(ws), counts,
-                                                reinterpret_cast<float4*>(dwg), per_tap4, k, chunks,
-                                                pairs_per_chunk);
-  return cudaGetLastError();
+  return pair_lists::launch_reduce(ws, counts, dwg, k, c_f, c_src, chunks, pairs_per_chunk, stream);
 }
 
 }  // namespace
@@ -482,7 +343,7 @@ extern "C" int lidal_conv_dx_dw(const void* src, const void* w2, const void* nbr
   if (m < 0 || n < 0 || k <= 0 || k > gather_gemm::kKMax || c_src <= 0 || c_src % 32 != 0 ||
       c_f <= 0 || c_f % 4 != 0 || chunks < 1 || chunks > 65535 || pairs_per_chunk < kStage ||
       pairs_per_chunk % kStage != 0 || (long long)chunks * pairs_per_chunk < m ||
-      (long long)chunks * pairs_per_chunk > 0x7fffffffLL || (m + kSegRows - 1) / kSegRows > 65535 ||
+      (long long)chunks * pairs_per_chunk > 0x7fffffffLL || (m + pair_lists::kSegRows - 1) / pair_lists::kSegRows > 65535 ||
       (need_dx && !gather_gemm::shapes_ok(m, n, k, c_src, c_dst)))
     return (int)cudaErrorInvalidValue;
   if (m == 0) return (int)cudaMemsetAsync(dwg, 0, sizeof(float) * (size_t)k * c_f * c_src, s);

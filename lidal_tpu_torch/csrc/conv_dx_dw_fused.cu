@@ -1,5 +1,5 @@
-// Both products of the sparse-conv backward from ONE gather per (row tile, tap),
-// on bf16 operands, deterministic and without atomics.
+// Both products of the sparse-conv backward on bf16 operands, deterministic and
+// without atomics.
 //
 // Replaces tools/probe_dxdw_features.py:launch with its three bodies: kA (dx
 // only), kB (dx, and a second output dw that is all zeros) and kC (dx and dw).
@@ -8,308 +8,354 @@
 //   dx[i] = sum_k src[nbr[i, k]] @ w2[k]          -> [m, c_dst]       f32
 //   dw[k] = sum_i f[i]^T src[nbr[i, k]]           -> [K, c_f, c_src]  f32
 //
-// with src, w2 and f rounded to bf16 and f32 sums.  conv_dx_dw.cu computes the
-// same two products in f32 with two kernels that each gather for themselves;
-// this is the design the TPU probe tried out, the gather paid once.
+// with src, w2 and f rounded to bf16 and f32 sums.  The TPU probe paid one
+// gather per (row tile, tap) for both products, revisiting one dw accumulator
+// in VMEM from a grid that runs in order.  On this card that plan made dx a
+// read-modify-write of [m, c_dst] in device memory once per tap and regathered
+// whole rows for every 32-column slice; so the two products are two kernels
+// here, each with the loop it wants, as in conv_dx_dw.cu:
 //
-// The two products want opposite loops: dx sums over the taps of one row, dw
-// sums one [c_f, c_src] matrix per tap over all rows.  On the TPU the grid
-// runs in order and one dw accumulator in VMEM is revisited by every tile;
-// CUDA blocks run in no order and carry nothing over.  What was chosen:
+// * dx sums over the taps of a row: the bf16 gather-GEMM tile of
+//   gather_gemm_bf16.cuh (wgmma on 128-row tiles, the active taps of a tile
+//   only, sums in registers, each output written once), on w2 handed over as
+//   [K, c_dst, c_src].
+// * dw sums over the rows of a tap, and only a few (row, tap) entries of a map
+//   are real (4 % at level 0 of a B = 5 train step).  The per-tap lists of the
+//   real pairs are built on the device from the map transposed there
+//   (pair_lists.cuh, shared with conv_dx_dw.cu).  A block owns (column tile, chunk of P pairs, tap) and
+//   walks its chunk in stages of 128 pairs: cp.async gathers the pairs' f rows
+//   and src rows into shared memory, pair-major (zero-fill past the list's
+//   end), two stage buffers so stage s + 1 loads while stage s multiplies, the
+//   pair indices two stages ahead.  The reduction axis of the mma is the pair
+//   axis, so both operands are read transposed, with ldmatrix.x4.trans from
+//   rows whose stride is an odd number of 16-byte units (no bank conflict).
+//   One mma.sync.m16n8k16 (bf16 in, f32 sums) per product.  A block's tile of
+//   [c_f, c_src] is the widest of 128, 96, 64 or 32 that divides each (the
+//   level-0 96 x 96 in one tile, so a pair's rows are gathered once), over 8
+//   warps; tiles of fewer than 8 warps' outputs split a stage's pairs over 2,
+//   4 or 8 warp groups, summed at the end in group order.
+//   Each stage's products are summed apart and join the total with one
+//   rounded f32 add (the tensor cores truncate when they add into an
+//   accumulator).  Each block writes its partial to a workspace [K, S, c_f,
+//   c_src], and pair_lists.cuh's second kernel sums, per tap, the partials
+//   that hold pairs, in chunk order.  P depends on the shape only, so the same
+//   input gives bit-equal dw on every run.
 //
-// * The rows are split into S fixed chunks (at most 4096 rows, a multiple of
-//   64).  A block owns (chunk, 32-column slice j): columns [32 j, 32 j + 32) of
-//   dx and rows [32 j, 32 j + 32) of every dw[k].  It walks the taps OUTSIDE
-//   and the chunk's 64-row tiles INSIDE, so its [32, c_src] slice of dw[k] stays
-//   in registers (c_src <= 256: 32 f32 a thread) for the whole chunk and is
-//   written once, to a workspace [S, K, c_f, c_src]; a second kernel sums the S
-//   partials in order.  The same input gives bit-equal dw on every run.
-// * dx is what gets spilled: after each (tile, tap) the block adds the tap's
-//   [64, 32] product into its own rows and columns of dx in device memory (dx
-//   arrives zero-filled; no other block touches those elements, so plain loads
-//   and stores, in tap order).  A (tile, tap) with no real row is skipped, and
-//   a row whose tap is the sentinel is not touched.
-// * Per (tile, tap) the block gathers src[nbr[tile, k]] once into shared memory
-//   (cp.async, zeros for the sentinel) as G[64][c_src], stages f's slice
-//   transposed, F[32][64] (the wrapper hands f over as [c_f, m]), and runs
-//   mma.sync.m16n8k16 (bf16 in, f32 out) twice on the same G:
-//   dx_tile = G . w2[k][:, slice] with G as the row-major A operand, and
-//   dw_slice += F . G with G as the B operand through ldmatrix.trans.  A
-//   tile's 64 rows are summed apart and join the chunk's running sum with one
-//   rounded f32 addition (a blocked sum), so a chunk is a chain of at most 64
-//   additions.
-//
-// Every slice block gathers whole rows, so the gather is repeated c / 32 times
-// for wide channels; the map arrives transposed [K, m], so a block reads its
-// tap's column coalesced.  No column is assumed sorted.
-//
-// What bounds it on an H100: the read-modify-write of dx (2 x K passes over
-// [m, c_dst] f32 at most) and the gathered rows for narrow channels, mma.sync
-// throughput and shared-memory fragment loads for wide ones.
+// No column of the map is assumed sorted.  What bounds it on an H100 (NVIDIA
+// H100 80GB HBM3, 700.00 W): dx as the tile of gather_gemm_bf16.cuh; on the
+// sparse maps of a B = 5 train step (4 % of the level-0 entries real) that is
+// the products of active taps on rows without a real pair, 5-8x the real
+// ones, and the dx tiles take ~10.7 of the ~18.8 ms of device time of a
+// step's 42 calls.  dw: the bytes of the gathered rows out of L2 (a pair
+// reads a c_f and a c_src row of bf16 for 2 c_f c_src operations; ~3 TB/s on
+// the probe's dense level-0 map); over a step, its kernels (transpose, lists,
+// products, ordered sums) take ~5.3 ms and the wrapper's casts of src and f
+// to bf16 ~2.5 ms of device time.
 
+#include "gather_gemm_bf16.cuh"
 #include "mma_bf16.cuh"
+#include "pair_lists.cuh"
 
 namespace {
 
 using namespace mma_bf16_util;
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;      // rows per tile
-constexpr int kSlice = 32;   // dx columns and dw rows per block
-constexpr int kKMax = 27;
-constexpr int kCMax = 256;   // c_src the registers hold a dw slice for
-constexpr int kPad = 8;      // bf16 elements of row padding
-constexpr int kFStride = kBM + kPad;
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kStage = 128;    // pairs a dw block stages at a time (_PAIRS_PER_STAGE in the wrapper)
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  cp_async_commit();
-  cp_async_wait<0>();
-}
-
-// The B fragment of a 16 x 8 block stored row-major [k][n] in shared memory:
-// lanes 0-15 name the 16 rows.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const void* row) {
+// Four 8 x 8 b16 matrices, transposed: lanes 8 q .. 8 q + 7 name the rows of matrix q.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
   const unsigned addr = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 
-// DW: also the weight gradient (else dx only).
-template <bool DW>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const uint16_t* __restrict__ src, const uint16_t* __restrict__ w2t,
-             const int* __restrict__ nbr_t, const uint16_t* __restrict__ f_t,
-             float* __restrict__ dx, float* __restrict__ part, int m, int n, int k, int c_src,
-             int c_dst, int c_f, int m_pad, int rows_per_chunk) {
+// The output tile of a dw block: TM rows of c_f by TN columns of c_src,
+// out[a][b] = sum_p f[i_p][a] src[j_p][b] over the block's pairs.  WM x WN
+// warps own (TM / WM) x (TN / WN) of it each, MI x NJ tiles of 16 x 8: the
+// most warps on distinct outputs with at most 18 such tiles a warp (their sum
+// and the stage's, 144 registers), then the fewest ldmatrix loads per mma;
+// WK warp groups share a stage's pairs.
+template <int TM, int TN>
+struct DwTile {
+  static constexpr int layout() {  // 16 WM + WN
+    int best = 0, best_loads = 1 << 20;
+    for (int wm = 1; wm <= 8; wm *= 2)
+      for (int wn = 1; wm * wn <= 8; wn *= 2) {
+        if (TM % (16 * wm) != 0 || TN % (16 * wn) != 0 || (TM / wm / 16) * (TN / wn / 8) > 18) continue;
+        const int loads = (TM / wm / 16 + TN / wn / 16) * TM * TN / (TM / wm * TN / wn);  // per tile's mma step
+        if (wm * wn > (best / 16) * (best % 16) || (wm * wn == (best / 16) * (best % 16) && loads < best_loads)) {
+          best = 16 * wm + wn;
+          best_loads = loads;
+        }
+      }
+    return best;
+  }
+  static constexpr int WM = layout() / 16;         // warps across the rows
+  static constexpr int WN = layout() % 16;         // warps across the columns
+  static constexpr int WK = 8 / (WM * WN);         // warp groups splitting a stage's pairs
+  static constexpr int MI = TM / WM / 16;          // 16-row mma tiles per warp
+  static constexpr int NJ = TN / WN / 8;           // 8-column mma tiles per warp (even: two a load)
+  static constexpr int KPW = kStage / 16 / WK;     // 16-pair steps per warp group and stage
+  static constexpr int XS = TM + 8;                // f rows' stride (bf16): an odd number of 16-byte units
+  static constexpr int YS = TN + 8;                // src rows' stride, likewise
+  static constexpr int STAGE = kStage * (XS + YS);  // bf16 per stage buffer
+  static constexpr int HEADER = 4 * kStage * 4;    // s_i, s_j: two stages each (bytes)
+  static constexpr int SMEM = HEADER + 2 * STAGE * 2;
+  static_assert(WM > 0 && MI * NJ <= 18 && NJ % 2 == 0 && WM * WN * WK == 8 && KPW >= 1, "warp layout");
+  static_assert(WK * TM * TN * 4 <= 2 * STAGE * 2, "the warp groups' sums fit the stage buffers");
+  static_assert((XS / 8) % 2 == 1 && (YS / 8) % 2 == 1, "ldmatrix rows on distinct banks");
+};
+
+// part[tap][chunk] (a [c_f, c_src] partial) = the products of the tap's pairs
+// [chunk * P, (chunk + 1) * P) of its list, for one column tile.
+template <int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 1)
+dw_partial_kernel(const uint16_t* __restrict__ src, const int* __restrict__ nbr_t,
+                  const uint16_t* __restrict__ f, const int* __restrict__ rows,
+                  const int* __restrict__ counts, float* __restrict__ part, int m, int c_src, int c_f,
+                  int chunks, int pairs_per_chunk) {
+  using T = DwTile<TM, TN>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int gstride = c_src + kPad;
-  int* s_idx = reinterpret_cast<int*>(smem);                       // [kBM]
-  uint16_t* s_g = reinterpret_cast<uint16_t*>(smem + kBM * 4);     // [kBM][gstride] gathered rows
-  uint16_t* s_w = s_g + kBM * gstride;                             // [kSlice][gstride] w2[k][:, slice]^T
-  uint16_t* s_f = s_w + kSlice * gstride;                          // [kSlice][kFStride] f[tile, slice]^T
+  int* s_i = reinterpret_cast<int*>(smem);  // [2][kStage]: row i of each pair, -1 past the list
+  int* s_j = s_i + 2 * kStage;              // [2][kStage]: its source row nbr_t[tap, i]
+  uint16_t* stages = reinterpret_cast<uint16_t*>(smem + T::HEADER);
+
+  const int tap = blockIdx.z;
+  const int chunk = blockIdx.y;
+  const int count = counts[tap];
+  const int q0 = chunk * pairs_per_chunk;
+  if (chunk > 0 && q0 >= count) return;  // uniform: nothing of this tap's list here
+  const int npairs = max(0, min(pairs_per_chunk, count - q0));
+  const int nstages = (npairs + kStage - 1) / kStage;
+  const int tiles_b = c_src / TN;
+  const int a0 = (blockIdx.x / tiles_b) * TM;
+  const int b0 = (blockIdx.x % tiles_b) * TN;
+  const int* list = rows + (long long)tap * m + q0;
+  const int* col = nbr_t + (long long)tap * m;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int slice0 = blockIdx.y * kSlice;
-  const bool do_dx = slice0 < c_dst;
-  const bool do_dw = DW && slice0 < c_f;
-  const int r_begin = blockIdx.x * rows_per_chunk;
-  const int r_end = min(m, r_begin + rows_per_chunk);
-  const int ppr = c_src / 8;      // 16-byte pieces per row
-  const int ntiles = c_src / 8;   // 8-column mma tiles across c_src
-  // dx: warp -> 16 rows (wm) x 16 columns (wn); dw: warp -> 16 f channels (fm), every 4th column tile from fq
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int fm = warp & 1;
-  const int fq = warp >> 1;
+  const int wm = warp % T::WM;
+  const int wn = (warp / T::WM) % T::WN;
+  const int wk = warp / (T::WM * T::WN);
 
-  for (int tap = 0; tap < k; ++tap) {
-    const int* col = nbr_t + (long long)tap * m;
-    if (do_dx) {
-      for (int e = tid; e < kSlice * ppr; e += kThreads) {
-        const int c = e / ppr;
-        const int p = e - c * ppr;
-        cp_async16(s_w + c * gstride + p * 8, w2t + ((size_t)tap * c_dst + slice0 + c) * c_src + p * 8);
-      }
+  // pair indices, by the first kStage threads: stage s's in s_i / s_j[s & 1]
+  auto row_at = [&](int s) {
+    const int q = s * kStage + tid;
+    return q < npairs ? list[q] : -1;
+  };
+  int i_next = -1;  // the row of stage s + 2, loaded during stage s - 1
+  if (tid < kStage) {
+    const int i0 = row_at(0);
+    const int i1 = row_at(1);
+    s_i[tid] = i0;
+    s_j[tid] = i0 >= 0 ? col[i0] : -1;
+    s_i[kStage + tid] = i1;
+    s_j[kStage + tid] = i1 >= 0 ? col[i1] : -1;
+    i_next = row_at(2);
+  }
+  __syncthreads();
+
+  // Stage `s` into buffer `buf`: X[p][a] = f[i_p][a0 + a] and Y[p][b] = src[j_p][b0 + b].
+  auto stage_in = [&](int s, int buf) {
+    uint16_t* sx = stages + buf * T::STAGE;
+    uint16_t* sy = sx + kStage * T::XS;
+    const int* si = s_i + (s & 1) * kStage;
+    const int* sj = s_j + (s & 1) * kStage;
+    constexpr int PX = TM / 8;  // 16-byte pieces per f row
+    for (int e = tid; e < kStage * PX; e += kThreads) {
+      const int p = e / PX;
+      const int c = (e - p * PX) * 8;
+      const bool real = si[p] >= 0;
+      cp_async16(sx + p * T::XS + c, real ? f + (long long)si[p] * c_f + a0 + c : f, real);
     }
-    float acc[kCMax / 32][4];  // this block's slice of dw[tap]
-#pragma unroll
-    for (int i = 0; i < kCMax / 32; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int r0 = r_begin; r0 < r_end; r0 += kBM) {
-      bool real = false;
-      if (tid < kBM) {
-        const int i = r0 + tid;
-        const int v = i < r_end ? col[i] : n;
-        real = (unsigned)v < (unsigned)n;
-        s_idx[tid] = real ? v : -1;
-      }
-      if (!__syncthreads_or(real)) continue;  // uniform: no real source in this tile for this tap
-      for (int e = tid; e < kBM * ppr; e += kThreads) {
-        const int r = e / ppr;
-        const int p = e - r * ppr;
-        const int j = s_idx[r];
-        uint16_t* dst = s_g + r * gstride + p * 8;
-        if (j >= 0)
-          cp_async16(dst, src + (size_t)j * c_src + p * 8);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      if (do_dw) {  // 32 channels x 64 rows of f^T: one 16-byte piece a thread
-        const int c = tid >> 3;
-        const int p = tid & 7;
-        cp_async16(s_f + c * kFStride + p * 8, f_t + (size_t)(slice0 + c) * m_pad + r0 + p * 8);
-      }
-      cp_async_wait_all();  // also the tap's weights, staged before the first tile
-      __syncthreads();
-
-      if (do_dx) {
-        float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        const uint16_t* arow = s_g + (wm * 16 + gid) * gstride + tig * 2;
-        const uint16_t* brow = s_w + (wn * 16 + gid) * gstride + tig * 2;
-        for (int k0 = 0; k0 < c_src; k0 += 16) {
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(arow + k0);
-          a[1] = *reinterpret_cast<const uint32_t*>(arow + 8 * gstride + k0);
-          a[2] = *reinterpret_cast<const uint32_t*>(arow + k0 + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(arow + 8 * gstride + k0 + 8);
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const uint16_t* bp = brow + t * 8 * gstride + k0;
-            mma_bf16(d[t], a, *reinterpret_cast<const uint32_t*>(bp),
-                     *reinterpret_cast<const uint32_t*>(bp + 8));
-          }
-        }
-        // add the tap's product into this block's own rows and columns of dx
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 16 + gid + 8 * h;
-          if (s_idx[r] < 0) continue;  // a sentinel tap adds nothing to its row
-          float* row = dx + (long long)(r0 + r) * c_dst + slice0 + wn * 16 + tig * 2;
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            float2* p = reinterpret_cast<float2*>(row + t * 8);
-            float2 v = *p;
-            v.x += d[t][2 * h];
-            v.y += d[t][2 * h + 1];
-            *p = v;
-          }
-        }
-      }
-
-      if (do_dw) {
-        const uint16_t* frow = s_f + (fm * 16 + gid) * kFStride + tig * 2;
-        // the tile's 64 rows sum on their own, then join the chunk's total with a rounded f32 add:
-        // the tensor cores truncate when they add into a large accumulator, and a chain of 156
-        // such steps was measured up to 12x further from f64 than the plain version
-        float step[kCMax / 32][4];
-#pragma unroll
-        for (int i = 0; i < kCMax / 32; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) step[i][j] = 0.f;
-#pragma unroll
-        for (int k0 = 0; k0 < kBM; k0 += 16) {
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(frow + k0);
-          a[1] = *reinterpret_cast<const uint32_t*>(frow + 8 * kFStride + k0);
-          a[2] = *reinterpret_cast<const uint32_t*>(frow + k0 + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(frow + 8 * kFStride + k0 + 8);
-          const uint16_t* grow = s_g + (k0 + (lane & 15)) * gstride;
-#pragma unroll
-          for (int i = 0; i < kCMax / 32; ++i) {
-            const int t = fq + 4 * i;
-            if (t < ntiles) {
-              uint32_t b0, b1;
-              ldmatrix_x2_trans(b0, b1, grow + t * 8);
-              mma_bf16(step[i], a, b0, b1);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kCMax / 32; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += step[i][j];
-      }
-      __syncthreads();  // every warp is done with the tile before the next one is staged
+    constexpr int PY = TN / 8;  // 16-byte pieces per src row
+    for (int e = tid; e < kStage * PY; e += kThreads) {
+      const int p = e / PY;
+      const int c = (e - p * PY) * 8;
+      const bool real = si[p] >= 0;
+      cp_async16(sy + p * T::YS + c, real ? src + (long long)sj[p] * c_src + b0 + c : src, real);
     }
+    cp_async_commit();
+  };
 
-    if (do_dw) {
-      float* out = part + (((long long)blockIdx.x * k + tap) * c_f + slice0 + fm * 16 + gid) * c_src + tig * 2;
+  float acc[T::MI][T::NJ][4];
 #pragma unroll
-      for (int i = 0; i < kCMax / 32; ++i) {
-        const int t = fq + 4 * i;
-        if (t < ntiles) {
-          *reinterpret_cast<float2*>(out + t * 8) = make_float2(acc[i][0], acc[i][1]);
-          *reinterpret_cast<float2*>(out + 8LL * c_src + t * 8) = make_float2(acc[i][2], acc[i][3]);
-        }
-      }
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int t = 0; t < T::NJ; ++t)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][t][v] = 0.f;
+
+  // ldmatrix lanes: matrix q = lane / 8, its row lane % 8
+  const int q = lane >> 3;
+  const int rr = lane & 7;
+  const int am = wm * (TM / T::WM);  // this warp's first row of the tile
+  const int bn = wn * (TN / T::WN);  // and first column
+  if (nstages > 0) stage_in(0, 0);
+  for (int s = 0; s < nstages; ++s) {
+    const int buf = s & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage s has landed, and every warp is done with stage s - 1
+    if (s + 1 < nstages) stage_in(s + 1, buf ^ 1);
+    int j_next = -1, i_after = -1;
+    if (tid < kStage) {  // issued now, stored after the products: stage s + 2's source row, s + 3's row
+      j_next = i_next >= 0 ? col[i_next] : -1;
+      i_after = row_at(s + 3);
     }
-    // the tap's weights may still be in flight if every tile was skipped
-    cp_async_wait_all();
-    __syncthreads();
+    const uint16_t* sx = stages + buf * T::STAGE;
+    const uint16_t* sy = sx + kStage * T::XS;
+    float step[T::MI][T::NJ][4];  // this stage's sum, joining acc after it
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+      for (int t = 0; t < T::NJ; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) step[i][t][v] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < T::KPW; ++kk) {
+      const int p0 = (wk * T::KPW + kk) * 16;
+      uint32_t a[T::MI][4], b[T::NJ / 2][4];
+#pragma unroll
+      for (int i = 0; i < T::MI; ++i)  // A (row a, pair p) = X[p][a]: matrices (a 0-7 | 8-15) x (p 0-7 | 8-15)
+        ldmatrix_x4_trans(a[i], sx + (p0 + 8 * (q >> 1) + rr) * T::XS + am + 16 * i + 8 * (q & 1));
+#pragma unroll
+      for (int h = 0; h < T::NJ / 2; ++h)  // B (pair p, column b) = Y[p][b]: two 8-column tiles a load
+        ldmatrix_x4_trans(b[h], sy + (p0 + 8 * (q & 1) + rr) * T::YS + bn + 16 * h + 8 * (q >> 1));
+#pragma unroll
+      for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+        for (int t = 0; t < T::NJ; ++t)
+          mma_bf16(step[i][t], a[i], b[t >> 1][2 * (t & 1)], b[t >> 1][2 * (t & 1) + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+      for (int t = 0; t < T::NJ; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][t][v] += step[i][t][v];
+    if (tid < kStage) {  // stage s + 2 uses this buffer: every thread is past stage_in(s)
+      s_i[buf * kStage + tid] = i_next;
+      s_j[buf * kStage + tid] = j_next;
+      i_next = i_after;
+    }
+  }
+
+  // the warp groups' tiles through shared memory (the stage buffers are free
+  // now), summed in group order
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(stages);  // [WK][TM][TN]
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int t = 0; t < T::NJ; ++t) {
+      const int r = am + i * 16 + gid;
+      const int c = bn + t * 8 + 2 * tig;
+      float* o = red + (wk * TM + r) * TN + c;
+      o[0] = acc[i][t][0];
+      o[1] = acc[i][t][1];
+      o[8 * TN] = acc[i][t][2];
+      o[8 * TN + 1] = acc[i][t][3];
+    }
+  __syncthreads();
+  float* out = part + ((long long)tap * chunks + chunk) * c_f * c_src;
+  for (int e = tid; e < TM * TN; e += kThreads) {
+    const int r = e / TN;
+    const int c = e % TN;
+    float v = red[r * TN + c];
+#pragma unroll
+    for (int w = 1; w < T::WK; ++w) v += red[(w * TM + r) * TN + c];
+    out[(long long)(a0 + r) * c_src + b0 + c] = v;
   }
 }
 
-// dw[e] = sum_{s < S} part[s][e], s in order
-__global__ void dw_reduce_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
-                                 long long total4, int chunks) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total4;
-       e += (long long)gridDim.x * blockDim.x) {
-    float4 acc = part[e];
-    for (int s = 1; s < chunks; ++s) {
-      const float4 v = part[s * total4 + e];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    dw[e] = acc;
-  }
-}
-
-template <bool DW>
-cudaError_t launch(const void* src, const void* w2t, const void* nbr_t, const void* f_t, void* dx,
-                   void* part, int m, int n, int k, int c_src, int c_dst, int c_f, int m_pad,
-                   int chunks, int rows_per_chunk, cudaStream_t stream) {
-  const int gstride = c_src + kPad;
-  const int smem = kBM * 4 + ((kBM + kSlice) * gstride + kSlice * kFStride) * 2;
-  auto kern = fused_kernel<DW>;
+template <int TM, int TN>
+cudaError_t launch_partial(const uint16_t* src, const int* nbr_t, const uint16_t* f, const int* rows,
+                           const int* counts, float* part, int m, int k, int c_src, int c_f, int chunks,
+                           int pairs_per_chunk, cudaStream_t stream) {
+  using T = DwTile<TM, TN>;
+  auto kern = dw_partial_kernel<TM, TN>;
   // more than 48 KB of shared memory is dynamic and has to be asked for
-  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
-  const int slices = (DW && c_f > c_dst ? c_f : c_dst) / kSlice;
-  const dim3 grid(chunks, slices);
-  kern<<<grid, kThreads, smem, stream>>>((const uint16_t*)src, (const uint16_t*)w2t,
-                                         (const int*)nbr_t, (const uint16_t*)f_t, (float*)dx,
-                                         (float*)part, m, n, k, c_src, c_dst, c_f, m_pad,
-                                         rows_per_chunk);
+  const dim3 grid((c_f / TM) * (c_src / TN), chunks, k);
+  kern<<<grid, kThreads, T::SMEM, stream>>>(src, nbr_t, f, rows, counts, part, m, c_src, c_f, chunks,
+                                            pairs_per_chunk);
   return cudaGetLastError();
+}
+
+template <int TM>
+cudaError_t launch_cols(const uint16_t* src, const int* nbr_t, const uint16_t* f, const int* rows,
+                        const int* counts, float* part, int m, int k, int c_src, int c_f, int chunks,
+                        int pairs_per_chunk, cudaStream_t stream) {
+#define DW_TILE(TN) \
+  launch_partial<TM, TN>(src, nbr_t, f, rows, counts, part, m, k, c_src, c_f, chunks, pairs_per_chunk, stream)
+  if (c_src % 128 == 0) return DW_TILE(128);
+  if (c_src % 96 == 0) return DW_TILE(96);
+  if (c_src % 64 == 0) return DW_TILE(64);
+  return DW_TILE(32);
+#undef DW_TILE
+}
+
+// The widest tile that divides the shape: 128, 96, 64 or 32 rows of c_f by
+// 128, 96, 64 or 32 columns of c_src, so a pair's rows are gathered once per
+// tile and as few tiles as the shape allows.
+cudaError_t launch_dw(const uint16_t* src, const int* nbr, int* nbr_t, const uint16_t* f, float* dw, float* ws,
+                      int* rows, int* counts, int* seg_counts, int m, int n, int k, int c_src, int c_f,
+                      int chunks, int pairs_per_chunk, cudaStream_t stream) {
+  cudaError_t err = pair_lists::launch_transpose(nbr, nbr_t, m, k, stream);
+  if (err != cudaSuccess) return err;
+  err = pair_lists::launch_lists(nbr_t, rows, counts, seg_counts, m, n, k, stream);
+  if (err != cudaSuccess) return err;
+  float* part = chunks == 1 ? dw : ws;
+  if (c_f % 128 == 0)
+    err = launch_cols<128>(src, nbr_t, f, rows, counts, part, m, k, c_src, c_f, chunks, pairs_per_chunk, stream);
+  else if (c_f % 96 == 0)
+    err = launch_cols<96>(src, nbr_t, f, rows, counts, part, m, k, c_src, c_f, chunks, pairs_per_chunk, stream);
+  else if (c_f % 64 == 0)
+    err = launch_cols<64>(src, nbr_t, f, rows, counts, part, m, k, c_src, c_f, chunks, pairs_per_chunk, stream);
+  else
+    err = launch_cols<32>(src, nbr_t, f, rows, counts, part, m, k, c_src, c_f, chunks, pairs_per_chunk, stream);
+  if (err != cudaSuccess || chunks == 1) return err;
+  return pair_lists::launch_reduce(ws, counts, dw, k, c_f, c_src, chunks, pairs_per_chunk, stream);
 }
 
 }  // namespace
 
 // src bf16 [n, c_src]; w2t bf16 [k, c_dst, c_src] (w2 with c_src contiguous);
-// nbr_t int32 [k, m] (the map, transposed); f_t bf16 [c_f, m_pad] (f transposed,
-// zeros past row m; read only in mode 2); dx f32 [m, c_dst], ZERO-FILLED by the
-// caller; dw f32 [k, c_f, c_src] (written in modes 1 and 2); ws f32 [chunks, k,
-// c_f, c_src] (mode 2, unused when chunks == 1).  mode: 0 dx only, 1 dx and
-// dw = 0, 2 dx and dw.  Rows [s * rows_per_chunk, (s + 1) * rows_per_chunk)
-// form chunk s; rows_per_chunk % 64 == 0, chunks * rows_per_chunk >= m,
-// m_pad % 64 == 0 and m_pad >= m.  All contiguous on the current device and
-// 16-byte aligned.  Needs k <= 27, c_src % 16 == 0, c_src <= 256,
-// c_dst % 32 == 0, c_f % 32 == 0.  Returns the first CUDA error of its launches.
-extern "C" int lidal_conv_dx_dw_fused(const void* src, const void* w2t, const void* nbr_t,
-                                      const void* f_t, void* dx, void* dw, void* ws, int m, int n,
-                                      int k, int c_src, int c_dst, int c_f, int m_pad, int chunks,
-                                      int rows_per_chunk, int mode, void* stream) {
+// nbr int32 [m, k]; f bf16 [m, c_f] (read only in mode 2); dx f32 [m, c_dst];
+// dw f32 [k, c_f, c_src] (written in modes 1 and 2); scratch for mode 2: nbr_t
+// [k, m] (the map transposed here), ws f32 [k, chunks, c_f, c_src] (unused
+// when chunks == 1), rows [k, m], counts [k] and seg_counts [k, ceil(m /
+// 4096)] int32.  mode: 0 dx only, 1 dx and dw = 0, 2 dx and dw.  bn, bm and
+// stages: dx's tile (columns, rows) and ring depth (gather_gemm_bf16::shapes_ok).
+// Pairs [s * pairs_per_chunk, (s + 1) * pairs_per_chunk) of a tap's list form
+// its chunk s: pairs_per_chunk % 128 == 0 and chunks * pairs_per_chunk >= m.
+// All contiguous on the current device and 16-byte aligned.  Needs k <= 27,
+// c_src % 32 == 0 and c_f % 32 == 0.  Returns the first CUDA error of its
+// launches.
+extern "C" int lidal_conv_dx_dw_fused(const void* src, const void* w2t, const void* nbr, const void* nbr_t,
+                                      const void* f, void* dx, void* dw, void* ws, void* rows, void* counts,
+                                      void* seg_counts, int m, int n, int k, int c_src, int c_dst, int c_f,
+                                      int bn, int bm, int stages, int chunks, int pairs_per_chunk, int mode,
+                                      void* stream) {
   const auto s = (cudaStream_t)stream;
-  if (m < 0 || n < 0 || k <= 0 || k > kKMax || c_src <= 0 || c_src % 16 != 0 || c_src > kCMax ||
-      c_dst <= 0 || c_dst % kSlice != 0 || c_f <= 0 || c_f % kSlice != 0 || mode < 0 || mode > 2 ||
-      chunks < 1 || rows_per_chunk < kBM || rows_per_chunk % kBM != 0 ||
-      (long long)chunks * rows_per_chunk < m || m_pad % kBM != 0 || m_pad < m)
+  if (!gather_gemm_bf16::shapes_ok(m, n, k, c_src, c_dst, bn, bm, stages) || c_src % 32 != 0 || c_f <= 0 ||
+      c_f % 32 != 0 || mode < 0 || mode > 2 || chunks < 1 || chunks > 65535 || pairs_per_chunk < kStage ||
+      pairs_per_chunk % kStage != 0 || (long long)chunks * pairs_per_chunk < m ||
+      (long long)chunks * pairs_per_chunk > 0x7fffffffLL ||
+      (m + pair_lists::kSegRows - 1) / pair_lists::kSegRows > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t dw_bytes = sizeof(float) * (size_t)k * c_f * c_src;
-  if (mode == 1 || (mode == 2 && m == 0)) {
-    const cudaError_t err = cudaMemsetAsync(dw, 0, dw_bytes, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (m == 0) return (int)cudaSuccess;
-  if (mode < 2)
-    return (int)launch<false>(src, w2t, nbr_t, f_t, dx, nullptr, m, n, k, c_src, c_dst, c_f, m_pad,
-                              chunks, rows_per_chunk, s);
-  void* part = chunks == 1 ? dw : ws;
-  const cudaError_t err = launch<true>(src, w2t, nbr_t, f_t, dx, part, m, n, k, c_src, c_dst, c_f,
-                                       m_pad, chunks, rows_per_chunk, s);
-  if (err != cudaSuccess || chunks == 1) return (int)err;
-  const long long total4 = (long long)k * c_f * c_src / 4;
-  const int blocks = (int)((total4 + 255) / 256 < 4096 ? (total4 + 255) / 256 : 4096);
-  dw_reduce_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(ws),
-                                          reinterpret_cast<float4*>(dw), total4, chunks);
-  return (int)cudaGetLastError();
+  cudaError_t err = gather_gemm_bf16::launch<false>(src, w2t, (const int*)nbr, (float*)dx, m, n, k, c_src, c_dst,
+                                                    bn, bm, stages, s);
+  if (err != cudaSuccess || mode == 0) return (int)err;
+  if (mode == 1 || m == 0) return (int)cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)k * c_f * c_src, s);
+  return (int)launch_dw((const uint16_t*)src, (const int*)nbr, (int*)nbr_t, (const uint16_t*)f, (float*)dw, (float*)ws,
+                        (int*)rows, (int*)counts, (int*)seg_counts, m, n, k, c_src, c_f, chunks,
+                        pairs_per_chunk, s);
 }

@@ -1,6 +1,6 @@
 // 16-byte asynchronous copies from device memory into shared memory, shared by
-// the tensor-core kernels (gather_gemm.cuh, and through mma_bf16.cuh
-// conv_gather_first.cu and conv_dx_dw_fused.cu).
+// the tensor-core kernels (gather_gemm.cuh, gather_gemm_bf16.cuh, conv_dx_dw.cu,
+// and through mma_bf16.cuh conv_dx_dw_fused.cu).
 
 #pragma once
 

@@ -1,6 +1,6 @@
-// Pieces shared by the bf16 tensor-core kernels (conv_gather_first.cu and
-// conv_dx_dw_fused.cu): 16-byte asynchronous copies into shared memory
-// (cp_async.cuh) and the warp-level m16n8k16 product.
+// The warp-level m16n8k16 bf16 product of the bf16 backward's weight gradient
+// (conv_dx_dw_fused.cu), with the 16-byte asynchronous copies of cp_async.cuh.
+// The gather-GEMM tile (gather_gemm_bf16.cuh) multiplies with wgmma instead.
 
 #pragma once
 

@@ -10,8 +10,16 @@ to the first.  A CUDA tensor launches the kernel or raises; a CPU tensor takes
 the plain version: the operands cast to bf16 and back to f32, then
 ``subm_conv_plain``.
 
-The kernel takes input channels in multiples of ``CIN_ALIGN`` = 16 (one
-``mma.sync`` step, and 16-byte ``cp.async`` pieces of a bf16 row).  The
+The kernel is the bf16 gather-GEMM tile of ``csrc/gather_gemm_bf16.cuh``:
+row tiles of 64 rows a warpgroup (:func:`tile_rows`), the active taps of a
+tile only, stages of 64 (tap, channel) columns gathered by ``cp.async`` into a
+ring in shared memory and contracted by ``wgmma``.  :func:`column_tile` and
+:func:`ring_stages` choose its column tile and ring depth (``pipelined`` picks
+the deeper ring; the output is bit-equal), :func:`tile_products` counts the
+products it issues on a map.  What bounds it on an H100 is L2's bandwidth
+for the gathered pieces and the weights (200-225 TFLOP/s on the probe's dense
+level-0 maps), and on sparse maps the products of active taps on rows without
+a real pair.  It takes input channels in multiples of ``CIN_ALIGN`` = 16; the
 wrappers zero-pad the table's and the weights' input channels up to it, so
 the stem's cin = 4 is gathered as 32-byte rows.
 """
@@ -31,17 +39,74 @@ GATHER_FIRST_LAUNCHES = 0
 BYTE_PLANES_LAUNCHES = 0
 
 CIN_ALIGN = 16
+STAGE_COLS = 64  # (tap, channel) columns of a stage (kKS in gather_gemm_bf16.cuh)
+COLUMN_TILES = (128, 96, 64, 32)  # widest first
+SHALLOW_STAGES = 4  # the ring without ``pipelined``
+MAX_STAGES = 8  # kMaxStages
+_SMEM_MAX = 232448  # dynamic shared memory a block may ask for on sm_90 (kSmemMax)
+_TAPS = 27  # kKMax: the tile's map in shared memory has a row per tap
+BIG_TILE_BLOCKS = 200
+
+
+def column_tile(cout: int) -> int:
+    """The kernel's column tile for ``cout`` (a multiple of 32): the widest of
+    128, 96, 64 and 32 that divides it."""
+    for bn in COLUMN_TILES:
+        if cout % bn == 0:
+            return bn
+    raise ValueError(f"cout must be a multiple of 32, got {cout}")
+
+
+def tile_rows(bn: int, m: int, cout: int) -> int:
+    """Rows of the kernel's tile, 64 a consumer warpgroup: 192 at column tile
+    ``bn`` >= 96 where that still makes ``BIG_TILE_BLOCKS`` blocks (1.5 waves
+    on 132 SMs; the weights of a stage then serve 192 rows, not 128), else
+    128."""
+    return 192 if bn >= 96 and -(-m // 192) * (cout // bn) >= BIG_TILE_BLOCKS else 128
+
+
+def smem_bytes(bn: int, rows: int, stages: int) -> int:
+    """Dynamic shared memory of the tile (``Ring::smem``): the tile's map and
+    tap list rounded up to 1024 bytes, the stages of (rows + bn) x 64 bf16,
+    and 1024 bytes of alignment."""
+    header = -(-(_TAPS * rows + 65) * 4 // 1024) * 1024
+    return header + stages * (rows + bn) * STAGE_COLS * 2 + 1024
+
+
+def ring_stages(bn: int, rows: int, pipelined: bool) -> int:
+    """Depth of the kernel's ring of stages: 4, or with ``pipelined`` the
+    deepest (at most 8) that fits an SM's shared memory."""
+    if not pipelined:
+        return SHALLOW_STAGES
+    return max(s for s in range(SHALLOW_STAGES, MAX_STAGES + 1) if smem_bytes(bn, rows, s) <= _SMEM_MAX)
+
+
+def tile_products(nbr: torch.Tensor, n: int, cin: int, cout: int) -> int:
+    """Multiply-adds the kernel issues on map ``nbr`` [m, K] with ``cin``
+    (padded) input channels: per row tile, its stages of 64 columns over the
+    taps that are real somewhere in it, times the tile's rows and ``cout``."""
+    m, k = nbr.shape
+    rows = tile_rows(column_tile(cout), m, cout)
+    real = ((nbr >= 0) & (nbr < n)).to(torch.int32)
+    real = torch.cat([real, real.new_zeros(((-m) % rows, k))]).reshape(-1, rows, k)
+    active = real.amax(1).sum(1).long()
+    stages = (active * cin + STAGE_COLS - 1) // STAGE_COLS
+    return int(stages.sum()) * STAGE_COLS * rows * cout
 
 
 def _cin_pad(cin: int) -> int:
     return -(-cin // CIN_ALIGN) * CIN_ALIGN
 
 
+def bf16_padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [rows, c] rounded to bf16, contiguous, its columns zero-padded to ``width``."""
+    xb = x.to(torch.bfloat16)
+    return (F.pad(xb, (0, width - x.shape[1])) if width != x.shape[1] else xb).contiguous()
+
+
 def pack_table(feats: torch.Tensor) -> torch.Tensor:
     """feats [n, cin] rounded to bf16, input channels zero-padded to ``CIN_ALIGN``."""
-    table = feats.to(torch.bfloat16)
-    pad = _cin_pad(table.shape[1]) - table.shape[1]
-    return (F.pad(table, (0, pad)) if pad else table).contiguous()
+    return bf16_padded(feats, _cin_pad(feats.shape[1]))
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -116,12 +181,14 @@ def _launch(table, wt, nbr, planes: bool, pipelined: bool) -> torch.Tensor:
     out = torch.empty((m, cout), dtype=torch.float32, device=dev)
     if m == 0:
         return out
+    bn = column_tile(cout)
+    rows = tile_rows(bn, m, cout)
     fn = kernels_build.function(
-        "conv_gather_first", "lidal_conv_gather_first", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        "conv_gather_first", "lidal_conv_gather_first", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dev):
         err = fn(table.data_ptr(), wt.data_ptr(), nbr.data_ptr(), out.data_ptr(), m, n, k, cin, cout,
-                 int(planes), int(pipelined), torch.cuda.current_stream().cuda_stream)
+                 int(planes), bn, rows, ring_stages(bn, rows, pipelined), torch.cuda.current_stream().cuda_stream)
     global GATHER_FIRST_LAUNCHES, BYTE_PLANES_LAUNCHES
     with kernels_build.LAUNCH_LOCK:
         if planes:
@@ -152,9 +219,10 @@ def conv_gather_first(feats, w, nbr, pipelined: bool = False) -> torch.Tensor:
     """out[i] = sum_k bf16(feats)[nbr[i, k]] @ bf16(w)[k], f32 sums; an index
     outside [0, n) gives 0; map columns in any order.
 
-    The gathered rows of a group of taps are assembled first and contracted
-    once; ``pipelined`` stages the next group while this one is contracted and
-    gives bit-equal output.
+    The gathered rows of each row tile are assembled in shared memory
+    first, in stages of 64 (tap, channel) columns over the tile's active taps,
+    and contracted by ``wgmma``; ``pipelined`` gives the ring of stages its
+    deepest size and bit-equal output.
 
     Args:
       feats: f32 [n, cin].

@@ -65,11 +65,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pair_chunks(m: int, k: int, c_f: int, c_src: int):
+def pair_chunks(m: int, k: int, c_f: int, c_src: int, stage: int = _PAIRS_PER_STAGE):
     """(S, pairs per chunk P) of the kernel's weight-gradient reduction.
 
     A tap's list of real pairs is cut into chunks of P pairs, P a multiple of
-    the 64-pair stage, and the grid holds S = ceil(m / P) chunks a tap (the
+    the ``stage`` (64 pairs here, 128 in the bf16 kernel of
+    ``cuda_conv_dxdw_fused``), and the grid holds S = ceil(m / P) chunks a tap (the
     worst case: every row real; blocks past the count exit).  P depends on
     the shape only, so a shape always sums in the same order.  P is
     ``_MIN_CHUNK_PAIRS``, or more where the partials' workspace [K, S, c_f,
@@ -77,9 +78,9 @@ def pair_chunks(m: int, k: int, c_f: int, c_src: int):
     pairs are ~4 % of the worst case: chunks of 256 or 512 pairs gave more
     busy blocks but measured slower, the empty ones costing more.)"""
     if m == 0:
-        return 1, _PAIRS_PER_STAGE
+        return 1, stage
     s_cap = max(1, _WORKSPACE_BYTES // (4 * k * c_f * c_src))
-    p = _cdiv(max(_MIN_CHUNK_PAIRS, _cdiv(m, s_cap)), _PAIRS_PER_STAGE) * _PAIRS_PER_STAGE
+    p = _cdiv(max(_MIN_CHUNK_PAIRS, _cdiv(m, s_cap)), stage) * stage
     return _cdiv(m, p), p
 
 

@@ -3,16 +3,25 @@ version.
 
 Replaces ``tools/probe_dxdw_features.py:launch`` with its bodies ``kA`` /
 ``kB`` / ``kC`` as ``mode`` ``"dx"`` / ``"dx_zero_dw"`` / ``"dx_dw"``: reduced
-forms of ``ops/cuda_conv_dxdw.conv_dx_dw`` that take both products from ONE
-gather per (row tile, tap), on operands rounded to bf16 with f32 sums.  A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain version:
-the operands cast to bf16 and back to f32, then ``conv_dx_dw_plain``.  The
-weight gradient is deterministic (fixed row chunks summed in a fixed order, no
-atomics): one input gives bit-equal results on every run.
+forms of ``ops/cuda_conv_dxdw.conv_dx_dw`` on operands rounded to bf16 with
+f32 sums.  A CUDA tensor launches the kernel or raises; a CPU tensor takes the
+plain version: the operands cast to bf16 and back to f32, then
+``conv_dx_dw_plain``.
 
-The kernel takes c_src in multiples of 16 (at most 256) and c_dst, c_f in
-multiples of 32; the wrapper zero-pads the channels up to that and slices the
-results back (the probe's own shape has 8 channels).
+One call is one launch of the C entry point, which runs dx on the bf16
+gather-GEMM tile of ``csrc/gather_gemm_bf16.cuh`` (the kernel of
+``cuda_conv_bf16``, with its tile and ring as ``conv_gather_first`` picks
+them) and, in mode ``"dx_dw"``, dw over per-tap lists of the real pairs built
+on the device, one ``mma.sync.m16n8k16`` per product, in chunks of
+``pair_chunks(..., stage=128)`` pairs whose partials are summed in chunk order
+with no atomics: one input gives bit-equal results on every run, and the host
+never waits on the lists.  What bounds it on an H100: dx as the tile (on the
+sparse maps of a train step, the products of active taps on rows without a
+real pair); dw the L2 bandwidth for the gathered f and src rows of each pair.
+
+The kernel takes c_src, c_dst and c_f in multiples of 32; the wrapper
+zero-pads the channels up to that and slices the results back (the probe's
+own shape has 8 channels).
 """
 
 from __future__ import annotations
@@ -23,21 +32,16 @@ import torch
 import torch.nn.functional as F
 
 from lidal_tpu_torch import kernels_build
-from lidal_tpu_torch.ops.cuda_conv_dxdw import _check, conv_dx_dw_plain
+from lidal_tpu_torch.ops.cuda_conv_bf16 import bf16_padded, column_tile, ring_stages, tile_rows
+from lidal_tpu_torch.ops.cuda_conv_dxdw import _SEG_ROWS, _check, conv_dx_dw_plain, pair_chunks
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
 
 MODES = ("dx", "dx_zero_dw", "dx_dw")
 
-_TILE_ROWS = 64  # rows a block stages per step (kBM in the source)
-_SLICE = 32  # dx columns and dw rows per block (kSlice)
-_C_SRC_ALIGN = 16
-_C_SRC_MAX = 256  # the widest dw slice a block's registers hold (kCMax)
-_TARGET_BLOCKS = 1024  # blocks wanted: a few waves on 132 SMs
-_MIN_CHUNK_ROWS = 1024  # a chunk's rows amortise its partial's write
-_MAX_CHUNK_ROWS = 4096  # and a chunk sums few enough rows to stay accurate
-_WORKSPACE_BYTES = 256 << 20  # bound on the partials [S, K, c_f, c_src]
+CHANNEL_ALIGN = 32  # c_src, c_dst and c_f as the kernel takes them
+PAIRS_PER_STAGE = 128  # pairs a dw block stages at a time (kStage in the source)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -46,6 +50,18 @@ def _cdiv(a: int, b: int) -> int:
 
 def _pad_to(c: int, align: int) -> int:
     return _cdiv(c, align) * align
+
+
+def padded_channels(c_src: int, c_dst: int, c_f: int):
+    """(c_src, c_dst, c_f) as the kernel takes them: each zero-padded to a multiple of 32."""
+    return tuple(_pad_to(c, CHANNEL_ALIGN) for c in (c_src, c_dst, c_f))
+
+
+def dw_chunks(m: int, k: int, c_f: int, c_src: int):
+    """(S, pairs per chunk P) of the kernel's weight-gradient reduction at the
+    padded widths: ``cuda_conv_dxdw.pair_chunks`` with the bf16 kernel's
+    128-pair stage."""
+    return pair_chunks(m, k, c_f, c_src, stage=PAIRS_PER_STAGE)
 
 
 def conv_dx_dw_fused_plain(src, w2, nbr, f, mode: str = "dx_dw"):
@@ -60,34 +76,20 @@ def conv_dx_dw_fused_plain(src, w2, nbr, f, mode: str = "dx_dw"):
     return dx, (torch.zeros_like(dw) if mode == "dx_zero_dw" else dw)
 
 
-def row_chunks(m: int, k: int, c_f: int, c_src: int, slices: int):
-    """(S, rows per chunk) of the kernel's weight-gradient reduction, for
-    padded channel counts and ``slices`` blocks per chunk.
-
-    S depends on the shape only, so a shape always sums in the same order:
-    enough chunks for a few waves of blocks, between ``_MIN_CHUNK_ROWS`` and
-    ``_MAX_CHUNK_ROWS`` rows each (a multiple of the 64-row tile), and a
-    workspace of at most ``_WORKSPACE_BYTES`` (which wins over the row bounds)."""
-    if m == 0:
-        return 1, _TILE_ROWS
-    s = max(min(_cdiv(_TARGET_BLOCKS, slices), m // _MIN_CHUNK_ROWS), _cdiv(m, _MAX_CHUNK_ROWS))
-    s = min(s, _WORKSPACE_BYTES // (4 * k * c_f * c_src))
-    rows = _pad_to(_cdiv(m, max(1, s)), _TILE_ROWS)
-    return _cdiv(m, rows), rows
-
-
 def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
-    """Both products of a sparse-conv backward from one gather per (tile, tap).
+    """Both products of a sparse-conv backward on bf16 operands.
 
       dx[i] = sum_k bf16(src)[nbr[i, k]] @ bf16(w2)[k]       f32 [m, c_dst]
       dw[k] = sum_i bf16(f)[i]^T bf16(src)[nbr[i, k]]        f32 [K, c_f, c_src]
 
     ``mode`` ``"dx"`` returns ``(dx, None)``, ``"dx_zero_dw"`` ``(dx, zeros)``
     and ``"dx_dw"`` ``(dx, dw)``.  An index outside [0, n) contributes zero;
-    map columns need not be sorted.
+    map columns need not be sorted.  dx is the bf16 gather-GEMM tile (sums over
+    a row's taps in registers, each output written once); dw runs over each
+    tap's real pairs, one ``mma.sync.m16n8k16`` per product.
 
     Args:
-      src: f32 [n, c_src], c_src <= 256 (the output gradient of the forward conv).
+      src: f32 [n, c_src] (the output gradient of the forward conv).
       w2: f32 [K, c_src, c_dst], K <= 27.
       nbr: int32 [m, K] source rows (sentinel n).
       f: f32 [m, c_f] (the forward input at the map's rows).
@@ -107,31 +109,41 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
     n, c_src = src.shape
     m, k = nbr.shape
     c_dst, c_f = w2.shape[2], f.shape[1]
-    cs, cd, cf = _pad_to(c_src, _C_SRC_ALIGN), _pad_to(c_dst, _SLICE), _pad_to(c_f, _SLICE)
-    if k > 27 or cs > _C_SRC_MAX:
-        raise ValueError(f"conv_dx_dw_fused kernel needs K <= 27 and c_src <= {_C_SRC_MAX}; got {k}, {c_src}")
+    if k > 27:
+        raise ValueError(f"conv_dx_dw_fused kernel needs K <= 27; got {k}")
+    cs, cd, cf = padded_channels(c_src, c_dst, c_f)
     with_dw = mode == "dx_dw"
-    m_pad = _pad_to(max(m, 1), _TILE_ROWS)
     # the operands as the kernel reads them: bf16, channels zero-padded, w2 with
-    # c_src contiguous, the map and f transposed (a block reads a tap's column
-    # and a channel's rows contiguously)
-    src_b = F.pad(src.to(torch.bfloat16), (0, cs - c_src)).contiguous()
-    w2t = F.pad(w2.to(torch.bfloat16), (0, cd - c_dst, 0, cs - c_src)).transpose(1, 2).contiguous()
-    nbr_t = nbr.t().contiguous()
-    f_t = F.pad(f.to(torch.bfloat16), (0, cf - c_f, 0, m_pad - m)).t().contiguous() if with_dw else None
-    slices = max(cd, cf if with_dw else 0) // _SLICE
-    chunks, rows = row_chunks(m, k, cf, cs, slices)
-    dx = torch.zeros((m, cd), dtype=torch.float32, device=dev)  # the kernel adds into it
+    # c_src contiguous
+    src_b = bf16_padded(src, cs)
+    if cd != c_dst or cs != c_src:
+        w2 = F.pad(w2, (0, cd - c_dst, 0, cs - c_src))
+    w2t = w2.transpose(1, 2).to(torch.bfloat16, memory_format=torch.contiguous_format)
+    chunks, per_chunk = dw_chunks(m, k, cf, cs)
+    dx = torch.empty((m, cd), dtype=torch.float32, device=dev)
     dw = torch.empty((k, cf, cs), dtype=torch.float32, device=dev) if mode != "dx" else None
-    ws = torch.empty((chunks, k, cf, cs), dtype=torch.float32, device=dev) if with_dw and chunks > 1 else dw
+    # mode "dx_dw" only: f in bf16, the partials, and one int32 buffer for the map
+    # transposed [k, m] (by the launch), the lists [k, m], counts [k] and seg_counts
+    f_b = ws = ints = None
+    nbr_t = rows = counts = seg_counts = None
+    if with_dw:
+        f_b = bf16_padded(f, cf)
+        ws = torch.empty((k, chunks, cf, cs), dtype=torch.float32, device=dev) if chunks > 1 else None
+        ints = torch.empty(2 * k * m + k + k * max(1, _cdiv(m, _SEG_ROWS)), dtype=torch.int32, device=dev)
+        nbr_t = ints.data_ptr()
+        rows, counts = nbr_t + 4 * k * m, nbr_t + 8 * k * m
+        seg_counts = counts + 4 * k
+    bn = column_tile(cd)
+    bm = tile_rows(bn, m, cd)
     fn = kernels_build.function(
-        "conv_dx_dw_fused", "lidal_conv_dx_dw_fused", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        "conv_dx_dw_fused", "lidal_conv_dx_dw_fused", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dev):
         err = fn(
-            src_b.data_ptr(), w2t.data_ptr(), nbr_t.data_ptr(), f_t.data_ptr() if with_dw else None,
+            src_b.data_ptr(), w2t.data_ptr(), nbr.data_ptr(), nbr_t, f_b.data_ptr() if with_dw else None,
             dx.data_ptr(), dw.data_ptr() if dw is not None else None, ws.data_ptr() if ws is not None else None,
-            m, n, k, cs, cd, cf, m_pad, chunks, rows, MODES.index(mode),
+            rows, counts, seg_counts,
+            m, n, k, cs, cd, cf, bn, bm, ring_stages(bn, bm, False), chunks, per_chunk, MODES.index(mode),
             torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES

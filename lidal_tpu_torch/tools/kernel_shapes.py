@@ -3,7 +3,7 @@ and the conv backward kernel at the shapes of one B = 5 train step.
 
     python3 lidal_tpu_torch/tools/kernel_shapes.py [ROOT] [--only SECTIONS]   # on an NVIDIA GPU
 
-SECTIONS is a comma-separated subset of ``lookup,conv,backward,nn_band,scatter8``
+SECTIONS is a comma-separated subset of ``lookup,conv,backward,nn_band,scatter8,probes``
 (default: all).
 
 ROOT (default: this checkout) goes first on ``sys.path`` before anything of the
@@ -38,7 +38,25 @@ seed 0).  It prints the card's name and power limit, then
   checked within ``SCATTER_TOL`` of the plain version's abs-sum, and the
   transposed map's ms (ROOT's ``transpose_map`` where it has one, else
   ``build_transpose``); where ROOT has ``transpose_map``, also its ms on maps
-  whose every pair names one target (segments of 2^16, 2^18 and 2^20 ids).
+  whose every pair names one target (segments of 2^16, 2^18 and 2^20 ids);
+* ``probes``, the three bf16 probe kernels: ``conv_gather_first`` (kernel
+  alone on packed operands, both ``pipelined`` values, and the wrapper) at the
+  six shapes of ``tools/probe_conv_v3`` and on the three real maps of
+  ``chip_smoke.py`` phase 19 (one B = 4 forward, seed 0) beside the f32
+  ``subm_conv`` on the same inputs; ``conv_byte_planes`` at the two shapes of
+  ``tools/probe_int8_gather``; ``conv_dx_dw_fused`` (modes ``dx`` and
+  ``dx_dw``) at the three shapes of ``tools/probe_dxdw_features`` and at every
+  ``conv_dx_dw`` shape of one B = 5 train step (seed 0) beside the f32
+  ``conv_dx_dw``.  Each checked within 1e-5 of the plain version's abs-sum;
+  per shape the ms, the real pairs' GFLOP and TFLOP/s on them and, where
+  ROOT's wrapper counts them (``cuda_conv_bf16.tile_products``), the products
+  the gather-first tile issues, their TFLOP/s and the issue/real ratio; on the
+  real maps also the issue/real ratio a tile would have that packed each
+  tap's real rows of a window of 128, 384 or 1024 rows into 64-row groups;
+  and the fused backward's device time by kernel over one step's calls.
+  Last, a sha256 of the f32 ``conv_dx_dw``'s dx and dwg on seeded inputs (the
+  probe's two step shapes, and a 4 %-dense K = 27 map), to hold two packages'
+  outputs bit-equal by their printed digests.
 """
 
 from __future__ import annotations
@@ -53,7 +71,7 @@ def _tile_rows(cout: int) -> int:
     return 64 if cout % 128 == 0 or cout % 96 == 0 else 128
 
 
-SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8")
+SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8", "probes")
 
 
 def main(root: str, only=SECTIONS) -> None:
@@ -78,6 +96,8 @@ def main(root: str, only=SECTIONS) -> None:
         nn_band_shape(cs, dev)
     if "scatter8" in only:
         scatter8_shapes(cs, dev)
+    if "probes" in only:
+        probe_shapes(cs, dev)
 
 
 def forward_shapes(cs, dev, only) -> None:
@@ -273,7 +293,7 @@ def nn_band_shape(cs, dev) -> None:
 
 
 def _device_split(fn, reps: int = 5) -> str:
-    """Device ms per call of each kernel that ``fn`` launches, from
+    """Device ms per call of each kernel that ``fn`` launches, and their sum, from
     ``torch.profiler`` (CUPTI); "not measured" where the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -289,7 +309,9 @@ def _device_split(fn, reps: int = 5) -> str:
         us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
         if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((us / reps / 1e3, e.key[:48]))
-    return ", ".join(f"{name} {ms:.4f}" for ms, name in sorted(rows, reverse=True)) or "not measured"
+    if not rows:
+        return "not measured"
+    return ", ".join(f"{name} {ms:.4f}" for ms, name in sorted(rows, reverse=True)) + f"; in all {sum(r[0] for r in rows):.4f}"
 
 
 def scatter8_shapes(cs, dev) -> None:
@@ -348,6 +370,206 @@ def scatter8_shapes(cs, dev) -> None:
             cs.require(torch.equal(order, torch.arange(pairs, dtype=torch.int32, device=dev)), f"one segment of {pairs}")
             print(f"transposed map with one segment of {pairs} ids: {cs.cuda_ms(lambda: transpose(nbr, 1), reps=3):.4f} ms, "
                   f"torch.sort + searchsorted {cs.cuda_ms(lambda: cuda_gather8.build_transpose(nbr, 1), reps=3):.4f} ms")
+
+
+def _rates(label, ms, real_flop, issued_flop) -> str:
+    """ms, GFLOP and TFLOP/s on the real pairs and, where counted, on the products issued."""
+    text = f"{label}: {ms:.4f} ms; real {real_flop / 1e9:.3f} GFLOP, {real_flop / ms / 1e9:.1f} TFLOP/s"
+    if issued_flop is not None:
+        text += (f"; issued {issued_flop / 1e9:.3f} GFLOP, {issued_flop / ms / 1e9:.1f} TFLOP/s, "
+                 f"issue/real {issued_flop / max(real_flop, 1.0):.2f}")
+    return text
+
+
+def _compacted_ratio(nbr, n: int, window: int) -> float:
+    """Products over real ones if the tile packed each tap's real rows of a
+    window into groups of 64 (the rows of a wgmma): ceil(count / 64) x 64 rows
+    per (window, tap), over the real (row, tap) pairs."""
+    import torch
+
+    m, k = nbr.shape
+    real = ((nbr >= 0) & (nbr < n)).to(torch.int32)
+    real = torch.cat([real, real.new_zeros(((-m) % window, k))]).reshape(-1, window, k)
+    per = real.sum(1)
+    return float(((per + 63) // 64 * 64).sum()) / max(float(per.sum()), 1.0)
+
+
+def probe_shapes(cs, dev) -> None:
+    """The three bf16 probe kernels at the probes' shapes, phase 19's real maps
+    and the shapes of one B = 5 train step; digests of the f32 backward."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lidal_tpu_torch.config import SK_CONFIG, RunConfig
+    from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
+    from lidal_tpu_torch.models.minkunet import MinkUNet
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16 as cb, cuda_conv_dxdw, cuda_conv_dxdw_fused as fz
+    from lidal_tpu_torch.runtime.train import train_step
+    from lidal_tpu_torch.runtime.train_loop import init_state
+    from lidal_tpu_torch.tools import probe_conv_v3, probe_dxdw_features, probe_int8_gather
+
+    counted = hasattr(cb, "tile_products")
+
+    def gather_first(label, feats, w, nbr, with_f32):
+        n, cin = feats.shape
+        cout = w.shape[2]
+        table, wt = cb.pack_table(feats), cb.pack_weights(w)
+        got = cb.gather_first_packed(table, wt, nbr)
+        abs_sum = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
+        cs.require(bool(((got - cb.conv_gather_first_plain(feats, w, nbr)).abs() <= 1e-5 * abs_sum).all()),
+                   f"conv_gather_first {label}")
+        cs.require(torch.equal(cb.gather_first_packed(table, wt, nbr, pipelined=True), got), f"pipelined {label}")
+        del abs_sum
+        real = 2.0 * int(((nbr >= 0) & (nbr < n)).sum()) * cin * cout
+        issued = 2.0 * cb.tile_products(nbr, n, table.shape[1], cout) if counted else None
+        ms = cs.cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr), reps=20)
+        piped = cs.cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr, pipelined=True), reps=20)
+        wrapper = cs.cuda_ms(lambda: cb.conv_gather_first(feats, w, nbr), reps=20)
+        line = _rates(f"conv_gather_first {label} K={nbr.shape[1]} cin={cin} cout={cout} m={nbr.shape[0]} n={n}",
+                      ms, real, issued) + f"; pipelined {piped:.4f} ms, wrapper {wrapper:.4f} ms"
+        f32 = cs.cuda_ms(lambda: cuda_conv.subm_conv(feats, w, nbr), reps=20) if with_f32 else None
+        print(line + (f"; f32 subm_conv {f32:.4f} ms" if f32 is not None else ""))
+        return ms, piped, f32
+
+    with torch.inference_mode():
+        rng = np.random.default_rng(0)  # the probe's generator and order of draws
+        total = [0.0, 0.0]
+        for n, cin, cout, label in probe_conv_v3.SHAPES:
+            nbr = torch.from_numpy(probe_conv_v3.make_nbr(rng, n, 27, max(300, n // 40))).to(dev)
+            feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(dev)
+            w = torch.from_numpy((rng.standard_normal((27, cin, cout)) * 0.05).astype(np.float32)).to(dev)
+            ms, piped, _ = gather_first(f"probe {label}", feats, w, nbr, False)
+            total = [total[0] + ms, total[1] + piped]
+        print(f"conv_gather_first, the probe's six shapes, kernel alone: {total[0]:.4f} ms, pipelined {total[1]:.4f} ms")
+
+        rng = np.random.default_rng(0)
+        n = probe_int8_gather.N
+        total = [0.0, 0.0]
+        for cin, cout in probe_int8_gather.SHAPES:
+            feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(dev)
+            w = torch.from_numpy((0.1 * rng.standard_normal((27, cin, cout))).astype(np.float32)).to(dev)
+            nbr = torch.from_numpy(probe_int8_gather.make_nbr(rng, n, 27, max(300, n // 40))).to(dev)
+            planes, table, wt = cb.to_byte_planes(feats), cb.pack_table(feats), cb.pack_weights(w)
+            cs.require(torch.equal(cb.byte_planes_packed(planes, wt, nbr), cb.gather_first_packed(table, wt, nbr)),
+                       f"byte planes c{cin}")
+            k_ms = cs.cuda_ms(lambda: cb.byte_planes_packed(planes, wt, nbr), reps=20)
+            t_ms = cs.cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr), reps=20)
+            total = [total[0] + k_ms, total[1] + t_ms]
+            print(f"conv_byte_planes c{cin}->{cout} n={n}: {k_ms:.4f} ms, bf16 table {t_ms:.4f} ms")
+        print(f"conv_byte_planes, the probe's two shapes: {total[0]:.4f} ms, bf16 table {total[1]:.4f} ms")
+
+        # phase 19's three real maps, from one B = 4 forward
+        batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap)
+        eb = prepare_eval_batch(torch.Generator().manual_seed(0),
+                                *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid")),
+                                level_caps=SK_CONFIG.level_caps)
+        torch.manual_seed(0)
+        model = MinkUNet(num_classes=SK_CONFIG.num_classes).eval().to(dev)
+        captured = {}
+        kernel = cuda_conv.subm_conv
+
+        def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
+            key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
+            captured.setdefault(key, (feats.clone(), w.clone(), nbr.clone()))
+            return kernel(feats, w, nbr, scale, shift, relu)
+
+        cuda_conv.subm_conv = recorder
+        try:
+            model(eb.feats, eb.plan)
+        finally:
+            cuda_conv.subm_conv = kernel
+        picks = {
+            "forward K=27": max((kk for kk in captured if kk[0] == 27), key=lambda kk: (kk[4], kk[1] * kk[2])),
+            "forward down": max((kk for kk in captured if kk[0] == 8 and kk[4] < kk[5]), key=lambda kk: (kk[5], kk[1] * kk[2])),
+            "forward up": max((kk for kk in captured if kk[0] == 8 and kk[4] > kk[5]), key=lambda kk: (kk[4], kk[1] * kk[2])),
+        }
+        for label, kk in picks.items():
+            gather_first(label, *captured[kk], True)
+            feats, w, nbr = captured[kk]
+            ratios = ", ".join(f"{rows} rows {_compacted_ratio(nbr, feats.shape[0], rows):.2f}" for rows in (128, 384, 1024))
+            print(f"  {label}: issue/real if each tap's real rows of a window were packed into 64-row wgmma groups: {ratios}")
+        del model, eb, captured
+
+    # the fused backward at the probe's shapes and at one train step's
+    rng = np.random.default_rng(0)
+    cases = [("probe", probe_dxdw_features.probe_inputs(rng), 1)]
+    cases += [(f"probe {label}", probe_dxdw_features.step_inputs(rng, *shape), 1)
+              for label, *shape in probe_dxdw_features.STEP_SHAPES]
+    cases = [(label, tuple(torch.from_numpy(a).to(dev) for a in arrays), c) for label, arrays, c in cases]
+    batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap, SK_CONFIG.batch_size)
+    tb = prepare_train_batch(torch.Generator().manual_seed(0),
+                             *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
+                             level_caps=SK_CONFIG.level_caps)
+    state = init_state(RunConfig(dataset_name="SK", model_name="Mink", seed=0), dev)
+    step, calls = {}, {}
+    f32 = cuda_conv_dxdw.conv_dx_dw
+
+    def recorder(src, w2, nbr, f, need_dx=True):
+        key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
+        calls[key] = calls.get(key, 0) + 1
+        step.setdefault(key, (src.clone(), w2.clone(), nbr.clone(), f.clone()))
+        return f32(src, w2, nbr, f, need_dx)
+
+    cuda_conv_dxdw.conv_dx_dw = recorder
+    try:
+        train_step(state, tb)
+    finally:
+        cuda_conv_dxdw.conv_dx_dw = f32
+    del state, tb
+    cases += [(f"step K={key[0]} dx={int(key[6])}", step[key], calls[key]) for key in sorted(step)]
+    totals = {"probe": [0.0, 0.0], "step": [0.0, 0.0, 0.0]}
+    for label, (src, w2, nbr, f), c in cases:
+        (n, c_src), (m, k), c_dst, c_f = src.shape, nbr.shape, w2.shape[2], f.shape[1]
+        dx, dw = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+        want = fz.conv_dx_dw_fused_plain(src, w2, nbr, f)
+        bound = fz.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs())
+        for name, g, p, b in zip(("dx", "dw"), (dx, dw), want, bound):
+            cs.require(bool(((g - p).abs() <= 1e-5 * b).all()), f"conv_dx_dw_fused {label} {name}")
+        del dx, dw, want, bound
+        ms = cs.cuda_ms(lambda: fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw"), reps=5)
+        dx_ms = cs.cuda_ms(lambda: fz.conv_dx_dw_fused(src, w2, nbr, f, "dx"), reps=5)
+        pairs = int(((nbr >= 0) & (nbr < n)).sum())
+        real = 2.0 * pairs * c_src * (c_dst + c_f)
+        issued = None
+        if counted:
+            cs_, cd_, cf_ = fz.padded_channels(c_src, c_dst, c_f)
+            issued = 2.0 * (cb.tile_products(nbr, n, cs_, cd_) + pairs * cs_ * cf_)
+        line = _rates(f"conv_dx_dw_fused {label} K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} x{c}",
+                      ms, real, issued) + f"; dx {dx_ms:.4f} ms, dW {ms - dx_ms:.4f} ms"
+        if m * c_src >= 655360 * 96:  # the level-0 shapes: where the time goes, kernel by kernel
+            line += f"; device time by kernel (profiler): {_device_split(lambda: fz.conv_dx_dw_fused(src, w2, nbr, f, 'dx_dw'))}"
+        if label.startswith("probe"):
+            totals["probe"] = [totals["probe"][0] + ms, totals["probe"][1] + dx_ms]
+        else:
+            f_ms = cs.cuda_ms(lambda: f32(src, w2, nbr, f, label.endswith("dx=1")), reps=5)  # as the step calls it
+            totals["step"] = [totals["step"][0] + c * ms, totals["step"][1] + c * dx_ms, totals["step"][2] + c * f_ms]
+            line += f"; f32 conv_dx_dw {f_ms:.4f} ms"
+        print(line)
+    steps = [(args, c) for label, args, c in cases if not label.startswith("probe")]
+    print(f"conv_dx_dw_fused, the probe's three shapes: dx_dw {totals['probe'][0]:.3f} ms, dx {totals['probe'][1]:.3f} ms")
+    print(f"conv_dx_dw_fused over one step's calls, device time by kernel (profiler): "
+          f"{_device_split(lambda: [fz.conv_dx_dw_fused(*a, 'dx_dw') for a, c in steps for _ in range(c)], reps=2)}")
+    print(f"conv_dx_dw_fused per B = 5 step ({len(step)} shapes, {sum(calls.values())} calls): dx_dw "
+          f"{totals['step'][0]:.3f} ms, dx {totals['step'][1]:.3f} ms; f32 conv_dx_dw {totals['step'][2]:.3f} ms")
+    del cases, step
+
+    # digests of the f32 backward on seeded inputs
+    rng = np.random.default_rng(1)
+    inputs = [probe_dxdw_features.step_inputs(rng, *shape) for _, *shape in probe_dxdw_features.STEP_SHAPES]
+    m, n = 200000, 150000
+    nbr = rng.integers(0, n, (m, 27)).astype(np.int32)
+    nbr[rng.random((m, 27)) >= 0.04] = n
+    inputs.append((rng.standard_normal((n, 96), dtype=np.float32),
+                   (rng.standard_normal((27, 96, 64), dtype=np.float32) / 50).astype(np.float32), nbr,
+                   rng.standard_normal((m, 32), dtype=np.float32)))
+    for arrays in inputs:
+        src, w2, nbr, f = (torch.from_numpy(a).to(dev) for a in arrays)
+        dx, dwg = f32(src, w2, nbr, f)
+        print(f"f32 conv_dx_dw digest c_src={src.shape[1]} c_dst={w2.shape[2]} c_f={f.shape[1]} m={nbr.shape[0]}: dx "
+              f"{hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()[:16]}, dwg "
+              f"{hashlib.sha256(dwg.cpu().numpy().tobytes()).hexdigest()[:16]}")
 
 
 if __name__ == "__main__":

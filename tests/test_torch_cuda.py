@@ -776,6 +776,7 @@ def test_fused_backward_kernel_matches_plain_in_its_three_modes(card, m, n, k, c
     assert dx.shape == (m, c_dst) and dw.shape == (k, c_f, c_src) and dx.is_contiguous() and dw.is_contiguous()
     assert bool(dx.isfinite().all()) and bool(dw.isfinite().all())
     assert bool(((dx - want_dx).abs() <= 1e-5 * abs_dx).all()), float((dx - want_dx).abs().max())
+    assert bool(((dx - want_dx).abs() <= 1e-5 * abs_dx).all()), float((dx - want_dx).abs().max())
     assert bool(((dw - want_dw).abs() <= 1e-5 * abs_dw).all()), float((dw - want_dw).abs().max())
     assert torch.equal(dw, dw2) and torch.equal(dx, dx2), "two runs differ"
     assert none is None and torch.equal(dx_a, dx) and torch.equal(dx_b, dx)
@@ -786,3 +787,88 @@ def test_fused_backward_kernel_matches_plain_in_its_three_modes(card, m, n, k, c
         assert e_k <= 4.0 * e_p + 1e-6 * float(b.max()), (e_k, e_p)
     with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
         cuda_conv_dxdw_fused.conv_dx_dw_fused(src.double(), w2, nbr, f)
+
+
+def _edge_map(rng, case, m, n, k):
+    """[m, k] int32 maps where the bf16 tiles are at risk: a tap with no real
+    row, all sentinel, a down map (up to 8 real children a row), an up map
+    (one real parent a row), an unsorted map with indices below 0 and past n."""
+    nbr = rng.integers(0, n, (m, k)).astype(np.int32)
+    if case == "up":
+        nbr[:] = n
+        nbr[np.arange(m), rng.integers(0, k, m)] = rng.integers(0, n, m)
+        return torch.from_numpy(nbr)
+    nbr[rng.random((m, k)) < {"down": 0.6, "sparse K=27": 0.96, "sparse down": 0.88}.get(case, 0.3)] = n
+    if case == "empty tap":
+        nbr[:, 5] = n
+    elif case == "all sentinel":
+        nbr[:] = n
+    elif case == "unsorted":
+        neg, big = rng.random((2, m, k)) < 0.05
+        nbr[neg] = -rng.integers(1, 1 << 30, int(neg.sum()))
+        nbr[big] = n + rng.integers(0, 1 << 30, int(big.sum()))
+    return torch.from_numpy(nbr)
+
+
+BF16_EDGE_CASES = {  # case: (m, n, k, cin = c_src, cout = c_dst, c_f)
+    "stem": (4000, 3000, 27, 4, 32, 4),
+    "cout 32": (2000, 2500, 27, 32, 32, 32),
+    "wide": (700, 900, 27, 256, 384, 384),
+    "ragged m": (128 * 7 + 77, 1000, 27, 96, 96, 96),
+    "192-row tiles": (192 * 210 + 77, 30000, 27, 64, 128, 64),  # three warpgroups a tile, the last one ragged
+    "sparse K=27": (20000 + 77, 30000, 27, 96, 96, 96),  # 4 % real, as at level 0 of a train step
+    "sparse down": (6000, 20000, 8, 128, 128, 32),  # 12 % real
+    "empty tap": (1500, 1500, 27, 64, 64, 64),
+    "all sentinel": (1000, 800, 27, 96, 128, 96),
+    "down": (3000, 20000, 8, 64, 128, 32),
+    "up": (20000, 3000, 8, 128, 64, 128),
+    "unsorted": (5000, 4000, 27, 32, 96, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BF16_EDGE_CASES))
+def test_bf16_tiles_on_edge_maps(card, case):
+    """The wgmma gather-first tile (``conv_gather_first``, its byte planes, and
+    dx of ``conv_dx_dw_fused``) and the fused backward's per-tap pair-list dw
+    at the widths and maps the tiling makes risky: within 1e-5 of the abs-sum
+    of the plain versions, no further from f64 than 4 x the f32 plain version
+    (+ 1e-6 of the abs-sum), ``pipelined`` and the planes bit-equal to the bf16
+    table, every output bit-equal on a rerun, zeros where no pair is real."""
+    m, n, k, cin, cout, c_f = BF16_EDGE_CASES[case]
+    rng = np.random.default_rng(len(case) + m)
+    nbr = _edge_map(rng, case, m, n, k).to(card)
+    feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)).to(card)
+    f = torch.from_numpy(rng.standard_normal((m, c_f)).astype(np.float32)).to(card)
+    cb, fz = cuda_conv_bf16, cuda_conv_dxdw_fused
+    assert (cb.tile_rows(cb.column_tile(cout), m, cout) == 192) == (case == "192-row tiles")
+    got = cb.conv_gather_first(feats, w, nbr)
+    torch.cuda.synchronize()
+    want = cb.conv_gather_first_plain(feats, w, nbr)
+    abs_sum = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
+    assert got.shape == (m, cout) and bool(got.isfinite().all())
+    assert bool(((got - want).abs() <= 1e-5 * abs_sum).all()), float((got - want).abs().max())
+    assert torch.equal(cb.conv_gather_first(feats, w, nbr, pipelined=True), got)
+    assert torch.equal(cb.conv_byte_planes(cb.to_byte_planes(feats), w, nbr), got)
+    assert torch.equal(cb.conv_gather_first(feats, w, nbr), got)
+    dx, dw = fz.conv_dx_dw_fused(feats, w, nbr, f, "dx_dw")
+    torch.cuda.synchronize()
+    if fz.padded_channels(cin, cout, c_f)[0] == cb.pack_table(feats).shape[1]:  # the same (tap, channel) stages
+        assert torch.equal(dx, got), "dx is the gather-first tile's output"
+    dx2, dw2 = fz.conv_dx_dw_fused(feats, w, nbr, f, "dx_dw")
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw), "two runs differ"
+    want_dx, want_dw = fz.conv_dx_dw_fused_plain(feats, w, nbr, f)
+    abs_dx, abs_dw = fz.conv_dx_dw_fused_plain(feats.abs(), w.abs(), nbr, f.abs())
+    assert dw.shape == (k, c_f, cin) and bool(dw.isfinite().all())
+    assert bool(((dx - want_dx).abs() <= 1e-5 * abs_dx).all()), float((dx - want_dx).abs().max())
+    assert bool(((dw - want_dw).abs() <= 1e-5 * abs_dw).all()), float((dw - want_dw).abs().max())
+    ref_dx, ref_dw = cuda_conv_dxdw.conv_dx_dw_plain(feats.bfloat16().double(), w.bfloat16().double(), nbr,
+                                                     f.bfloat16().double())
+    for g, p, r, b in ((dx, want_dx, ref_dx, abs_dx), (dw, want_dw, ref_dw, abs_dw)):
+        e_k, e_p = float((g.double() - r).abs().max()), float((p.double() - r).abs().max())
+        assert e_k <= 4.0 * e_p + 1e-6 * float(b.max()), (e_k, e_p)
+    if case == "all sentinel":
+        assert not got.any() and not dw.any()
+    if case == "empty tap":
+        assert not dw[5].any() and dw.abs().sum() > 0

@@ -175,13 +175,74 @@ def test_fused_backward_on_normal_data_and_its_three_modes(seed, n, m, c_src, c_
     assert zeros.shape == dw.shape and zeros.dtype == torch.float32 and not zeros.any()
 
 
-@pytest.mark.parametrize("m,k,c_f,c_src,slices", [(655360, 27, 32, 32, 1), (655360, 27, 96, 96, 3), (30720, 27, 384, 256, 12), (512, 8, 32, 16, 1), (0, 27, 32, 32, 1)])
-def test_fused_row_chunks_cover_rows_and_bound_the_workspace(m, k, c_f, c_src, slices):
-    chunks, rows = cuda_conv_dxdw_fused.row_chunks(m, k, c_f, c_src, slices)
-    assert chunks >= 1 and rows % 64 == 0 and rows >= 64
-    assert chunks * rows >= m and (chunks - 1) * rows < max(m, 1)
+@pytest.mark.parametrize("cout,bn", [(32, 32), (64, 64), (96, 96), (128, 128), (192, 96), (256, 128), (384, 128)])
+def test_column_tile_is_the_widest_that_divides_cout(cout, bn):
+    assert cuda_conv_bf16.column_tile(cout) == bn
+    assert all(cout % t for t in cuda_conv_bf16.COLUMN_TILES if t > bn)
+
+
+def test_column_tile_refuses_what_the_kernel_cannot_tile():
+    with pytest.raises(ValueError):
+        cuda_conv_bf16.column_tile(48)
+
+
+@pytest.mark.parametrize("bn,m,cout,rows", [(32, 131072, 32, 128), (64, 81920, 64, 128), (96, 49152, 96, 192),
+                                           (96, 16384, 96, 128), (128, 16384, 128, 128), (128, 6144, 384, 128),
+                                           (128, 655360, 128, 192)])
+def test_tile_rows_take_a_third_warpgroup_where_the_grid_stays_full(bn, m, cout, rows):
+    """192-row tiles (three warpgroups) only at column tiles of 96 or 128 and
+    where they still make 200 blocks; else 128 rows."""
+    assert cuda_conv_bf16.tile_rows(bn, m, cout) == rows
+
+
+@pytest.mark.parametrize("bn,rows,header", [(32, 128, 14336), (64, 128, 14336), (96, 128, 14336), (128, 128, 14336),
+                                            (96, 192, 21504), (128, 192, 21504)])
+def test_ring_stages_fit_an_sm_and_pipelined_is_the_deeper_ring(bn, rows, header):
+    """The deep ring fills an SM's 232448 bytes of dynamic shared memory with
+    stages of (rows + bn) x 64 bf16 beside the tile's header (its map of 27
+    taps and 65 more ints, in 1024-byte units) and 1024 bytes of alignment,
+    at most 8 stages; the shallow one is 4 stages."""
+    shallow, deep = cuda_conv_bf16.ring_stages(bn, rows, False), cuda_conv_bf16.ring_stages(bn, rows, True)
+    stage = (rows + bn) * 64 * 2
+    assert cuda_conv_bf16.smem_bytes(bn, rows, deep) == header + deep * stage + 1024
+    assert shallow == 4 and 4 <= deep <= 8
+    assert header + deep * stage + 1024 <= 232448
+    assert deep == 8 or header + (deep + 1) * stage + 1024 > 232448
+
+
+@pytest.mark.parametrize("m,k,cin,density", [(300, 27, 16, 0.05), (256, 8, 96, 0.3), (1000, 27, 32, 0.0), (129, 27, 256, 1.0)])
+def test_tile_products_count_the_active_taps_of_each_tile(m, k, cin, density):
+    """Per row tile (128 rows at cout = 64): ceil(active taps x cin / 64)
+    stages of 64 columns x the tile's rows x cout, the tile padded with
+    sentinel rows past m."""
+    rng = np.random.default_rng(m + k)
+    n = 500
+    nbr = rng.integers(0, n, (m, k)).astype(np.int32)
+    nbr[rng.random((m, k)) >= density] = n
+    nbr[0, 0] = -3  # below 0 is a sentinel too
+    want = 0
+    for r0 in range(0, m, 128):
+        tile = nbr[r0 : r0 + 128]
+        active = int(((tile >= 0) & (tile < n)).any(0).sum())
+        want += -(-active * cin // 64) * 64 * 128 * 64
+    assert cuda_conv_bf16.tile_products(torch.from_numpy(nbr), n, cin, 64) == want
+    assert (want == 0) == (density == 0.0)
+
+
+@pytest.mark.parametrize("c,padded", [(4, 32), (8, 32), (32, 32), (96, 96), (100, 128), (384, 384)])
+def test_fused_backward_pads_channels_to_thirty_two(c, padded):
+    assert cuda_conv_dxdw_fused.padded_channels(c, c, c) == (padded, padded, padded)
+
+
+@pytest.mark.parametrize("m,k,c_f,c_src", [(655360, 27, 96, 96), (30720, 27, 384, 256), (512, 8, 32, 32), (0, 27, 32, 32), (5000, 8, 32, 64)])
+def test_fused_dw_chunks_are_whole_stages_and_bound_the_workspace(m, k, c_f, c_src):
+    """The bf16 dW kernel's chunks: whole 128-pair stages, enough to cover
+    every row of a tap, and a workspace [K, S, c_f, c_src] within 256 MB
+    unless one chunk a tap already exceeds it."""
+    chunks, p = cuda_conv_dxdw_fused.dw_chunks(m, k, c_f, c_src)
+    assert chunks >= 1 and p % cuda_conv_dxdw_fused.PAIRS_PER_STAGE == 0 and p >= 1024 or m == 0
+    assert chunks * p >= m and (chunks - 1) * p < max(m, 1)
     assert chunks * k * c_f * c_src * 4 <= max(256 << 20, k * c_f * c_src * 4)
-    assert rows <= 4096 or chunks * k * c_f * c_src * 4 > (256 << 20) - k * c_f * c_src * 4  # only the workspace bound lengthens a chunk
 
 
 def test_device_time_on_cpu_tensors():
