@@ -211,6 +211,38 @@ ranks on one GPU.  Any failed group or rank fails the run.
     then ``run_fused_lidal_round`` over the group with flags, saved maps and
     selections identical to phase 12's, ``nn_band`` launched once a frame.
 
+Phase 30 drives the bf16 route (``ops/conv.BF16_OPERANDS`` and
+``ops/cuda_gather8.SCATTER8_BF16``, the counterparts of the JAX package's
+``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``: operands staged in
+bf16, sums in f32) at full width with the seeded weights, batches and caps of
+phases 5, 8, 12, 16 and 17; every earlier phase runs on the f32 route, the
+default, as before.  Its parts run beside the phase whose model or tree they
+share (a and b after 6 and 16, a and c after 9 and 17, d after 29 (iii)); on
+the route no f32 conv, backward, gather8 or scatter8 may launch.
+
+30. (a) every routed call at the shapes of one B = 4 forward and one B = 5
+    step against its plain bf16 version, with the gates of phases 19-21
+    (PROBE_TOL of the abs-sum, F64_FACTOR times the plain version's distance
+    from f64, bit-equal reruns): ``conv_gather_first`` with the eval-BN
+    epilogue (rows with no real tap exactly 0; the wrapper's casts timed
+    apart, the f32 ``subm_conv`` beside it), ``conv_dx_dw_fused`` (the stem's
+    dW alone, beside its dx + dW call; the f32 ``conv_dx_dw`` beside it),
+    ``gather8`` on a bf16 table (bit-equal) and ``scatter8`` on bf16 rows.
+    (b) ``run_eval`` with MinkUNet and SPVCNN at B = 4 on both routes in
+    turns (f32, bf16, bf16, f32): points/s; one batch's logits on the route
+    against the f32 route's (max difference over the largest logit, rms,
+    argmax agreement at least ROUTE_ARGMAX_AGREE, bit-equal on a rerun).
+    (c) ``run_train`` at B = 5 from the seeded state on both routes in turns
+    (MinkUNet: f32, bf16, bf16, f32; SPVCNN: bf16, f32): steps/s, each step's
+    loss on both (the first step, from one state, within ROUTE_LOSS_TOL),
+    the bf16 runs bit-equal.  (d) phase 12's fused MinkUNet round on the
+    route, twice: frames/s, the runs' maps, flags and selection bit-equal,
+    both rounds' selections within the budget, and the selected supervoxels
+    against phase 12's f32 round (counts and |A n B| / |A u B|, printed, not
+    gated).  The record's ``subm_conv_bf16``, ``conv_dx_dw_bf16``,
+    ``gather8_bf16`` and ``scatter8_bf16`` entries are (a)'s numbers, with
+    the launches of (b)-(d)'s bf16 runs.
+
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
 rounds of phases 12, 18 and 27, the probes' run of phase 22), each counted
@@ -228,13 +260,14 @@ bounds beside it); the bf16
 probe kernels are held to the bf16 tensor-core rate of 989 TFLOP/s and to the
 bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
-lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8``), used
-nowhere in the port.  The last two lines of standard output are
+lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8`` and
+their bf16 instances, on the same rounded operands), used nowhere in the port.  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -267,7 +300,9 @@ ROUND_STEPS = 3  # train steps of phase 13's round
 WORLD_POINTS = 200_000  # points of the static world; each frame sees N_PTS of them
 SV_CELL = 10.0  # metres: side of the coarse grid cells that stand in for supervoxels
 PROB_SUM_TOL = 1e-4
-PROBE_TOL = 1e-5  # bf16 probe kernels vs their plain versions, share of the abs-sum (phases 19-21)
+PROBE_TOL = 1e-5  # bf16 probe kernels vs their plain versions, share of the abs-sum (phases 19-21, 30)
+ROUTE_ARGMAX_AGREE = 0.99  # logits of the bf16 route against the f32 route's on one batch (phase 30)
+ROUTE_LOSS_TOL = 1e-2  # the first train step's loss on the bf16 route against the f32 route's, relative (phase 30)
 SCORE_VIEWS = 2  # views of phase 23's inference (the scorers read maps; their depth is no concern of theirs)
 SCORE_SEQS = 4  # sequences of phase 23's frame-level tree, all pointing at the ROUND_FRAMES frames' maps
 SCORE_TOL = 1e-6  # a frame's device score on the card vs on the CPU (phase 23)
@@ -360,7 +395,7 @@ def require(ok: bool, what: str) -> None:
 
 
 KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8",
-           "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused")
+           "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused", "gather8_bf16", "scatter8_bf16")
 
 
 def reset_launches() -> None:
@@ -371,6 +406,7 @@ def reset_launches() -> None:
     for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband, cuda_conv_dxdw_fused):
         mod.LAUNCHES = 0
     cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = 0
+    cuda_gather8.GATHER8_BF16_LAUNCHES = cuda_gather8.SCATTER8_BF16_LAUNCHES = 0
     cuda_conv_bf16.GATHER_FIRST_LAUNCHES = cuda_conv_bf16.BYTE_PLANES_LAUNCHES = 0
 
 
@@ -383,7 +419,8 @@ def read_launches(expected) -> dict:
     counts = dict(zip(KERNELS, (cuda_merge.LAUNCHES, cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES,
                                 cuda_nnband.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES,
                                 cuda_gather8.SCATTER8_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES,
-                                cuda_conv_bf16.BYTE_PLANES_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES)))
+                                cuda_conv_bf16.BYTE_PLANES_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES,
+                                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES)))
     never = [k for k in expected if counts[k] == 0]
     require(not never, f"kernels of the path that never launched: {never} ({counts})")
     return counts
@@ -1147,7 +1184,8 @@ def gather8_phase(model, eb):
     captured, calls = {}, {}
     kernel, plain = cuda_gather8.gather8_forward, cuda_gather8.gather8_plain
 
-    def recorder(feats, nbr, w8):
+    def recorder(feats, nbr, w8, bf16_table=False):
+        require(not bf16_table, "gather8 on the f32 route asked for a bf16 table")
         key = (nbr.shape[0], feats.shape[0], feats.shape[1])
         calls[key] = calls.get(key, 0) + 1
         if key not in captured:
@@ -1238,7 +1276,8 @@ def scatter8_phase(state, tb):
     captured = {}
     kernel, plain = cuda_gather8.scatter8, cuda_gather8.scatter8_plain
 
-    def recorder(dy, nbr, w8, n):
+    def recorder(dy, nbr, w8, n, bf16=False):
+        require(not bf16, "scatter8 on the f32 route asked for bf16 rows")
         captured[(dy.shape[0], n, dy.shape[1])] = (dy.clone(), nbr.clone(), w8.clone(), n)
         return kernel(dy, nbr, w8, n)
 
@@ -1666,7 +1705,7 @@ def probes_phase(dev):
             and len(rows_dx) == 1 + len(probe_dxdw_features.STEP_SHAPES), "a probe skipped a shape")
     require(all(r["max_abs_diff"] == 0.0 for r in rows_i8), "the int8 probe's outputs differ")
     print(f"[22 probes] probe_conv_v3, probe_int8_gather and probe_dxdw_features ran through main() in {seconds:.1f} s, their "
-          f"own checks passed; launches {({k: launches[k] for k in KERNELS[6:]})}")
+          f"own checks passed; launches {({k: launches[k] for k in KERNELS[6:9]})}")
     return launches
 
 
@@ -2534,6 +2573,538 @@ def rank_round_phase(cfg, root, dev, selection12):
           f"{got[0]['launches']}, rank 1 {got[1]['launches']}")
 
 
+# ---- 30. the bf16 route (the JAX package's Pallas route on its TPU) ---------------------------------------------
+
+F32_KERNELS = ("subm_conv", "conv_dx_dw", "gather8", "scatter8")  # none may launch on the bf16 route
+
+
+@contextlib.contextmanager
+def bf16_route():
+    """Within: ``ops/conv.BF16_OPERANDS`` and ``ops/cuda_gather8.SCATTER8_BF16``
+    on (the counterparts of the JAX package's ``conv.USE_PALLAS`` and
+    ``pallas_gather8.USE_PALLAS_BWD``); both off again after."""
+    from lidal_tpu_torch.ops import conv, cuda_gather8
+
+    conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = True
+    try:
+        yield
+    finally:
+        conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = False
+
+
+def read_route_launches(expected) -> dict:
+    """read_launches after a main path on the bf16 route: the kernels named in
+    ``expected`` launched, and no f32 conv, backward, gather8 or scatter8."""
+    counts = read_launches(expected)
+    leaked = {k: counts[k] for k in F32_KERNELS if counts[k]}
+    require(not leaked, f"f32 kernels launched on the bf16 route: {leaked}")
+    return counts
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def route_forward_phase(model, eb):
+    """30 (a): every ``conv_gather_first`` call of one B = 4 eval forward on the
+    route (its eval-BN epilogue, K = 27, down and up maps) against its plain
+    version: within PROBE_TOL of ``abs-sum * |scale| + |shift|``, no further
+    from f64 than F64_FACTOR times the plain version, rows with no real tap
+    exactly 0, bit-equal on a rerun.  Per shape and per forward: the wrapper
+    (casts to the bf16 table and packed weights included), the kernel alone
+    on packed operands, the casts, the plain version, the f32 ``subm_conv``
+    kernel on the same arguments, the bound at the bf16 tensor-core rate.
+    Returns the record fields of ``subm_conv_bf16``."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16 as cb
+
+    captured, calls = {}, {}
+    kernel = cb.conv_gather_first
+
+    def recorder(feats, w, nbr, pipelined=False, scale=None, shift=None, relu=False):
+        key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
+        calls[key] = calls.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu)
+        return kernel(feats, w, nbr, pipelined, scale, shift, relu)
+
+    cb.conv_gather_first = recorder
+    try:
+        with torch.inference_mode(), bf16_route():
+            model(eb.feats, eb.plan)
+    finally:
+        cb.conv_gather_first = kernel
+    require(sum(calls.values()) == 42, f"{sum(calls.values())} conv_gather_first calls in one forward, not 42")
+    err = 0.0
+    total = {"ms": 0.0, "packed": 0.0, "casts": 0.0, "plain": 0.0, "f32": 0.0}
+    least = Bound()
+    with torch.inference_mode():
+        for key in sorted(captured):
+            feats, w, nbr, scale, shift, relu = args = captured[key]
+            k, cin, cout, _, m, n = key
+            c = calls[key]
+            got = kernel(feats, w, nbr, scale=scale, shift=shift, relu=relu)
+            require(torch.equal(kernel(feats, w, nbr, scale=scale, shift=shift, relu=relu), got),
+                    f"conv_gather_first {key}: two runs differ")
+            want = cb.conv_gather_first_plain(feats, w, nbr, scale=scale, shift=shift, relu=relu)
+            bound = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr) * scale.abs() + shift.abs()
+            ref = cuda_conv.subm_conv_plain(_bf16(feats).double(), _bf16(w).double(), nbr, scale.double(),
+                                            shift.double(), relu)
+            d = (got - want).abs()
+            require(bool(got.isfinite().all()) and bool((d <= PROBE_TOL * bound).all()),
+                    f"conv_gather_first {key}: max |kernel - plain| {float(d.max())}")
+            e_k, e_p = float((got.double() - ref).abs().max()), float((want.double() - ref).abs().max())
+            require(e_k <= F64_FACTOR * e_p + 1e-6 * float(bound.max()),
+                    f"conv_gather_first {key}: {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+            empty = ~((nbr >= 0) & (nbr < n)).any(1)
+            require(not bool(got[empty].any()), f"conv_gather_first {key}: a row with no real tap is not 0")
+            e = float(d.max())
+            err = max(err, e)
+            del want, bound, ref, d
+            table, wt = cb.pack_table(feats), cb.pack_weights(w)
+            pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * table.shape[1])
+            b_ms = least.add(row_bytes + nbytes(wt, nbr, scale, shift, got), 2.0 * pairs * cin * cout, PEAK_BF16, calls=c)
+            ms = {
+                "ms": cuda_ms(lambda: kernel(feats, w, nbr, scale=scale, shift=shift, relu=relu)),
+                "packed": cuda_ms(lambda: cb.gather_first_packed(table, wt, nbr, scale=scale, shift=shift, relu=relu)),
+                "casts": cuda_ms(lambda: (cb.pack_table(feats), cb.pack_weights(w))),
+                "plain": cuda_ms(lambda: cb.conv_gather_first_plain(feats, w, nbr, scale=scale, shift=shift, relu=relu),
+                                 reps=3),
+                "f32": cuda_ms(lambda: cuda_conv.subm_conv(feats, w, nbr, scale, shift, relu)),
+            }
+            for name in total:
+                total[name] += c * ms[name]
+            print(f"[30a forward] K={k} cin={cin} cout={cout} relu={int(relu)} m={m} n={n} x{c}: max|d|={e:.2e}, from f64 "
+                  f"{e_k:.1e} (plain {e_p:.1e}), empty rows 0, bit-equal on a rerun; wrapper {ms['ms']:.3f} ms (kernel alone "
+                  f"{ms['packed']:.3f}, casts {ms['casts']:.3f}), plain {ms['plain']:.3f} ms, f32 subm_conv {ms['f32']:.3f} "
+                  f"ms, bound {b_ms:.3f} ms ({pairs} real pairs)")
+            del got, table, wt
+    print(f"[30a forward] {len(captured)} shapes, {sum(calls.values())} calls per B = {B} forward, every one within "
+          f"{PROBE_TOL} of the abs-sum and {F64_FACTOR}x the plain version's distance from f64; per forward: wrapper "
+          f"{total['ms']:.2f} ms (kernel alone {total['packed']:.2f}, casts {total['casts']:.2f}), plain "
+          f"{total['plain']:.1f} ms, f32 subm_conv kernel {total['f32']:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": None}
+
+
+def route_backward_phase(state, tb):
+    """30 (a): every ``conv_dx_dw_fused`` call of one B = 5 MinkUNet train step on
+    the route (the stem's dW alone) against its plain version: dx and dw
+    within PROBE_TOL of the abs-sum, no further from f64 than F64_FACTOR times
+    the plain version, bit-equal on a rerun; ms per shape beside the f32
+    ``conv_dx_dw`` kernel on the same arguments, and on the stem the dW-only
+    call beside the dx + dW call.  Returns the record fields of ``conv_dx_dw_bf16``."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv_bf16 as cb, cuda_conv_dxdw, cuda_conv_dxdw_fused as fz
+    from lidal_tpu_torch.runtime.train import train_step
+
+    captured, calls = {}, {}
+    kernel = fz.conv_dx_dw_fused
+
+    def recorder(src, w2, nbr, f, mode="dx_dw", need_dx=True):
+        require(mode == "dx_dw", f"the route's backward asked for mode {mode}")
+        key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
+        calls[key] = calls.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx))
+        return kernel(src, w2, nbr, f, mode, need_dx)
+
+    fz.conv_dx_dw_fused = recorder
+    try:
+        with bf16_route():
+            train_step(state, tb)
+    finally:
+        fz.conv_dx_dw_fused = kernel
+    require(sum(calls.values()) == 42, f"{sum(calls.values())} conv_dx_dw_fused calls in one step, not 42")
+    require(sum(c for key, c in calls.items() if not key[6]) == 1, "one call a step, the stem's, takes dW alone")
+    err = 0.0
+    total = {"ms": 0.0, "plain": 0.0, "f32": 0.0}
+    least = Bound()
+    for key in sorted(captured):
+        src, w2, nbr, f, need_dx = captured[key]
+        k, c_src, c_dst, c_f, m, n, _ = key
+        c = calls[key]
+        dx, dw = kernel(src, w2, nbr, f, "dx_dw", need_dx)
+        dx2, dw2 = kernel(src, w2, nbr, f, "dx_dw", need_dx)
+        require(torch.equal(dw, dw2) and (dx is None if not need_dx else torch.equal(dx, dx2)),
+                f"conv_dx_dw_fused {key}: two runs differ")
+        want = fz.conv_dx_dw_fused_plain(src, w2, nbr, f, "dx_dw", need_dx)
+        bound = fz.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs(), "dx_dw", need_dx)
+        ref = cuda_conv_dxdw.conv_dx_dw_plain(_bf16(src).double(), _bf16(w2).double(), nbr, _bf16(f).double(), need_dx)
+        notes = []
+        for name, got, p, r, b in zip(("dx", "dw"), (dx, dw), want, ref, bound):
+            if got is None:
+                continue
+            d = (got - p).abs()
+            require(bool(got.isfinite().all()) and bool((d <= PROBE_TOL * b).all()),
+                    f"conv_dx_dw_fused {key}: {name} max |kernel - plain| {float(d.max())}")
+            e_k, e_p = float((got.double() - r).abs().max()), float((p.double() - r).abs().max())
+            require(e_k <= F64_FACTOR * e_p + 1e-6 * float(b.max()),
+                    f"conv_dx_dw_fused {key}: {name} {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+            err = max(err, float(d.max()))
+            notes.append(f"{name} from f64 {e_k:.1e} (plain {e_p:.1e})")
+        del want, bound, ref, dx2, dw2
+        pairs, row_bytes = bf16_rows_bytes(nbr, n, 2 * c_src)
+        b_ms = least.add(row_bytes + nbytes(nbr, dx, dw) + 2 * ((w2.numel() if need_dx else 0) + f.numel()),
+                         2.0 * pairs * c_src * ((c_dst if need_dx else 0) + c_f), PEAK_BF16, calls=c)
+        del dx, dw
+        k_ms = cuda_ms(lambda: kernel(src, w2, nbr, f, "dx_dw", need_dx), reps=3)
+        p_ms = cuda_ms(lambda: fz.conv_dx_dw_fused_plain(src, w2, nbr, f, "dx_dw", need_dx), reps=2)
+        f_ms = cuda_ms(lambda: cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f, need_dx), reps=3)
+        total["ms"] += c * k_ms
+        total["plain"] += c * p_ms
+        total["f32"] += c * f_ms
+        stem = ""
+        if not need_dx:  # what taking dW alone saves on the stem
+            both = cuda_ms(lambda: kernel(src, w2, nbr, f, "dx_dw"), reps=3)
+            stem = f"; the same call with dx (padded to {fz.padded_channels(c_src, c_dst, c_f)[1]} columns) {both:.3f} ms"
+        print(f"[30a backward] K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} x{c}: "
+              f"{', '.join(notes)}, bit-equal across runs; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, f32 conv_dx_dw "
+              f"{f_ms:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs){stem}")
+    print(f"[30a backward] {len(captured)} shapes, {sum(calls.values())} calls per B = {tb.feats.shape[0]} train step, "
+          f"within {PROBE_TOL} of the abs-sum and {F64_FACTOR}x the plain version's distance from f64; per step: "
+          f"kernel {total['ms']:.2f} ms, plain {total['plain']:.1f} ms, f32 conv_dx_dw kernel {total['f32']:.2f} ms, "
+          f"bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": None}
+
+
+def route_gather8_phase(model, eb):
+    """30 (a): every ``gather8`` call of one SPVCNN B = 4 eval forward on the
+    route, on its bf16 table, bit-equal to its plain version and on a rerun;
+    ms of the wrapper (its cast of the table included) and of the cast, the
+    plain version, ``embedding_bag`` on the same rounded table, the bound.
+    Returns the record fields of ``gather8_bf16``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.ops import cuda_gather8
+
+    captured, calls = {}, {}
+    kernel, plain = cuda_gather8.gather8_forward, cuda_gather8.gather8_plain
+
+    def recorder(feats, nbr, w8, bf16_table=False):
+        require(bf16_table, "gather8 on the bf16 route without a bf16 table")
+        key = (nbr.shape[0], feats.shape[0], feats.shape[1])
+        calls[key] = calls.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (feats.clone(), nbr.clone(), w8.clone())
+        return kernel(feats, nbr, w8, True)
+
+    cuda_gather8.gather8_forward = recorder
+    try:
+        with torch.inference_mode(), bf16_route():
+            forward_batch(model, eb)
+    finally:
+        cuda_gather8.gather8_forward = kernel
+    require(sum(calls.values()) == 8, f"{sum(calls.values())} gather8 calls in one forward, not 8")
+    total = {"ms": 0.0, "cast": 0.0, "plain": 0.0, "lib": 0.0}
+    least = Bound()
+    with torch.inference_mode():
+        for key in sorted(captured):
+            feats, nbr, w8 = captured[key]
+            m, n, c = key
+            out = kernel(feats, nbr, w8, True)
+            want = plain(feats, nbr, w8, True)
+            require(torch.equal(out, want) and torch.equal(kernel(feats, nbr, w8, True), out) and bool(out.isfinite().all()),
+                    f"gather8 bf16 {key}: {int((out != want).sum())} values differ from the plain version, or a rerun differs")
+            real = (nbr >= 0) & (nbr < n)
+            pairs, rows = int(real.sum()), int(torch.unique(nbr[real]).numel())
+            b_ms = least.add(nbytes(nbr, w8, out) + 2.0 * rows * c, 2.0 * pairs * c, calls=calls[key])
+            fx = torch.cat([_bf16(feats), feats.new_zeros((1, c))])  # the same rounded table for the library call
+            lib = F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n)
+            require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), f"gather8 bf16 {key}: embedding_bag computes another function")
+            del want, lib
+            ms = {
+                "ms": cuda_ms(lambda: kernel(feats, nbr, w8, True)),
+                "cast": cuda_ms(lambda: feats.to(torch.bfloat16)),
+                "plain": cuda_ms(lambda: plain(feats, nbr, w8, True), reps=3),
+                "lib": cuda_ms(lambda: F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n), reps=3),
+            }
+            for name in total:
+                total[name] += calls[key] * ms[name]
+            print(f"[30a gather8] m={m} n={n} c={c} x{calls[key]}: bf16 table, bit-equal to the plain version and on a "
+                  f"rerun; wrapper {ms['ms']:.3f} ms (the table's cast {ms['cast']:.3f}), plain {ms['plain']:.3f} ms, "
+                  f"embedding_bag {ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs on {rows} table rows)")
+            del out, fx
+    print(f"[30a gather8] {len(captured)} shapes, 8 calls per forward, all bit-equal; per forward: wrapper {total['ms']:.2f} "
+          f"ms (casts {total['cast']:.2f}), plain {total['plain']:.1f} ms, embedding_bag {total['lib']:.2f} ms, bound "
+          f"{least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": total["lib"]}
+
+
+def route_scatter8_phase(state, tb):
+    """30 (a): both ``scatter8`` calls of one SPVCNN B = 5 train step on the route
+    (bf16 ``dy``, ``w8`` rounded to bf16) against the plain version: within
+    PROBE_TOL of ``sum |w8| |dy|``, no further from f64 than F64_FACTOR times
+    the plain version, bit-equal on a rerun; ms beside the plain version and
+    ``embedding_bag``'s backward on the same rounded operands.  Returns the
+    record fields of ``scatter8_bf16``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lidal_tpu_torch.ops import cuda_gather8
+    from lidal_tpu_torch.runtime.train import train_step
+
+    captured = {}
+    kernel, plain = cuda_gather8.scatter8, cuda_gather8.scatter8_plain
+
+    def recorder(dy, nbr, w8, n, bf16=False):
+        require(bf16, "scatter8 on the bf16 route without bf16 rows")
+        captured[(dy.shape[0], n, dy.shape[1])] = (dy.clone(), nbr.clone(), w8.clone(), n)
+        return kernel(dy, nbr, w8, n, True)
+
+    cuda_gather8.scatter8 = recorder
+    try:
+        with bf16_route():
+            train_step(state, tb, DROPOUT_SEEDS[: len(tb.feats)])
+    finally:
+        cuda_gather8.scatter8 = kernel
+    require(len(captured) == 2, f"{len(captured)} scatter8 shapes in one train step, not 2")
+    err = 0.0
+    total = {"ms": 0.0, "plain": 0.0, "lib": 0.0}
+    least = Bound()
+    for key in sorted(captured):
+        dy, nbr, w8, n = captured[key]
+        m, _, c = key
+        got = kernel(dy, nbr, w8, n, True)
+        require(torch.equal(got, kernel(dy, nbr, w8, n, True)), f"scatter8 bf16 {key}: two runs differ")
+        want = plain(dy, nbr, w8, n, True)
+        abs_sum = plain(dy.abs(), nbr, w8.abs(), n, True)
+        ref = plain(_bf16(dy).double(), nbr, _bf16(w8).double(), n)
+        d = (got - want).abs()
+        require(bool(got.isfinite().all()) and bool((d <= PROBE_TOL * abs_sum).all()),
+                f"scatter8 bf16 {key}: max |kernel - plain| {float(d.max())}")
+        e_k, e_p = float((got.double() - ref).abs().max()), float((want.double() - ref).abs().max())
+        require(e_k <= F64_FACTOR * e_p + 1e-6 * float(abs_sum.max()),
+                f"scatter8 bf16 {key}: {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
+        err = max(err, float(d.max()))
+        real = (nbr >= 0) & (nbr < n)
+        pairs, rows = int(real.sum()), int(real.any(dim=1).sum())
+        b_ms = least.add(nbytes(nbr, w8, got) + 2.0 * rows * c, 2.0 * pairs * c)
+        del want, abs_sum, ref, d
+        fx = torch.zeros((n + 1, c), device=dy.device, requires_grad=True)
+        bag = F.embedding_bag(nbr, fx, per_sample_weights=_bf16(w8), mode="sum", padding_idx=n)
+        dyb = _bf16(dy)
+        lib = torch.autograd.grad(bag, fx, dyb, retain_graph=True)[0][:n]
+        require(torch.allclose(lib, got, rtol=1e-3, atol=1e-3 * float(got.abs().max())),
+                f"scatter8 bf16 {key}: the backward of embedding_bag computes another function")
+        ms = {
+            "ms": cuda_ms(lambda: kernel(dy, nbr, w8, n, True)),
+            "plain": cuda_ms(lambda: plain(dy, nbr, w8, n, True), reps=3),
+            "lib": cuda_ms(lambda: torch.autograd.grad(bag, fx, dyb, retain_graph=True), reps=3),
+        }
+        del bag, fx, lib
+        for name in total:
+            total[name] += ms[name]
+        print(f"[30a scatter8] m={m} n={n} c={c}: bf16 dy and w8, within {PROBE_TOL} of sum |w8||dy|, from f64 {e_k:.1e} "
+              f"(plain {e_p:.1e}), bit-equal across runs; kernel {ms['ms']:.3f} ms, plain {ms['plain']:.3f} ms, "
+              f"embedding_bag backward {ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs from {rows} rows)")
+    print(f"[30a scatter8] 2 calls per train step: kernel {total['ms']:.3f} ms, plain {total['plain']:.2f} ms, "
+          f"embedding_bag backward {total['lib']:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
+    return {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
+            "bound_by": least.by, "library_ms": total["lib"]}
+
+
+def route_eval_phase(cfg, model, batches, prepare, dev, caps):
+    """30 (b): ``run_eval`` over the timed batches on the f32 route and on the
+    bf16 route in turns (f32, bf16, bf16, f32; each after its warm-up), points/s
+    of both, each kernel's launches in the first bf16 run; then one batch's
+    logits on the bf16 route against the f32 route's: finite, 0 on invalid
+    rows, argmax agreement at least ROUTE_ARGMAX_AGREE, bit-equal on a rerun.
+    Returns the launches of that run."""
+    import torch
+
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+
+    spvcnn = cfg.is_spvcnn
+    tag = f"[30b eval {cfg.model_name}]"
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    with bf16_route():
+        run_eval(cfg, model, batches[:1], dev, gen)  # warm-up of the route
+    rates, launches = {"f32": [], "bf16": []}, None
+    for route in ("f32", "bf16", "bf16", "f32"):
+        torch.cuda.synchronize()
+        first = route == "bf16" and launches is None
+        if first:
+            reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with bf16_route() if route == "bf16" else contextlib.nullcontext():
+            start.record()
+            res = run_eval(cfg, model, batches[1:], dev, gen)
+            end.record()
+            torch.cuda.synchronize()
+        if first:
+            launches = read_route_launches(("lookup_sorted", "conv_gather_first") + (("gather8_bf16",) if spvcnn else ()))
+        require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
+        rates[route].append(res.points / (start.elapsed_time(end) / 1e3))
+    require(launches["conv_gather_first"] == 42 * TIMED_BATCHES and
+            launches["gather8_bf16"] == (8 * TIMED_BATCHES if spvcnn else 0),
+            f"launches on the route in {TIMED_BATCHES} batches: {launches}")
+    eb = prepare(batches[1], SEED, spvcnn)
+    with torch.inference_mode():
+        f32, _ = forward_batch(model, eb)
+        with bf16_route():
+            bf, _ = forward_batch(model, eb)
+            bf2, _ = forward_batch(model, eb)
+    valid0 = eb.plan.levels[0].valid
+    require(bool(bf.isfinite().all()) and not bool(bf[~valid0].any()), "logits on the route: non-finite or on invalid rows")
+    require(torch.equal(bf, bf2), "the route's logits differ between two runs")
+    share = float((bf - f32).abs().max() / f32.abs().max())
+    rms = float((bf - f32)[valid0].square().mean().sqrt() / f32[valid0].square().mean().sqrt())
+    agree = float((bf.argmax(-1) == f32.argmax(-1))[valid0].float().mean())
+    require(agree >= ROUTE_ARGMAX_AGREE, f"argmax agreement of the bf16 and f32 routes {agree}")
+    print(f"{tag} run_eval, {TIMED_BATCHES} batches x {B} x {N_PTS} points, in turns f32, bf16, bf16, f32: "
+          f"f32 {', '.join(f'{r:,.0f}' for r in rates['f32'])} points/s, bf16 {', '.join(f'{r:,.0f}' for r in rates['bf16'])} "
+          f"points/s (bf16 / f32 by the means {np.mean(rates['bf16']) / np.mean(rates['f32']):.3f}); launches on the route "
+          f"{launches}; logits bf16 vs f32 on one batch: max|d| / max|f32| {share:.3e}, rms {rms:.3e}, argmax agreement "
+          f"{agree:.6f} over {int(valid0.sum())} valid voxels (gate {ROUTE_ARGMAX_AGREE}), bit-equal on a rerun")
+    return launches
+
+
+def route_train_phase(cfg_train, root, dev):
+    """30 (c): ``run_train`` (1 + TIMED_STEPS steps from ``init_state``'s seeded
+    state, the same batches) on the f32 and the bf16 route in turns (f32,
+    bf16, bf16, f32), each from a fresh checkpoint directory: steps/s of
+    both, each step's loss on both (the first step's from the same state
+    within ROUTE_LOSS_TOL relative), the bf16 runs bit-equal to each other,
+    each kernel's launches in the first bf16 run.  Returns those launches."""
+    import torch
+
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    spvcnn = cfg_train.is_spvcnn
+    tag = f"[30c train {cfg_train.model_name}]"
+    runs, launches = [], None
+    turns = ("f32", "bf16", "bf16", "f32") if not spvcnn else ("bf16", "f32")
+    for i, route in enumerate(turns):
+        cfg = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, f"check_points_30_{cfg_train.model_name}_{i}"))
+        times, losses = [], []
+
+        def on_step(step, loss):
+            losses.append(float(loss))  # waits for the step
+            times.append(time.perf_counter())
+
+        first = route == "bf16" and launches is None
+        if first:
+            reset_launches()
+        with bf16_route() if route == "bf16" else contextlib.nullcontext():
+            state = run_train(cfg, max_iter=1 + TIMED_STEPS, log_every=10**9, on_step=on_step, device=dev)
+        torch.cuda.synchronize()
+        if first:
+            launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused") +
+                                           (("gather8_bf16", "scatter8_bf16") if spvcnn else ()))
+        require(state.step == 1 + TIMED_STEPS and all(np.isfinite(losses)), f"{route}: {state.step} steps, losses {losses}")
+        runs.append((route, TIMED_STEPS / (times[-1] - times[0]), losses))
+        del state
+    steps = 1 + TIMED_STEPS
+    require(launches["conv_dx_dw_fused"] == 42 * steps and launches["conv_gather_first"] == 42 * steps and
+            (launches["gather8_bf16"], launches["scatter8_bf16"]) == ((8 * steps, 2 * steps) if spvcnn else (0, 0)),
+            f"launches on the route in {steps} steps: {launches}")
+    bf = [r for r in runs if r[0] == "bf16"]
+    f32 = [r for r in runs if r[0] == "f32"]
+    require(all(r[2] == bf[0][2] for r in bf), f"the bf16 runs' losses differ: {[r[2] for r in bf]}")
+    first_d = abs(bf[0][2][0] - f32[0][2][0]) / abs(f32[0][2][0])
+    require(first_d <= ROUTE_LOSS_TOL, f"the first step's loss on the two routes from one state differs by {first_d:.2e}")
+    print(f"{tag} run_train B = {cfg_train.data.batch_size}, {TIMED_STEPS} steps after 1, in turns "
+          f"{', '.join(r[0] for r in runs)}: steps/s {', '.join(f'{r[0]} {r[1]:.3f}' for r in runs)} (bf16 / f32 by the "
+          f"means {np.mean([r[1] for r in bf]) / np.mean([r[1] for r in f32]):.3f}); losses f32 "
+          f"{[round(x, 5) for x in f32[0][2]]}, bf16 {[round(x, 5) for x in bf[0][2]]} (the first step from one state: "
+          f"{first_d:.2e} relative, tol {ROUTE_LOSS_TOL}; the bf16 runs bit-equal); launches on the route {launches}")
+    return launches
+
+
+def route_round_phase(cfg, root, dev, selection12, n_sv):
+    """30 (d): phase 12's fused MinkUNet LiDAL round (the same weights, frames
+    and prepared tree) on the bf16 route, twice: frames/s, the prob maps,
+    flags and selection bit-equal between the two runs, both within the
+    budget; the selected supervoxels against phase 12's f32 round (counts and
+    |A n B| / |A u B|, recorded, not gated).  Returns the launches of the first run."""
+    import torch
+
+    from lidal_tpu_torch.active import lidal, lidal_runner
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    model = init_state(cfg, dev).model.eval()
+    randomise_bn(model, SEED + 7)  # phase 12's weights
+    files = sk.list_frames(cfg.data_root, cfg.data.train_split)
+    frame_index = {sk.frame_id(p): i for i, p in enumerate(files)}
+    by_id = {sk.frame_id(p): p for p in files}
+    fused12 = os.path.join(root, "Processing_fused")  # phase 12's fused tree
+    limit = round(lidal.BUDGET_FRAC * cfg.data.train_point_num)
+    pnums = []
+    select = lidal.select
+
+    def recording_select(*args, **kwargs):
+        pnums.append(np.array(args[3]))
+        return select(*args, **kwargs)
+
+    runs = []
+    lidal.select = recording_select
+    try:
+        for i in range(2):
+            cfg_r = dataclasses.replace(cfg, processing_root=os.path.join(root, f"Processing_bf16_{i}"))
+            shutil.copytree(fused12, cfg_r.processing_root)
+            prev = Paths(lidal_runner._prev_cfg(cfg_r))
+            for d in (Paths(cfg_r).sv_flag_dir("00"), prev.prob_dir("00"), prev.pred_dir("00")):
+                shutil.rmtree(d)  # the round writes them anew
+            if i == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            with bf16_route():
+                res = lidal_runner.run_fused_lidal_round(
+                    cfg_r, model, lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
+                    frame_index=frame_index, device=dev,
+                )
+            seconds = time.perf_counter() - t0
+            if i == 0:
+                launches = read_route_launches(("lookup_sorted", "conv_gather_first", "nn_band"))
+            runs.append((res, seconds, cfg_r))
+    finally:
+        lidal.select = select
+    require(launches["nn_band"] == ROUND_FRAMES and launches["conv_gather_first"] > 0, f"launches {launches}")
+    (a, t_a, cfg_a), (b, t_b, cfg_b) = runs
+    for x, y in zip(a, b):
+        require(np.array_equal(x, y), "the bf16 round's selection differs between two runs")
+    pa, pb = Paths(lidal_runner._prev_cfg(cfg_a)), Paths(lidal_runner._prev_cfg(cfg_b))
+    for i in range(ROUND_FRAMES):
+        name = f"{i:06d}.npy"
+        for da, db in ((pa.prob_dir("00"), pb.prob_dir("00")), (pa.pred_dir("00"), pb.pred_dir("00")),
+                       (Paths(cfg_a).sv_flag_dir("00"), Paths(cfg_b).sv_flag_dir("00"))):
+            require(np.array_equal(np.load(os.path.join(da, name)), np.load(os.path.join(db, name))),
+                    f"{name}: the bf16 round's maps or flags differ between two runs")
+    require(len(a.sv_flags) == n_sv and len(a.al_added) > 0 and len(a.sl_added) > 0, "the bf16 round selected nothing")
+    sv_pnums = pnums[0]
+    used = {"bf16": int(sv_pnums[a.al_added].sum()), "f32": int(sv_pnums[selection12.al_added].sum())}
+    for route, res in (("bf16", a), ("f32", selection12)):
+        for kind in ("al_added", "sl_added"):  # each greedy pass stays within the budget
+            require(int(sv_pnums[getattr(res, kind)].sum()) <= limit, f"the {route} round's {kind} exceed the budget")
+
+    def overlap(x, y):
+        x, y = set(x.tolist()), set(y.tolist())
+        return len(x & y) / max(1, len(x | y))
+
+    print(f"[30d round] run_fused_lidal_round on the bf16 route (phase 12's weights, {ROUND_FRAMES} frames x {cfg.inf_reps} "
+          f"views): {t_a:.2f} s, {t_b:.2f} s = {ROUND_FRAMES / t_a:.3f}, {ROUND_FRAMES / t_b:.3f} frames/s; prob / pred "
+          f"maps, flags and selection bit-equal across the two runs; launches {launches}")
+    print(f"[30d round] selections, bf16 against phase 12's f32 round: labels {len(a.al_added)} against "
+          f"{len(selection12.al_added)} supervoxels ({used['bf16']} and {used['f32']} points of a budget of {limit}), "
+          f"overlap |A n B| / |A u B| {overlap(a.al_added, selection12.al_added):.4f}; pseudo labels {len(a.sl_added)} "
+          f"against {len(selection12.sl_added)}, overlap {overlap(a.sl_added, selection12.sl_added):.4f}")
+    for _, _, c in runs:
+        shutil.rmtree(c.processing_root, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2605,6 +3176,14 @@ def main() -> None:
     # ---- 5, 6. the eval slice and the whole forward -------------------------------------------
     del eb
     launches, conf5 = eval_slice_phase(cfg, model, batches, prepare, dev, caps, "5 slice", "6 forward")
+    torch.cuda.empty_cache()
+
+    # ---- 30 (a, b). the bf16 route: MinkUNet's forward convs, eval at B = 4 --------------------------
+    route = {}  # each main path's launches on the bf16 route
+    eb = prepare(b0, SEED)
+    route_fwd = route_forward_phase(model, eb)
+    del eb
+    route["eval Mink"] = route_eval_phase(cfg, model, batches, prepare, dev, caps)
     del model
     torch.cuda.empty_cache()
 
@@ -2619,6 +3198,11 @@ def main() -> None:
     del eb_s
     torch.cuda.empty_cache()
     launches_16, _ = eval_slice_phase(cfg_spv, spvcnn, batches, prepare, dev, caps, "16 slice", "16 forward")
+    # ---- 30 (a, b). the bf16 route: SPVCNN's gather8, eval at B = 4 ----------------------------------
+    eb_s = prepare(b0, SEED, with_points=True)
+    route_g8 = route_gather8_phase(spvcnn, eb_s)
+    del eb_s
+    route["eval SPVCNN"] = route_eval_phase(cfg_spv, spvcnn, batches, prepare, dev, caps)
     del spvcnn
     torch.cuda.empty_cache()
 
@@ -2653,6 +3237,19 @@ def main() -> None:
         train_step_parity_phase(trained, tb8)
         del trained, tb8
         torch.cuda.empty_cache()
+        # ---- 30 (a, c). the bf16 route: a B = 5 step's backward, MinkUNet's run_train ---------------
+        rng30 = np.random.default_rng(SEED + 30)  # the earlier phases' draws stay as they were
+        b30 = make_batch(rng30, SK_CONFIG.point_cap, data.batch_size)
+        tb30, tb30s = (prepare_train_batch(
+            torch.Generator(device="cpu").manual_seed(SEED + 5),
+            *(torch.as_tensor(b30[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
+            level_caps=caps, with_points=points,
+        ) for points in (False, True))
+        route_bwd = route_backward_phase(init_state(cfg_train, dev), tb30)
+        del tb30
+        torch.cuda.empty_cache()
+        route["train Mink"] = route_train_phase(cfg_train, root, dev)
+        torch.cuda.empty_cache()
 
         cfg_train_spv = dataclasses.replace(cfg_train, model_name="SPVCNN")
         train_state = init_state(cfg_train_spv, dev)
@@ -2668,6 +3265,12 @@ def main() -> None:
         trained, tb17, launches_17, _ = train_slice_phase(cfg_train_spv, dev, caps, tag="17 slice")
         train_step_parity_phase(trained, tb17, tag="17 train step")
         del trained, tb17
+        torch.cuda.empty_cache()
+        # ---- 30 (a, c). the bf16 route: SPVCNN's scatter8, its run_train ----------------------------
+        route_s8 = route_scatter8_phase(init_state(cfg_train_spv, dev), tb30s)
+        del tb30s, b30
+        torch.cuda.empty_cache()
+        route["train SPVCNN"] = route_train_phase(cfg_train_spv, root, dev)
         torch.cuda.empty_cache()
         # ---- 29 (i, ii). a world-size-1 NCCL group; two ranks on the card joined by gloo -------------
         group_phase(cfg_train, cfg, root, dev, batches, conf5, rate8)
@@ -2697,6 +3300,8 @@ def main() -> None:
         nn_band = nn_band_phase(cfg_round, dev)
         round_launches, selection12 = lidal_slice_phase(cfg_round, root, dev, n_sv)
         rank_round_phase(cfg_round, root, dev, selection12)
+        # ---- 30 (d). the bf16 route: phase 12's fused round ------------------------------------------
+        route["round Mink"] = route_round_phase(cfg_round, root, dev, selection12, n_sv)
         active_round_phase(cfg_round, dev)
         launches_18 = spvcnn_round_phase(cfg_round, dev, n_sv)
         scoring_phase(cfg_round, root, dev)
@@ -2737,6 +3342,7 @@ def main() -> None:
     total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18,
                                        probe_launches, nu_eval["Mink"], nu_eval["SPVCNN"], nu_train, nu_round))
              for k in KERNELS}
+    on_route = {k: sum(run[k] for run in route.values()) for k in KERNELS}  # phase 30's main paths
 
     record = {
         "kernels": [
@@ -2778,6 +3384,23 @@ def main() -> None:
             {
                 "name": "conv_dx_dw_fused", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw_fused.cu",
                 "replaces": "tools/probe_dxdw_features.py:42", "launches": total["conv_dx_dw_fused"], **fused,
+            },
+            # the bf16 route (phase 30): the JAX package's own route on its TPU, at the model path's shapes
+            {
+                "name": "subm_conv_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_gather_first.cu",
+                "replaces": "lidal_tpu/ops/pallas_conv.py:387", "launches": on_route["conv_gather_first"], **route_fwd,
+            },
+            {
+                "name": "conv_dx_dw_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw_fused.cu",
+                "replaces": "lidal_tpu/ops/pallas_conv.py:299", "launches": on_route["conv_dx_dw_fused"], **route_bwd,
+            },
+            {
+                "name": "gather8_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": on_route["gather8_bf16"], **route_g8,
+            },
+            {
+                "name": "scatter8_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:300", "launches": on_route["scatter8_bf16"], **route_s8,
             },
         ]
     }

@@ -1,8 +1,13 @@
 // Both products of the sparse-conv backward on bf16 operands, deterministic and
 // without atomics.
 //
-// Replaces tools/probe_dxdw_features.py:launch with its three bodies: kA (dx
-// only), kB (dx, and a second output dw that is all zeros) and kC (dx and dw).
+// On the bf16 route (ops/conv.BF16_OPERANDS, the counterpart of
+// lidal_tpu/ops/conv.py:USE_PALLAS) it takes the place of
+// lidal_tpu/ops/pallas_conv.py:conv_dx_dw_pallas in the backward of every
+// conv of a train step (dx and dw; dw alone, mode 3, where the conv's input
+// needs no gradient: the stem).  It also replaces
+// tools/probe_dxdw_features.py:launch with its three bodies: kA (dx only), kB
+// (dx, and a second output dw that is all zeros) and kC (dx and dw).
 // For a map nbr [m, K] into src [n, c_src] (sentinel: any index outside [0, n))
 //
 //   dx[i] = sum_k src[nbr[i, k]] @ w2[k]          -> [m, c_dst]       f32
@@ -329,11 +334,12 @@ cudaError_t launch_dw(const uint16_t* src, const int* nbr, int* nbr_t, const uin
 
 // src bf16 [n, c_src]; w2t bf16 [k, c_dst, c_src] (w2 with c_src contiguous);
 // nbr int32 [m, k]; f bf16 [m, c_f] (read only in mode 2); dx f32 [m, c_dst];
-// dw f32 [k, c_f, c_src] (written in modes 1 and 2); scratch for mode 2: nbr_t
-// [k, m] (the map transposed here), ws f32 [k, chunks, c_f, c_src] (unused
-// when chunks == 1), rows [k, m], counts [k] and seg_counts [k, ceil(m /
-// 4096)] int32.  mode: 0 dx only, 1 dx and dw = 0, 2 dx and dw.  bn, bm and
-// stages: dx's tile (columns, rows) and ring depth (gather_gemm_bf16::shapes_ok).
+// dw f32 [k, c_f, c_src] (written in modes 1, 2 and 3); scratch for modes 2
+// and 3: nbr_t [k, m] (the map transposed here), ws f32 [k, chunks, c_f,
+// c_src] (unused when chunks == 1), rows [k, m], counts [k] and seg_counts
+// [k, ceil(m / 4096)] int32.  mode: 0 dx only, 1 dx and dw = 0, 2 dx and dw,
+// 3 dw only (dx is not written).  bn, bm and stages: dx's tile (columns,
+// rows) and ring depth (gather_gemm_bf16::shapes_ok).
 // Pairs [s * pairs_per_chunk, (s + 1) * pairs_per_chunk) of a tap's list form
 // its chunk s: pairs_per_chunk % 128 == 0 and chunks * pairs_per_chunk >= m.
 // All contiguous on the current device and 16-byte aligned.  Needs k <= 27,
@@ -346,14 +352,16 @@ extern "C" int lidal_conv_dx_dw_fused(const void* src, const void* w2t, const vo
                                       void* stream) {
   const auto s = (cudaStream_t)stream;
   if (!gather_gemm_bf16::shapes_ok(m, n, k, c_src, c_dst, bn, bm, stages) || c_src % 32 != 0 || c_f <= 0 ||
-      c_f % 32 != 0 || mode < 0 || mode > 2 || chunks < 1 || chunks > 65535 || pairs_per_chunk < kStage ||
+      c_f % 32 != 0 || mode < 0 || mode > 3 || chunks < 1 || chunks > 65535 || pairs_per_chunk < kStage ||
       pairs_per_chunk % kStage != 0 || (long long)chunks * pairs_per_chunk < m ||
       (long long)chunks * pairs_per_chunk > 0x7fffffffLL ||
       (m + pair_lists::kSegRows - 1) / pair_lists::kSegRows > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = gather_gemm_bf16::launch<false>(src, w2t, (const int*)nbr, (float*)dx, m, n, k, c_src, c_dst,
-                                                    bn, bm, stages, s);
-  if (err != cudaSuccess || mode == 0) return (int)err;
+  if (mode != 3) {
+    const cudaError_t err = gather_gemm_bf16::launch<false, 0>(src, w2t, (const int*)nbr, nullptr, nullptr,
+                                                               (float*)dx, m, n, k, c_src, c_dst, bn, bm, stages, s);
+    if (err != cudaSuccess || mode == 0) return (int)err;
+  }
   if (mode == 1 || m == 0) return (int)cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)k * c_f * c_src, s);
   return (int)launch_dw((const uint16_t*)src, (const int*)nbr, (int*)nbr_t, (const uint16_t*)f, (float*)dw, (float*)ws,
                         (int*)rows, (int*)counts, (int*)seg_counts, m, n, k, c_src, c_f, chunks,

@@ -10,7 +10,15 @@
 //
 // The TPU kernels turn both into matrix products with one-hot blocks over a
 // band of the sorted map, in bf16.  None of that carries over: an SM gathers
-// rows directly, in f32.
+// rows directly, in f32.  The bf16 route (ops/conv.BF16_OPERANDS and
+// ops/cuda_gather8.SCATTER8_BF16, the counterparts of lidal_tpu/ops/conv.py:
+// USE_PALLAS and pallas_gather8.py:USE_PALLAS_BWD) rounds what the TPU
+// kernels round: gather8 reads its table as bf16 (pallas_gather8.py:139; the
+// one-hot product of :105-106 is exact, w8 stays f32), scatter8 reads dy as
+// bf16 and rounds w8 to bf16 (:314 and the weighted one-hot of :284).  Both
+// are the same kernels with the rows' type as a template parameter, which
+// halves the bytes the rows take; the products and sums stay f32, in the same
+// order.
 //
 // What bounds both on an H100: bytes.  gather8 does 2 operations for every 4
 // bytes it reads; the trilinear call at B = 4 writes 537 MB and reads an 8 MB
@@ -69,6 +77,7 @@
 // step take 0.21-0.23 ms, 0.05 ms of device time a call for the map
 // (tools/kernel_shapes.py), where the first version took 0.98-1.02 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,6 +95,21 @@ constexpr int kLongSegment = 128;  // pairs; a longer segment is split over the 
 constexpr int kMaxScatterC = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Four consecutive row values from column slice `col` of f32 rows (float4) or
+// of bf16 rows (8 bytes, widened exactly to f32).
+template <bool BF16>
+__device__ __forceinline__ float4 load4(const void* __restrict__ rows, size_t col) {
+  if (BF16) {
+    const uint2 b = __ldg(reinterpret_cast<const uint2*>(rows) + col);
+    return make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u), __uint_as_float(b.y << 16),
+                       __uint_as_float(b.y & 0xffff0000u));
+  }
+  return __ldg(reinterpret_cast<const float4*>(rows) + col);
+}
+
+// w rounded to bf16 (to nearest, ties to even) and widened back to f32.
+__device__ __forceinline__ float round_bf16(float w) { return __bfloat162float(__float2bfloat16_rn(w)); }
+
 __device__ __forceinline__ void axpy_rn(float4& acc, float w, const float4& v) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
   acc.y = __fadd_rn(acc.y, __fmul_rn(w, v.y));
@@ -93,8 +117,9 @@ __device__ __forceinline__ void axpy_rn(float4& acc, float w, const float4& v) {
   acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gather8_kernel(const float4* __restrict__ feats, const int* __restrict__ nbr,
+gather8_kernel(const void* __restrict__ feats, const int* __restrict__ nbr,
                const float* __restrict__ w8, float4* __restrict__ out, int m, int n, int c4) {
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= m) return;  // the whole warp leaves together
@@ -118,7 +143,7 @@ gather8_kernel(const float4* __restrict__ feats, const int* __restrict__ nbr,
 #pragma unroll
     for (int k = 0; k < kTaps; ++k) {
       const int j = idxs[k];
-      v[k] = (j >= 0 && j < n) ? __ldg(feats + (size_t)j * c4 + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[k] = (j >= 0 && j < n) ? load4<BF16>(feats, (size_t)j * c4 + col) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -324,8 +349,8 @@ map_rank_kernel(const int* __restrict__ offsets, const int* __restrict__ long_co
 
 // One warp's sum over the pairs order[begin : end] of a target, S float4
 // column slices a lane.
-template <int S>
-__device__ __forceinline__ void segment_sum(const float4* __restrict__ dy, const float* __restrict__ w8,
+template <int S, bool BF16>
+__device__ __forceinline__ void segment_sum(const void* __restrict__ dy, const float* __restrict__ w8,
                                             const int* __restrict__ order, int begin, int end, int c4,
                                             int lane, float4 (&total)[S]) {
 #pragma unroll
@@ -336,7 +361,7 @@ __device__ __forceinline__ void segment_sum(const float4* __restrict__ dy, const
     float w = 0.0f;
     if (lane < cnt) {
       pid = order[p0 + lane];  // i * 8 + k
-      w = w8[pid];
+      w = BF16 ? round_bf16(w8[pid]) : w8[pid];
     }
     for (int h = 0; h < cnt; h += kBlockSum) {
       float4 blk[S];
@@ -347,12 +372,12 @@ __device__ __forceinline__ void segment_sum(const float4* __restrict__ dy, const
       for (int j = h; j < he; ++j) {
         const int pair = __shfl_sync(kFull, pid, j);
         const float wj = __shfl_sync(kFull, w, j);
-        const float4* row = dy + (size_t)(pair >> 3) * c4;
+        const size_t row = (size_t)(pair >> 3) * c4;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const int col = lane + 32 * s;
           if (col < c4) {
-            const float4 v = __ldg(row + col);
+            const float4 v = load4<BF16>(dy, row + col);
             blk[s].x += wj * v.x;
             blk[s].y += wj * v.y;
             blk[s].z += wj * v.z;
@@ -371,9 +396,9 @@ __device__ __forceinline__ void segment_sum(const float4* __restrict__ dy, const
   }
 }
 
-template <int S>
+template <int S, bool BF16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-scatter8_sum_kernel(const float4* __restrict__ dy, const float* __restrict__ w8, const int* __restrict__ order,
+scatter8_sum_kernel(const void* __restrict__ dy, const float* __restrict__ w8, const int* __restrict__ order,
                     const int* __restrict__ offsets, float4* __restrict__ out, int n, int c4) {
   __shared__ float4 part[kWarpsPerBlock][32 * S];
   const int warp = threadIdx.x >> 5;
@@ -384,7 +409,7 @@ scatter8_sum_kernel(const float4* __restrict__ dy, const float* __restrict__ w8,
     const int begin = offsets[t];
     const int end = offsets[t + 1];
     if (end - begin <= kLongSegment) {
-      segment_sum<S>(dy, w8, order, begin, end, c4, lane, total);
+      segment_sum<S, BF16>(dy, w8, order, begin, end, c4, lane, total);
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int col = lane + 32 * s;
@@ -399,7 +424,7 @@ scatter8_sum_kernel(const float4* __restrict__ dy, const float* __restrict__ w8,
     const int begin = offsets[tw];
     const int len = offsets[tw + 1] - begin;
     if (len <= kLongSegment) continue;
-    segment_sum<S>(dy, w8, order, begin + (int)((long long)len * warp / kWarpsPerBlock),
+    segment_sum<S, BF16>(dy, w8, order, begin + (int)((long long)len * warp / kWarpsPerBlock),
                    begin + (int)((long long)len * (warp + 1) / kWarpsPerBlock), c4, lane, total);
 #pragma unroll
     for (int s = 0; s < S; ++s) part[warp][lane + 32 * s] = total[s];
@@ -417,6 +442,15 @@ scatter8_sum_kernel(const float4* __restrict__ dy, const float* __restrict__ w8,
     }
     __syncthreads();
   }
+}
+
+template <int S>
+void launch_sum(int bf16, unsigned blocks, cudaStream_t st, const void* dy, const float* w8, const int* order,
+                const int* offsets, float4* out, int n, int c4) {
+  if (bf16)
+    scatter8_sum_kernel<S, true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(dy, w8, order, offsets, out, n, c4);
+  else
+    scatter8_sum_kernel<S, false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(dy, w8, order, offsets, out, n, c4);
 }
 
 // counts: int32 [2 n + 2 + n / kScanTile], the per-target counts, the number
@@ -440,16 +474,22 @@ int build_map(const int* nbr, int pairs, int n, int* counts, int* offsets, int* 
 
 }  // namespace
 
-// feats: f32 [n, c]; nbr: int32 [m, 8]; w8: f32 [m, 8]; out: f32 [m, c]; all
-// contiguous on the current device, feats and out 16-byte aligned, c % 4 == 0.
-// Returns cudaGetLastError() after the launch.
+// feats: f32 [n, c] (bf16 == 0) or bf16 [n, c] (bf16 == 1); nbr: int32 [m, 8];
+// w8: f32 [m, 8]; out: f32 [m, c]; all contiguous on the current device, feats
+// and out 16-byte aligned (8-byte for bf16 rows), c % 4 == 0.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int lidal_gather8(const void* feats, const void* nbr, const void* w8, void* out,
-                             int m, int n, int c, void* stream) {
+                             int m, int n, int c, int bf16, void* stream) {
   if (m == 0 || c == 0) return (int)cudaSuccess;
   if (m < 0 || n < 0 || c < 0 || c % 4 != 0) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((m + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  gather8_kernel<<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      (const float4*)feats, (const int*)nbr, (const float*)w8, (float4*)out, m, n, c / 4);
+  const auto st = (cudaStream_t)stream;
+  if (bf16)
+    gather8_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(feats, (const int*)nbr, (const float*)w8, (float4*)out,
+                                                                 m, n, c / 4);
+  else
+    gather8_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(feats, (const int*)nbr, (const float*)w8,
+                                                                  (float4*)out, m, n, c / 4);
   return (int)cudaGetLastError();
 }
 
@@ -466,12 +506,14 @@ extern "C" int lidal_transpose8(const void* nbr, void* counts, void* offsets, vo
                    (cudaStream_t)stream);
 }
 
-// dy: f32 [m, c]; w8: f32 [m, 8]; nbr: int32 [m, 8]; counts, offsets, order,
-// tmp: the scratch of lidal_transpose8; out: f32 [n, c]; all contiguous on the
-// current device, dy and out 16-byte aligned, c % 4 == 0 and c <= 1024.  Builds
-// the transposed map, then sums.  Returns cudaGetLastError() after the launches.
+// dy: f32 [m, c] (bf16 == 0) or bf16 [m, c] (bf16 == 1, and each w8 then
+// rounded to bf16 as it is read); w8: f32 [m, 8]; nbr: int32 [m, 8]; counts,
+// offsets, order, tmp: the scratch of lidal_transpose8; out: f32 [n, c]; all
+// contiguous on the current device, dy and out 16-byte aligned (8-byte for
+// bf16 rows), c % 4 == 0 and c <= 1024.  Builds the transposed map, then sums.
+// Returns cudaGetLastError() after the launches.
 extern "C" int lidal_scatter8(const void* dy, const void* w8, const void* nbr, void* counts, void* offsets,
-                              void* order, void* tmp, void* out, int m, int n, int c, void* stream) {
+                              void* order, void* tmp, void* out, int m, int n, int c, int bf16, void* stream) {
   if (n == 0 || c == 0) return (int)cudaSuccess;
   if (m < 0 || n < 0 || c < 0 || c % 4 != 0 || c > kMaxScatterC || m > (0x7fffffff >> 3)) {
     return (int)cudaErrorInvalidValue;
@@ -482,19 +524,18 @@ extern "C" int lidal_scatter8(const void* dy, const void* w8, const void* nbr, v
   if (err != (int)cudaSuccess) return err;
   const int c4 = c / 4;
   const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const float4* d = (const float4*)dy;
   const float* w = (const float*)w8;
   const int* o = (const int*)order;
   const int* off = (const int*)offsets;
   float4* y = (float4*)out;
   if (c4 <= 32) {
-    scatter8_sum_kernel<1><<<blocks, kWarpsPerBlock * 32, 0, st>>>(d, w, o, off, y, n, c4);
+    launch_sum<1>(bf16, blocks, st, dy, w, o, off, y, n, c4);
   } else if (c4 <= 64) {
-    scatter8_sum_kernel<2><<<blocks, kWarpsPerBlock * 32, 0, st>>>(d, w, o, off, y, n, c4);
+    launch_sum<2>(bf16, blocks, st, dy, w, o, off, y, n, c4);
   } else if (c4 <= 128) {
-    scatter8_sum_kernel<4><<<blocks, kWarpsPerBlock * 32, 0, st>>>(d, w, o, off, y, n, c4);
+    launch_sum<4>(bf16, blocks, st, dy, w, o, off, y, n, c4);
   } else {
-    scatter8_sum_kernel<8><<<blocks, kWarpsPerBlock * 32, 0, st>>>(d, w, o, off, y, n, c4);
+    launch_sum<8>(bf16, blocks, st, dy, w, o, off, y, n, c4);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,15 @@
-// bf16 gather-GEMM tile for sm_90a, shared by conv_gather_first.cu (the probe
-// convs) and conv_dx_dw_fused.cu (the probe backward's dx):
+// bf16 gather-GEMM tile for sm_90a, shared by conv_gather_first.cu (the convs
+// of the bf16 route and of the probes) and conv_dx_dw_fused.cu (the bf16
+// backward's dx):
 //
 //   out[i] = sum_k table[nbr[i, k]] @ w[k]      (f32 sums; an index outside [0, n) gives 0)
 //
 // on a bf16 table [n, cin] (or its two int8 byte planes) and bf16 weights
-// handed over as [K, cout, cin], the input channels contiguous.
+// handed over as [K, cout, cin], the input channels contiguous.  With the
+// epilogue EPI > 0 (the eval BatchNorm of pallas_conv.py:162-166, in its
+// order, on the f32 sums): y = acc * scale + shift, then relu if EPI == 2,
+// then 0 on rows with no real tap (the row-valid mask min(nbr[i]) < n, read
+// from the tile's map already in shared memory).
 //
 // A block of WGS consumer warpgroups owns a BM = 64 WGS row by BN-column output
 // tile (BN = 32, 64, 96 or 128; a wider cout takes several column tiles; WGS
@@ -211,10 +216,11 @@ struct Wgmma<128> {
   }
 };
 
-template <int BN, int WGS, bool PLANES>
+template <int BN, int WGS, bool PLANES, int EPI>  // EPI: 0 none, 1 affine, 2 affine + relu
 __global__ void __launch_bounds__(Ring<BN, WGS>::THREADS, 1)
 kernel(const unsigned char* __restrict__ table, const uint16_t* __restrict__ wt, const int* __restrict__ nbr,
-       float* __restrict__ out, int m, int n, int k, int cin, int cout, int stages) {
+       const float* __restrict__ scale, const float* __restrict__ shift, float* __restrict__ out, int m, int n,
+       int k, int cin, int cout, int stages) {
   using R = Ring<BN, WGS>;
   constexpr int kBM = R::BM;
   constexpr int kThreads = R::THREADS;
@@ -347,12 +353,36 @@ kernel(const unsigned char* __restrict__ table, const uint16_t* __restrict__ wt,
 
   // ---- epilogue: each output written once, float2 a fragment pair
   const int t = tid & 127;
-  const int r = row0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
-  float* o = out + (size_t)r * cout + col0 + 2 * (t & 3);
+  const int rl = wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // the thread's first row in the tile; the other is rl + 8
+  const int r = row0 + rl;
+  bool ok0 = true, ok1 = true;  // the rows have a real tap (their map rows are in s_nbr, -1 for the sentinel)
+  if (EPI > 0) {
+    ok0 = ok1 = false;
+    for (int tap = 0; tap < k; ++tap) {
+      ok0 |= s_nbr[tap * kBM + rl] >= 0;
+      ok1 |= s_nbr[tap * kBM + rl + 8] >= 0;
+    }
+  }
+  const int cc = col0 + 2 * (t & 3);
+  float* o = out + (size_t)r * cout + cc;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    if (r < m) *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    if (r + 8 < m) *reinterpret_cast<float2*>(o + (size_t)8 * cout + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    float2 y0 = make_float2(acc[4 * j], acc[4 * j + 1]);
+    float2 y1 = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    if (EPI > 0) {  // acc * scale + shift, relu, row mask: pallas_conv.py:162-166
+      const float s0 = __ldg(scale + cc + 8 * j), s1 = __ldg(scale + cc + 8 * j + 1);
+      const float h0 = __ldg(shift + cc + 8 * j), h1 = __ldg(shift + cc + 8 * j + 1);
+      y0 = make_float2(y0.x * s0 + h0, y0.y * s1 + h1);
+      y1 = make_float2(y1.x * s0 + h0, y1.y * s1 + h1);
+      if (EPI == 2) {
+        y0 = make_float2(fmaxf(y0.x, 0.f), fmaxf(y0.y, 0.f));
+        y1 = make_float2(fmaxf(y1.x, 0.f), fmaxf(y1.y, 0.f));
+      }
+      if (!ok0) y0 = make_float2(0.f, 0.f);
+      if (!ok1) y1 = make_float2(0.f, 0.f);
+    }
+    if (r < m) *reinterpret_cast<float2*>(o + 8 * j) = y0;
+    if (r + 8 < m) *reinterpret_cast<float2*>(o + (size_t)8 * cout + 8 * j) = y1;
   }
 }
 
@@ -380,35 +410,38 @@ inline bool shapes_ok(int m, int n, int k, int cin, int cout, int bn, int rows, 
          cout % bn == 0 && stages >= 3 && stages <= kMaxStages && smem <= kSmemMax;
 }
 
-template <int BN, int WGS, bool PLANES>
-cudaError_t launch_tile(const void* table, const void* wt, const int* nbr, float* out, int m, int n, int k,
-                        int cin, int cout, int stages, cudaStream_t stream) {
+template <int BN, int WGS, bool PLANES, int EPI>
+cudaError_t launch_tile(const void* table, const void* wt, const int* nbr, const float* scale, const float* shift,
+                        float* out, int m, int n, int k, int cin, int cout, int stages, cudaStream_t stream) {
   using R = Ring<BN, WGS>;
   const int smem = R::smem(stages);
-  auto kern = kernel<BN, WGS, PLANES>;
+  auto kern = kernel<BN, WGS, PLANES, EPI>;
   // more than 48 KB of shared memory is dynamic and has to be asked for
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + R::BM - 1) / R::BM, cout / BN);
-  kern<<<grid, R::THREADS, smem, stream>>>((const unsigned char*)table, (const uint16_t*)wt, nbr, out, m, n, k, cin,
-                                           cout, stages);
+  kern<<<grid, R::THREADS, smem, stream>>>((const unsigned char*)table, (const uint16_t*)wt, nbr, scale, shift, out,
+                                           m, n, k, cin, cout, stages);
   return cudaGetLastError();
 }
 
-// The tile of bn columns and `rows` rows (checked by shapes_ok first).
-template <bool PLANES>
-cudaError_t launch(const void* table, const void* wt, const int* nbr, float* out, int m, int n, int k, int cin,
-                   int cout, int bn, int rows, int stages, cudaStream_t stream) {
+// The tile of bn columns and `rows` rows (checked by shapes_ok first); scale
+// and shift ([cout] f32) are read only when EPI > 0.
+template <bool PLANES, int EPI>
+cudaError_t launch(const void* table, const void* wt, const int* nbr, const float* scale, const float* shift,
+                   float* out, int m, int n, int k, int cin, int cout, int bn, int rows, int stages,
+                   cudaStream_t stream) {
   if (m == 0) return cudaSuccess;
-  if (rows == 192)
-    return bn == 128 ? launch_tile<128, 3, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream)
-                     : launch_tile<96, 3, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream);
+#define TILE(BN, WGS) \
+  launch_tile<BN, WGS, PLANES, EPI>(table, wt, nbr, scale, shift, out, m, n, k, cin, cout, stages, stream)
+  if (rows == 192) return bn == 128 ? TILE(128, 3) : TILE(96, 3);
   switch (bn) {
-    case 32: return launch_tile<32, 2, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream);
-    case 64: return launch_tile<64, 2, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream);
-    case 96: return launch_tile<96, 2, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream);
-    default: return launch_tile<128, 2, PLANES>(table, wt, nbr, out, m, n, k, cin, cout, stages, stream);
+    case 32: return TILE(32, 2);
+    case 64: return TILE(64, 2);
+    case 96: return TILE(96, 2);
+    default: return TILE(128, 2);
   }
+#undef TILE
 }
 
 }  // namespace gather_gemm_bf16

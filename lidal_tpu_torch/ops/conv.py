@@ -21,13 +21,29 @@ each frame's sentinel (its cap) maps to the global sentinel ``B * cap``.
 Weight layout: ``[K, cin, cout]`` with tap order ``kernel_map.OFFSETS3`` /
 ``OFFSETS2`` (x-major), as in the JAX package.  The kernel wrappers are
 called through their modules, so a caller can swap in the plain versions.
+
+:data:`BF16_OPERANDS` picks the route.  Off (the default, on every device)
+every conv runs the f32 kernels above.  On, it is the route the JAX package
+takes on its TPU (``lidal_tpu/ops/conv.py:51`` ``USE_PALLAS``): operands
+staged in bf16, sums and the epilogue in f32, on the bf16 kernels, forward
+``cuda_conv_bf16.conv_gather_first`` (with the eval-BN epilogue in
+inference) and backward ``cuda_conv_dxdw_fused.conv_dx_dw_fused`` (dW alone
+where the input needs no gradient); SPVCNN's ``gather8`` then reads a bf16
+table (``ops/devoxelize.py``).  Activations between layers stay f32.  A
+shape that a bf16 kernel does not take raises: the route never falls back
+to the f32 kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lidal_tpu_torch.ops import cuda_conv, cuda_conv_dxdw
+from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused
+
+# The bf16 route (operands rounded to bf16, f32 sums): the counterpart of
+# lidal_tpu/ops/conv.py:USE_PALLAS.  A forward takes the route it finds here,
+# and its backward the same.
+BF16_OPERANDS: bool = False
 
 
 def _flatten_nbr(nbr: torch.Tensor, cap_src: int) -> torch.Tensor:
@@ -53,19 +69,28 @@ def _up_nbr(parent: torch.Tensor, pdelta: torch.Tensor, k: int, cap_coarse: int)
 class _GatherConv(torch.autograd.Function):
     """``out[i] = sum_k feats[fwd[i, k]] @ w[k]``; the backward runs
     ``conv_dx_dw`` over ``bwd`` with ``w2 = w^T`` (flipped when ``mirror``)
-    and takes ``dW = dwg`` (flipped back when ``mirror``)."""
+    and takes ``dW = dwg`` (flipped back when ``mirror``).  Under
+    :data:`BF16_OPERANDS` the two are ``conv_gather_first`` and
+    ``conv_dx_dw_fused``."""
 
     @staticmethod
     def forward(ctx, feats, w, fwd, bwd, mirror: bool):
         ctx.save_for_backward(feats, w, bwd)
         ctx.mirror = mirror
+        ctx.bf16 = BF16_OPERANDS
+        if ctx.bf16:
+            return cuda_conv_bf16.conv_gather_first(feats, w, fwd)
         return cuda_conv.subm_conv(feats, w, fwd)
 
     @staticmethod
     def backward(ctx, dy):
         feats, w, bwd = ctx.saved_tensors
         w2 = (w.flip(0) if ctx.mirror else w).transpose(1, 2).contiguous()
-        dx, dwg = cuda_conv_dxdw.conv_dx_dw(dy.contiguous(), w2, bwd, feats, ctx.needs_input_grad[0])
+        need_dx = ctx.needs_input_grad[0]
+        if ctx.bf16:
+            dx, dwg = cuda_conv_dxdw_fused.conv_dx_dw_fused(dy.contiguous(), w2, bwd, feats, "dx_dw", need_dx)
+        else:
+            dx, dwg = cuda_conv_dxdw.conv_dx_dw(dy.contiguous(), w2, bwd, feats, need_dx)
         return dx, (dwg.flip(0) if ctx.mirror else dwg), None, None, None
 
 
@@ -117,6 +142,8 @@ def up_conv_batched(x, w, child, parent, pdelta) -> torch.Tensor:
 
 def _conv_bn_eval(feats, w, nbr, scale, shift, relu: bool) -> torch.Tensor:
     """relu?((gather-GEMM) * scale + shift), zeroed on rows with no real tap."""
+    if BF16_OPERANDS:
+        return cuda_conv_bf16.conv_gather_first(feats, w, nbr, scale=scale, shift=shift, relu=relu)
     return cuda_conv.subm_conv(feats, w, nbr, scale, shift, relu)
 
 

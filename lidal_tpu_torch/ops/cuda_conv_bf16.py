@@ -1,14 +1,19 @@
 """Gather-first bf16 conv kernels (``csrc/conv_gather_first.cu``) and their plain
 versions.
 
-``conv_gather_first`` replaces ``tools/probe_conv_v3.py:subm_conv_v3`` and
-``conv_byte_planes`` replaces ``tools/probe_int8_gather.py:subm_conv_i8``.
-Both compute ``ops/cuda_conv.subm_conv`` without its epilogue on operands
-rounded to bf16, with f32 sums; the second reads the feature table as two int8
-byte planes of the bf16 bit patterns, a lossless re-encoding, and is bit-equal
-to the first.  A CUDA tensor launches the kernel or raises; a CPU tensor takes
-the plain version: the operands cast to bf16 and back to f32, then
-``subm_conv_plain``.
+``conv_gather_first`` is the forward of the bf16 route (``ops/conv.py``,
+``BF16_OPERANDS``): there it takes the place of
+``lidal_tpu/ops/pallas_conv.py:subm_conv_pallas`` in every conv of MinkUNet
+and SPVCNN, with the eval-BN epilogue (``scale``, ``shift``, ``relu`` and
+the row-valid mask of ``pallas_conv.py:162-166``) in inference.  It also
+replaces ``tools/probe_conv_v3.py:subm_conv_v3``, and ``conv_byte_planes``
+replaces ``tools/probe_int8_gather.py:subm_conv_i8``.  Both compute
+``ops/cuda_conv.subm_conv`` on operands rounded to bf16, with f32 sums (the
+epilogue on the f32 sums, bf16 table only); the second reads the feature
+table as two int8 byte planes of the bf16 bit patterns, a lossless
+re-encoding, and is bit-equal to the first.  A CUDA tensor launches the
+kernel or raises; a CPU tensor takes the plain version: the operands cast to
+bf16 and back to f32, then ``subm_conv_plain``.
 
 The kernel is the bf16 gather-GEMM tile of ``csrc/gather_gemm_bf16.cuh``:
 row tiles of 64 rows a warpgroup (:func:`tile_rows`), the active taps of a
@@ -145,13 +150,21 @@ def _check(cin: int, w, nbr, what: str, padded: bool = False) -> None:
         raise ValueError(f"w {tuple(w.shape)} does not fit {what} and nbr {tuple(nbr.shape)}")
 
 
-def conv_gather_first_plain(feats, w, nbr, pipelined: bool = False) -> torch.Tensor:
+def _check_epilogue(scale, shift, cout: int) -> None:
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift come together")
+    if scale is not None and (scale.shape != (cout,) or shift.shape != (cout,)):
+        raise ValueError(f"scale/shift must be [{cout}], got {tuple(scale.shape)}, {tuple(shift.shape)}")
+
+
+def conv_gather_first_plain(feats, w, nbr, pipelined: bool = False, scale=None, shift=None,
+                            relu: bool = False) -> torch.Tensor:
     """Plain torch version of :func:`conv_gather_first` (same arguments;
     ``pipelined`` changes no value)."""
     if feats.dim() != 2:
         raise ValueError(f"feats [n, cin] expected, got {tuple(feats.shape)}")
     _check(feats.shape[1], w, nbr, f"feats {tuple(feats.shape)}")
-    return subm_conv_plain(feats.to(torch.bfloat16).float(), w.to(torch.bfloat16).float(), nbr)
+    return subm_conv_plain(feats.to(torch.bfloat16).float(), w.to(torch.bfloat16).float(), nbr, scale, shift, relu)
 
 
 def conv_byte_planes_plain(planes, w, nbr) -> torch.Tensor:
@@ -163,12 +176,18 @@ def conv_byte_planes_plain(planes, w, nbr) -> torch.Tensor:
     return subm_conv_plain(feats, w.to(torch.bfloat16).float(), nbr)
 
 
-def _launch(table, wt, nbr, planes: bool, pipelined: bool) -> torch.Tensor:
+def _launch(table, wt, nbr, planes: bool, pipelined: bool, scale=None, shift=None, relu: bool = False) -> torch.Tensor:
     dev = table.device
     k, cout, cin = wt.shape
     row = 2 * cin if planes else cin
-    for name, x, dtype in (("the table", table, torch.int8 if planes else torch.bfloat16),
-                           ("the packed weights", wt, torch.bfloat16), ("nbr", nbr, torch.int32)):
+    args = [("the table", table, torch.int8 if planes else torch.bfloat16), ("the packed weights", wt, torch.bfloat16),
+            ("nbr", nbr, torch.int32)]
+    _check_epilogue(scale, shift, cout)
+    if scale is not None:
+        if planes:
+            raise ValueError("the byte planes take no epilogue")
+        args += [("scale", scale, torch.float32), ("shift", shift, torch.float32)]
+    for name, x, dtype in args:
         if x.device != dev or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}")
     if table.dim() != 2 or table.shape[1] != row or nbr.dim() != 2 or nbr.shape[1] != k:
@@ -183,12 +202,14 @@ def _launch(table, wt, nbr, planes: bool, pipelined: bool) -> torch.Tensor:
         return out
     bn = column_tile(cout)
     rows = tile_rows(bn, m, cout)
+    epilogue = 0 if scale is None else (2 if relu else 1)
     fn = kernels_build.function(
-        "conv_gather_first", "lidal_conv_gather_first", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        "conv_gather_first", "lidal_conv_gather_first", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dev):
-        err = fn(table.data_ptr(), wt.data_ptr(), nbr.data_ptr(), out.data_ptr(), m, n, k, cin, cout,
-                 int(planes), bn, rows, ring_stages(bn, rows, pipelined), torch.cuda.current_stream().cuda_stream)
+        err = fn(table.data_ptr(), wt.data_ptr(), nbr.data_ptr(), scale.data_ptr() if scale is not None else None,
+                 shift.data_ptr() if shift is not None else None, out.data_ptr(), m, n, k, cin, cout, int(planes),
+                 epilogue, bn, rows, ring_stages(bn, rows, pipelined), torch.cuda.current_stream().cuda_stream)
     global GATHER_FIRST_LAUNCHES, BYTE_PLANES_LAUNCHES
     with kernels_build.LAUNCH_LOCK:
         if planes:
@@ -199,12 +220,13 @@ def _launch(table, wt, nbr, planes: bool, pipelined: bool) -> torch.Tensor:
     return out
 
 
-def gather_first_packed(table, wt, nbr, pipelined: bool = False) -> torch.Tensor:
+def gather_first_packed(table, wt, nbr, pipelined: bool = False, scale=None, shift=None,
+                        relu: bool = False) -> torch.Tensor:
     """The kernel on operands already packed by :func:`pack_table` and
     :func:`pack_weights` (CUDA tensors only)."""
     if table.device.type != "cuda":
         raise ValueError(f"gather_first_packed launches the CUDA kernel, got a tensor on {table.device}")
-    return _launch(table, wt, nbr, False, pipelined)
+    return _launch(table, wt, nbr, False, pipelined, scale, shift, relu)
 
 
 def byte_planes_packed(planes, wt, nbr) -> torch.Tensor:
@@ -215,14 +237,20 @@ def byte_planes_packed(planes, wt, nbr) -> torch.Tensor:
     return _launch(planes, wt, nbr, True, False)
 
 
-def conv_gather_first(feats, w, nbr, pipelined: bool = False) -> torch.Tensor:
+def conv_gather_first(feats, w, nbr, pipelined: bool = False, scale=None, shift=None,
+                      relu: bool = False) -> torch.Tensor:
     """out[i] = sum_k bf16(feats)[nbr[i, k]] @ bf16(w)[k], f32 sums; an index
     outside [0, n) gives 0; map columns in any order.
+
+    With ``scale``/``shift`` ([cout], f32) the eval-BN epilogue follows on the
+    f32 sums: ``y = out * scale + shift``, ``relu`` if asked, then 0 on rows
+    with no real tap.
 
     The gathered rows of each row tile are assembled in shared memory
     first, in stages of 64 (tap, channel) columns over the tile's active taps,
     and contracted by ``wgmma``; ``pipelined`` gives the ring of stages its
-    deepest size and bit-equal output.
+    deepest size and bit-equal output.  The wrapper casts ``feats`` and ``w``
+    to bf16 tables at each call, as the JAX route does.
 
     Args:
       feats: f32 [n, cin].
@@ -230,13 +258,13 @@ def conv_gather_first(feats, w, nbr, pipelined: bool = False) -> torch.Tensor:
       nbr: int32 [m, K] source rows (sentinel n).
     """
     if feats.device.type == "cpu":
-        return conv_gather_first_plain(feats, w, nbr, pipelined)
+        return conv_gather_first_plain(feats, w, nbr, pipelined, scale, shift, relu)
     if feats.device.type != "cuda":
         raise ValueError(f"conv_gather_first runs on CPU or CUDA tensors, got {feats.device}")
     if feats.dim() != 2 or feats.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError(f"feats f32 [n, cin] and w f32 expected, got {feats.dtype} {tuple(feats.shape)}, {w.dtype}")
     _check(feats.shape[1], w, nbr, f"feats {tuple(feats.shape)}")
-    return gather_first_packed(pack_table(feats), pack_weights(w), nbr, pipelined)
+    return gather_first_packed(pack_table(feats), pack_weights(w), nbr, pipelined, scale, shift, relu)
 
 
 def conv_byte_planes(planes, w, nbr) -> torch.Tensor:

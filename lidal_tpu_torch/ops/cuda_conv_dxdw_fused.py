@@ -1,7 +1,11 @@
 """Fused bf16 conv backward kernel (``csrc/conv_dx_dw_fused.cu``) and its plain
 version.
 
-Replaces ``tools/probe_dxdw_features.py:launch`` with its bodies ``kA`` /
+On the bf16 route (``ops/conv.py``, ``BF16_OPERANDS``) it is the backward of
+every conv of a train step, in place of
+``lidal_tpu/ops/pallas_conv.py:conv_dx_dw_pallas`` (mode ``"dx_dw"``, with
+``need_dx=False`` where the conv's input needs no gradient: the stem).  It
+also replaces ``tools/probe_dxdw_features.py:launch`` with its bodies ``kA`` /
 ``kB`` / ``kC`` as ``mode`` ``"dx"`` / ``"dx_zero_dw"`` / ``"dx_dw"``: reduced
 forms of ``ops/cuda_conv_dxdw.conv_dx_dw`` on operands rounded to bf16 with
 f32 sums.  A CUDA tensor launches the kernel or raises; a CPU tensor takes the
@@ -39,6 +43,7 @@ from lidal_tpu_torch.ops.cuda_conv_dxdw import _SEG_ROWS, _check, conv_dx_dw_pla
 LAUNCHES = 0
 
 MODES = ("dx", "dx_zero_dw", "dx_dw")
+DW_ONLY = 3  # the C entry's mode for "dx_dw" with need_dx=False
 
 CHANNEL_ALIGN = 32  # c_src, c_dst and c_f as the kernel takes them
 PAIRS_PER_STAGE = 128  # pairs a dw block stages at a time (kStage in the source)
@@ -64,26 +69,33 @@ def dw_chunks(m: int, k: int, c_f: int, c_src: int):
     return pair_chunks(m, k, c_f, c_src, stage=PAIRS_PER_STAGE)
 
 
-def conv_dx_dw_fused_plain(src, w2, nbr, f, mode: str = "dx_dw"):
-    """Plain torch version of :func:`conv_dx_dw_fused` (same arguments and results)."""
+def _check_mode(mode: str, need_dx: bool) -> None:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if not need_dx and mode != "dx_dw":
+        raise ValueError(f"need_dx=False goes with mode 'dx_dw' (dw alone), got {mode!r}")
+
+
+def conv_dx_dw_fused_plain(src, w2, nbr, f, mode: str = "dx_dw", need_dx: bool = True):
+    """Plain torch version of :func:`conv_dx_dw_fused` (same arguments and results)."""
+    _check_mode(mode, need_dx)
     _check(src, w2, nbr, f)
     dx, dw = conv_dx_dw_plain(src.to(torch.bfloat16).float(), w2.to(torch.bfloat16).float(), nbr,
-                              f.to(torch.bfloat16).float())
+                              f.to(torch.bfloat16).float(), need_dx)
     if mode == "dx":
         return dx, None
     return dx, (torch.zeros_like(dw) if mode == "dx_zero_dw" else dw)
 
 
-def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
+def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw", need_dx: bool = True):
     """Both products of a sparse-conv backward on bf16 operands.
 
       dx[i] = sum_k bf16(src)[nbr[i, k]] @ bf16(w2)[k]       f32 [m, c_dst]
       dw[k] = sum_i bf16(f)[i]^T bf16(src)[nbr[i, k]]        f32 [K, c_f, c_src]
 
     ``mode`` ``"dx"`` returns ``(dx, None)``, ``"dx_zero_dw"`` ``(dx, zeros)``
-    and ``"dx_dw"`` ``(dx, dw)``.  An index outside [0, n) contributes zero;
+    and ``"dx_dw"`` ``(dx, dw)``, or with ``need_dx=False`` ``(None, dw)``: dw
+    alone, dx's tile not launched.  An index outside [0, n) contributes zero;
     map columns need not be sorted.  dx is the bf16 gather-GEMM tile (sums over
     a row's taps in registers, each output written once); dw runs over each
     tap's real pairs, one ``mma.sync.m16n8k16`` per product.
@@ -94,10 +106,9 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
       nbr: int32 [m, K] source rows (sentinel n).
       f: f32 [m, c_f] (the forward input at the map's rows).
     """
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    _check_mode(mode, need_dx)
     if src.device.type == "cpu":
-        return conv_dx_dw_fused_plain(src, w2, nbr, f, mode)
+        return conv_dx_dw_fused_plain(src, w2, nbr, f, mode, need_dx)
     if src.device.type != "cuda":
         raise ValueError(f"conv_dx_dw_fused runs on CPU or CUDA tensors, got {src.device}")
     _check(src, w2, nbr, f)
@@ -120,7 +131,7 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
         w2 = F.pad(w2, (0, cd - c_dst, 0, cs - c_src))
     w2t = w2.transpose(1, 2).to(torch.bfloat16, memory_format=torch.contiguous_format)
     chunks, per_chunk = dw_chunks(m, k, cf, cs)
-    dx = torch.empty((m, cd), dtype=torch.float32, device=dev)
+    dx = torch.empty((m, cd), dtype=torch.float32, device=dev) if need_dx else None
     dw = torch.empty((k, cf, cs), dtype=torch.float32, device=dev) if mode != "dx" else None
     # mode "dx_dw" only: f in bf16, the partials, and one int32 buffer for the map
     # transposed [k, m] (by the launch), the lists [k, m], counts [k] and seg_counts
@@ -141,16 +152,17 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw"):
     with torch.cuda.device(dev):
         err = fn(
             src_b.data_ptr(), w2t.data_ptr(), nbr.data_ptr(), nbr_t, f_b.data_ptr() if with_dw else None,
-            dx.data_ptr(), dw.data_ptr() if dw is not None else None, ws.data_ptr() if ws is not None else None,
-            rows, counts, seg_counts,
-            m, n, k, cs, cd, cf, bn, bm, ring_stages(bn, bm, False), chunks, per_chunk, MODES.index(mode),
+            dx.data_ptr() if need_dx else None, dw.data_ptr() if dw is not None else None,
+            ws.data_ptr() if ws is not None else None, rows, counts, seg_counts,
+            m, n, k, cs, cd, cf, bn, bm, ring_stages(bn, bm, False), chunks, per_chunk,
+            MODES.index(mode) if need_dx else DW_ONLY,
             torch.cuda.current_stream().cuda_stream,
         )
     global LAUNCHES
     with kernels_build.LAUNCH_LOCK:
         LAUNCHES += 1
     kernels_build.check(err, "conv_dx_dw_fused")
-    if cd != c_dst:
+    if need_dx and cd != c_dst:
         dx = dx[:, :c_dst].contiguous()
     if dw is not None and (cf != c_f or cs != c_src):
         dw = dw[:, :c_f, :c_src].contiguous()

@@ -17,6 +17,18 @@ without float atomics in an order the map fixes, so it gives the same bits on
 every run; :func:`scatter8_plain` is ``index_add_``, whose order on a card is
 not fixed, so the two agree within a tolerance scaled by ``sum |w8| |dy|`` per
 target.
+
+The bf16 route rounds what the TPU kernels round: ``bf16_table=True`` reads
+``feats`` as bf16 (``pallas_gather8.py:139``; ``w8`` stays f32, the one-hot
+of ``:105-106`` is exact), which ``ops/devoxelize.py`` asks for under
+``ops/conv.BF16_OPERANDS`` as the JAX package's ``devoxelize.py:126-133``
+does under ``conv.USE_PALLAS``; ``bf16=True`` of :func:`scatter8` reads ``dy``
+as bf16 and rounds ``w8`` to bf16 (``:314`` and the weighted one-hot of
+``:284``), which the backward of :func:`gather8` asks for under
+:data:`SCATTER8_BF16`, the counterpart of ``pallas_gather8.USE_PALLAS_BWD``.
+The kernels take the bf16 rows as a template parameter (half the bytes); the
+products and sums stay f32 in the same order, and the plain versions round
+the same operands.
 """
 
 from __future__ import annotations
@@ -30,9 +42,16 @@ from lidal_tpu_torch import kernels_build
 
 TAPS = 8
 
-# Kernel launches since import (or since a caller reset them).
+# Kernel launches since import (or since a caller reset them); the bf16-row
+# instances count apart.
 GATHER8_LAUNCHES = 0
 SCATTER8_LAUNCHES = 0
+GATHER8_BF16_LAUNCHES = 0
+SCATTER8_BF16_LAUNCHES = 0
+
+# The backward of :func:`gather8` reads dy as bf16 and rounds w8 to bf16: the
+# counterpart of lidal_tpu/ops/pallas_gather8.py:USE_PALLAS_BWD (off: f32).
+SCATTER8_BF16: bool = False
 
 _MAX_SCATTER_C = 1024  # a warp covers a row in at most 8 float4 slices a lane
 
@@ -46,11 +65,13 @@ def _check(rows, nbr, w8) -> None:
 
 
 def _check_cuda(what: str, rows, nbr, w8) -> None:
-    for name, x, dtype in ((what, rows, torch.float32), ("nbr", nbr, torch.int32), ("w8", w8, torch.float32)):
+    """``rows`` f32, or bf16 (the route's tables)."""
+    row_type = torch.bfloat16 if rows.dtype == torch.bfloat16 else torch.float32
+    for name, x, dtype in ((what, rows, row_type), ("nbr", nbr, torch.int32), ("w8", w8, torch.float32)):
         if x.device != rows.device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {rows.device}")
-    if rows.shape[1] % 4 or rows.data_ptr() % 16:
-        raise ValueError(f"the kernel needs c % 4 == 0 and 16-byte aligned rows (float4 loads); c = {rows.shape[1]}")
+    if rows.shape[1] % 4 or rows.data_ptr() % (4 * rows.element_size()):
+        raise ValueError(f"the kernel needs c % 4 == 0 and rows aligned to 4 values (vector loads); c = {rows.shape[1]}")
     if nbr.numel() >= 2**31:
         raise ValueError(f"the map has {nbr.numel()} (row, tap) pairs, the kernel indexes them in 32 bits")
 
@@ -59,11 +80,17 @@ def _safe_index(nbr: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where((nbr >= 0) & (nbr < n), nbr, n).long()
 
 
-def gather8_plain(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def gather8_plain(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16_table: bool = False) -> torch.Tensor:
     """Plain torch version of :func:`gather8_forward`: an explicit loop over
     the taps in ascending k, a product and a sum per tap (no ``einsum``, whose
     order is the library's), so the kernel can match it bit for bit."""
     _check(feats, nbr, w8)
+    if bf16_table:
+        feats = _bf16(feats)
     n = feats.shape[0]
     fx = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
     idx = _safe_index(nbr, n)
@@ -74,8 +101,10 @@ def gather8_plain(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) -> t
     return out
 
 
-def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16_table: bool = False) -> torch.Tensor:
     """out[i] = sum_k w8[i, k] * feats[nbr[i, k]], f32 [m, c]; no gradient.
+    With ``bf16_table`` the kernel reads ``feats`` rounded to bf16 (the
+    wrapper casts it at each call).
 
     Args:
       feats: f32 [n, c], c % 4 == 0 on a card.
@@ -83,10 +112,14 @@ def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) ->
       w8: f32 [m, 8] weights.
     """
     if feats.device.type == "cpu":
-        return gather8_plain(feats, nbr, w8)
+        return gather8_plain(feats, nbr, w8, bf16_table)
     if feats.device.type != "cuda":
         raise ValueError(f"gather8 runs on CPU or CUDA tensors, got {feats.device}")
     _check(feats, nbr, w8)
+    if feats.dtype != torch.float32:
+        raise ValueError(f"feats must be f32, got {feats.dtype}")
+    if bf16_table:
+        feats = feats.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _check_cuda("feats", feats, nbr, w8)
     n, c = feats.shape
     m = nbr.shape[0]
@@ -94,23 +127,28 @@ def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) ->
     if m * c == 0:
         return out
     fn = kernels_build.function(
-        "gather8", "lidal_gather8", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        "gather8", "lidal_gather8", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     with torch.cuda.device(feats.device):
-        err = fn(feats.data_ptr(), nbr.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, c,
+        err = fn(feats.data_ptr(), nbr.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, c, int(bf16_table),
                  torch.cuda.current_stream().cuda_stream)
-    global GATHER8_LAUNCHES
+    global GATHER8_LAUNCHES, GATHER8_BF16_LAUNCHES
     with kernels_build.LAUNCH_LOCK:
-        GATHER8_LAUNCHES += 1
+        if bf16_table:
+            GATHER8_BF16_LAUNCHES += 1
+        else:
+            GATHER8_LAUNCHES += 1
     kernels_build.check(err, "gather8")
     return out
 
 
-def scatter8_plain(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> torch.Tensor:
+def scatter8_plain(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16: bool = False) -> torch.Tensor:
     """Plain torch version of :func:`scatter8`: the ``[m, 8, c]`` weighted
     cotangent added into its targets by ``index_add_``, sentinels dropped (the
     form the JAX package uses off the TPU)."""
     _check(dy, nbr, w8)
+    if bf16:
+        dy, w8 = _bf16(dy), _bf16(w8)
     c = dy.shape[1]
     contrib = (w8.to(dy.dtype)[:, :, None] * dy[:, None, :]).reshape(-1, c)
     out = dy.new_zeros((n + 1, c))
@@ -165,9 +203,11 @@ def transpose_map(nbr: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor
     return order, offsets
 
 
-def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> torch.Tensor:
+def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16: bool = False) -> torch.Tensor:
     """dfeats[t] = sum over the pairs with nbr[i, k] == t of w8[i, k] * dy[i],
     f32 [n, c]: the gradient of :func:`gather8` with respect to ``feats``.
+    With ``bf16`` the kernel reads ``dy`` (cast by the wrapper at each call)
+    and ``w8`` rounded to bf16.
 
     Args:
       dy: f32 [m, c], c % 4 == 0 and c <= 1024 on a card.
@@ -176,10 +216,14 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> t
       n: rows of the result.
     """
     if dy.device.type == "cpu":
-        return scatter8_plain(dy, nbr, w8, n)
+        return scatter8_plain(dy, nbr, w8, n, bf16)
     if dy.device.type != "cuda":
         raise ValueError(f"scatter8 runs on CPU or CUDA tensors, got {dy.device}")
     _check(dy, nbr, w8)
+    if dy.dtype != torch.float32:
+        raise ValueError(f"dy must be f32, got {dy.dtype}")
+    if bf16:
+        dy = dy.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _check_cuda("dy", dy, nbr, w8)
     c = dy.shape[1]
     if c > _MAX_SCATTER_C:
@@ -191,15 +235,18 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> t
         return out
     counts, offsets, order, tmp = _map_scratch(nbr, n)
     fn = kernels_build.function(
-        "gather8", "lidal_scatter8", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        "gather8", "lidal_scatter8", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dy.device):
         err = fn(dy.data_ptr(), w8.data_ptr(), nbr.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
-                 order.data_ptr(), tmp.data_ptr(), out.data_ptr(), nbr.shape[0], n, c,
+                 order.data_ptr(), tmp.data_ptr(), out.data_ptr(), nbr.shape[0], n, c, int(bf16),
                  torch.cuda.current_stream().cuda_stream)
-    global SCATTER8_LAUNCHES
+    global SCATTER8_LAUNCHES, SCATTER8_BF16_LAUNCHES
     with kernels_build.LAUNCH_LOCK:
-        SCATTER8_LAUNCHES += 1
+        if bf16:
+            SCATTER8_BF16_LAUNCHES += 1
+        else:
+            SCATTER8_LAUNCHES += 1
     kernels_build.check(err, "scatter8")
     return out
 
@@ -207,21 +254,23 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int) -> t
 class _Gather8(torch.autograd.Function):
     """``gather8_forward`` with ``scatter8`` as its backward.  The map and its
     weights are plan data, never parameters: both get no gradient (the JAX
-    package's ``custom_vjp`` returns a zero weight cotangent by contract)."""
+    package's ``custom_vjp`` returns a zero weight cotangent by contract).
+    The backward's route is :data:`SCATTER8_BF16` as the forward found it."""
 
     @staticmethod
-    def forward(ctx, feats, nbr, w8):
+    def forward(ctx, feats, nbr, w8, bf16_table: bool):
         ctx.save_for_backward(nbr, w8)
         ctx.n = feats.shape[0]
-        return gather8_forward(feats.contiguous(), nbr, w8)
+        ctx.bf16_dy = SCATTER8_BF16
+        return gather8_forward(feats.contiguous(), nbr, w8, bf16_table)
 
     @staticmethod
     def backward(ctx, dy):
         nbr, w8 = ctx.saved_tensors
-        return scatter8(dy.contiguous(), nbr, w8, ctx.n), None, None
+        return scatter8(dy.contiguous(), nbr, w8, ctx.n, ctx.bf16_dy), None, None, None
 
 
-def gather8(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+def gather8(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16_table: bool = False) -> torch.Tensor:
     """Differentiable :func:`gather8_forward`: d/dfeats is :func:`scatter8`;
     ``nbr`` and ``w8`` get ``None``."""
-    return _Gather8.apply(feats, nbr, w8)
+    return _Gather8.apply(feats, nbr, w8, bf16_table)

@@ -15,8 +15,10 @@ carries the leading frame axis ``[B, ...]`` of the :class:`UNetPlan`.
 Both transfers run on one kernel, ``ops/cuda_gather8.gather8``: the trilinear
 devoxelize is the weighted 8-tap gather itself, and the average is a chain of
 8-tap child sums down the voxel tree (weights 1) divided by the precomputed
-ancestor counts.  The wrapper is called through its module, so a caller can
-swap in the plain version.
+ancestor counts.  Under ``ops/conv.BF16_OPERANDS`` both read a bf16 table, as
+the JAX package's ``gather8_pallas`` does under ``conv.USE_PALLAS``
+(``lidal_tpu/ops/devoxelize.py:126-133``).  The wrapper is called through its
+module, so a caller can swap in the plain version.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from lidal_tpu_torch.ops import cuda_gather8
+from lidal_tpu_torch.ops import conv, cuda_gather8
 from lidal_tpu_torch.ops.conv import _flatten_idx, _flatten_nbr
 from lidal_tpu_torch.ops.kernel_map import OFFSETS2, DownPlan, UNetPlan
 
@@ -125,7 +127,7 @@ def devoxelize_trilinear_batched(voxel_feats: torch.Tensor, tri: TriMap) -> torc
     b, cap_l, c = voxel_feats.shape
     m = tri.idx8.shape[1]
     out = cuda_gather8.gather8(
-        voxel_feats.reshape(b * cap_l, c), _flatten_nbr(tri.idx8, cap_l), tri.w8.reshape(b * m, 8)
+        voxel_feats.reshape(b * cap_l, c), _flatten_nbr(tri.idx8, cap_l), tri.w8.reshape(b * m, 8), conv.BF16_OPERANDS
     )
     return out.reshape(b, m, c)
 
@@ -148,7 +150,7 @@ class _ChildSum(torch.autograd.Function):
         ctx.save_for_backward(parent)
         nbr = _flatten_nbr(child, cap_f)
         ones = torch.ones(nbr.shape, dtype=torch.float32, device=x.device)
-        out = cuda_gather8.gather8_forward(x.reshape(b * cap_f, c).contiguous(), nbr, ones)
+        out = cuda_gather8.gather8_forward(x.reshape(b * cap_f, c).contiguous(), nbr, ones, conv.BF16_OPERANDS)
         return out.reshape(b, child.shape[1], c)
 
     @staticmethod

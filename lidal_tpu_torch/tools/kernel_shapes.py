@@ -3,7 +3,7 @@ and the conv backward kernel at the shapes of one B = 5 train step.
 
     python3 lidal_tpu_torch/tools/kernel_shapes.py [ROOT] [--only SECTIONS]   # on an NVIDIA GPU
 
-SECTIONS is a comma-separated subset of ``lookup,conv,backward,nn_band,scatter8,probes``
+SECTIONS is a comma-separated subset of ``lookup,conv,backward,nn_band,scatter8,probes,digests``
 (default: all).
 
 ROOT (default: this checkout) goes first on ``sys.path`` before anything of the
@@ -56,7 +56,14 @@ seed 0).  It prints the card's name and power limit, then
   and the fused backward's device time by kernel over one step's calls.
   Last, a sha256 of the f32 ``conv_dx_dw``'s dx and dwg on seeded inputs (the
   probe's two step shapes, and a 4 %-dense K = 27 map), to hold two packages'
-  outputs bit-equal by their printed digests.
+  outputs bit-equal by their printed digests;
+* ``digests``: a sha256 of the outputs of every kernel that both the f32
+  route and the bf16 probes had before the bf16 route (``subm_conv`` with and
+  without its epilogue, ``conv_dx_dw``, ``gather8``, ``scatter8``,
+  ``conv_gather_first`` without an epilogue, ``conv_dx_dw_fused`` in mode
+  ``dx_dw``) on seeded inputs at the sizes of a B = 4 level-0 conv, through
+  the signatures both packages share: two packages print equal lines where
+  their kernels give equal bits.
 """
 
 from __future__ import annotations
@@ -71,7 +78,7 @@ def _tile_rows(cout: int) -> int:
     return 64 if cout % 128 == 0 or cout % 96 == 0 else 128
 
 
-SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8", "probes")
+SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8", "probes", "digests")
 
 
 def main(root: str, only=SECTIONS) -> None:
@@ -98,6 +105,8 @@ def main(root: str, only=SECTIONS) -> None:
         scatter8_shapes(cs, dev)
     if "probes" in only:
         probe_shapes(cs, dev)
+    if "digests" in only:
+        digests(dev)
 
 
 def forward_shapes(cs, dev, only) -> None:
@@ -333,9 +342,9 @@ def scatter8_shapes(cs, dev) -> None:
     captured = {}
     kernel, plain = cuda_gather8.scatter8, cuda_gather8.scatter8_plain
 
-    def recorder(dy, nbr, w8, n):
+    def recorder(dy, nbr, w8, n, *route):  # route: the bf16 flag of packages that have one
         captured[(dy.shape[0], n, dy.shape[1])] = (dy.clone(), nbr.clone(), w8.clone(), n)
-        return kernel(dy, nbr, w8, n)
+        return kernel(dy, nbr, w8, n, *route)
 
     cuda_gather8.scatter8 = recorder
     try:
@@ -570,6 +579,46 @@ def probe_shapes(cs, dev) -> None:
         print(f"f32 conv_dx_dw digest c_src={src.shape[1]} c_dst={w2.shape[2]} c_f={f.shape[1]} m={nbr.shape[0]}: dx "
               f"{hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()[:16]}, dwg "
               f"{hashlib.sha256(dwg.cpu().numpy().tobytes()).hexdigest()[:16]}")
+
+
+def digests(dev) -> None:
+    """sha256 of each kernel's outputs on seeded inputs (the ``digests`` section)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8
+
+    def sha(*tensors) -> str:
+        return ", ".join(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in tensors)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng = np.random.default_rng(3)
+    n = m = 400000
+    nbr = rng.integers(0, n, (m, 27)).astype(np.int32)
+    nbr[rng.random((m, 27)) >= 0.04] = n
+    nbr, feats = t(nbr), t(rng.standard_normal((n, 64), dtype=np.float32))
+    w = t((rng.standard_normal((27, 64, 96), dtype=np.float32) / 40).astype(np.float32))
+    scale, shift = t(rng.uniform(0.5, 1.5, 96).astype(np.float32)), t(rng.normal(scale=0.1, size=96).astype(np.float32))
+    print(f"digest subm_conv K=27 64->96 m={m}: none {sha(cuda_conv.subm_conv(feats, w, nbr))}, affine + relu "
+          f"{sha(cuda_conv.subm_conv(feats, w, nbr, scale, shift, True))}")
+    print(f"digest conv_gather_first K=27 64->96 m={m}: {sha(cuda_conv_bf16.conv_gather_first(feats, w, nbr))}")
+    dy = t(rng.standard_normal((m, 96), dtype=np.float32))
+    w2 = w.transpose(1, 2).contiguous()
+    print(f"digest conv_dx_dw c_src=96 c_dst=64 c_f=64 m={m}: dx, dwg {sha(*cuda_conv_dxdw.conv_dx_dw(dy, w2, nbr, feats))}; "
+          f"dwg alone {sha(cuda_conv_dxdw.conv_dx_dw(dy, w2, nbr, feats, False)[1])}")
+    print(f"digest conv_dx_dw_fused dx_dw c_src=96 c_dst=64 c_f=64 m={m}: "
+          f"{sha(*cuda_conv_dxdw_fused.conv_dx_dw_fused(dy, w2, nbr, feats, 'dx_dw'))}")
+    m8, n8 = 480000, 12000
+    nbr8 = rng.integers(0, n8, (m8, 8)).astype(np.int32)
+    nbr8[rng.random((m8, 8)) >= 0.7] = n8
+    nbr8, w8 = t(nbr8), t(rng.random((m8, 8), dtype=np.float32))
+    table, dy8 = t(rng.standard_normal((n8, 256), dtype=np.float32)), t(rng.standard_normal((m8, 128), dtype=np.float32))
+    print(f"digest gather8 m={m8} n={n8} c=256: {sha(cuda_gather8.gather8_forward(table, nbr8, w8))}")
+    print(f"digest scatter8 m={m8} n={n8} c=128: {sha(cuda_gather8.scatter8(dy8, nbr8, w8, n8))}")
 
 
 if __name__ == "__main__":

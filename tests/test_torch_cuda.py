@@ -27,7 +27,13 @@ fewer pairs than its bands hold, also at nuScenes's map coordinates, where
 ``conv_dx_dw_fused``) within 1e-5 of the abs-sum form of their plain versions
 (products of bf16 values are exact in f32, so only the order of the f32 sums
 differs); ``pipelined`` bit-equal to not, the byte planes bit-equal to the bf16
-table, and the fused backward's dw bit-equal across two runs.
+table, and the fused backward's dw bit-equal across two runs.  On the bf16
+route (``ops/conv.BF16_OPERANDS``): the gather-first conv with the eval-BN
+epilogue within 1e-5 of ``abs-sum * |scale| + |shift|`` of its plain version,
+the fused backward's dw alone bit-equal to its dw with dx, ``gather8`` on a
+bf16 table bit-equal to its plain version, ``scatter8`` on bf16 rows as the
+f32 one, and no f32 conv, backward, ``gather8`` or ``scatter8`` launch on the
+route.
 """
 
 import copy
@@ -872,3 +878,123 @@ def test_bf16_tiles_on_edge_maps(card, case):
         assert not got.any() and not dw.any()
     if case == "empty tap":
         assert not dw[5].any() and dw.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("case", ["stem", "wide", "ragged m", "192-row tiles", "sparse K=27", "all sentinel", "down", "up",
+                                  "unsorted"])
+def test_bf16_epilogue_matches_plain_and_masks_empty_rows(card, case, relu):
+    """The bf16 route's eval conv: ``conv_gather_first`` with the BN epilogue
+    (``acc * scale + shift``, relu, 0 on rows with no real tap) within 1e-5 of
+    ``abs-sum * |scale| + |shift|`` of its plain version, exact zeros on the
+    empty rows, bit-equal on a rerun."""
+    m, n, k, cin, cout, _ = BF16_EDGE_CASES[case]
+    rng = np.random.default_rng(len(case) + m + relu)
+    nbr = _edge_map(rng, case, m, n, k).to(card)
+    feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)).to(card)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(card)
+    shift = torch.from_numpy(rng.normal(scale=0.1, size=cout).astype(np.float32)).to(card)
+    cb = cuda_conv_bf16
+    before = cb.GATHER_FIRST_LAUNCHES
+    got = cb.conv_gather_first(feats, w, nbr, scale=scale, shift=shift, relu=relu)
+    torch.cuda.synchronize()
+    assert cb.GATHER_FIRST_LAUNCHES == before + 1
+    want = cb.conv_gather_first_plain(feats, w, nbr, scale=scale, shift=shift, relu=relu)
+    bound = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr) * scale.abs() + shift.abs()
+    assert got.shape == (m, cout) and bool(got.isfinite().all())
+    assert bool(((got - want).abs() <= 1e-5 * bound).all()), float((got - want).abs().max())
+    empty = ~((nbr >= 0) & (nbr < n)).any(1)
+    assert not got[empty].any() and (case != "all sentinel" or bool(empty.all()))
+    if relu:
+        assert bool((got >= 0).all())
+    assert torch.equal(cb.conv_gather_first(feats, w, nbr, scale=scale, shift=shift, relu=relu), got)
+    with pytest.raises(ValueError):  # the byte planes take no epilogue
+        cb._launch(cb.to_byte_planes(feats), cb.pack_weights(w), nbr, True, False, scale, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stem", "sparse K=27", "down", "up", "all sentinel"])
+def test_fused_backward_dw_alone_equals_dx_dw(card, case):
+    """``need_dx=False`` (the stem's backward on the bf16 route) launches dw's
+    kernels alone: dx is None and dw bit-equal to mode ``dx_dw``'s."""
+    m, n, k, cin, cout, c_f = BF16_EDGE_CASES[case]
+    rng = np.random.default_rng(len(case) + 3 * m)
+    nbr = _edge_map(rng, case, m, n, k).to(card)
+    src = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(card)
+    w2 = torch.from_numpy((rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)).to(card)
+    f = torch.from_numpy(rng.standard_normal((m, c_f)).astype(np.float32)).to(card)
+    fz = cuda_conv_dxdw_fused
+    before = fz.LAUNCHES
+    dx, dw = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw", need_dx=False)
+    torch.cuda.synchronize()
+    assert dx is None and fz.LAUNCHES == before + 1
+    _, dw_all = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
+    assert torch.equal(dw, dw_all)
+    want = fz.conv_dx_dw_fused_plain(src, w2, nbr, f, "dx_dw", need_dx=False)[1]
+    bound = fz.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs(), "dx_dw", need_dx=False)[1]
+    assert bool(((dw - want).abs() <= 1e-5 * bound).all())
+    with pytest.raises(ValueError):
+        fz.conv_dx_dw_fused(src, w2, nbr, f, "dx", need_dx=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,c", [(5000, 300, 256), (777, 2000, 128), (64, 64, 4), (300, 7, 1024)])
+def test_bf16_gather8_and_scatter8_kernels_match_plain(card, m, n, c):
+    """The bf16-row instances: ``gather8`` on a bf16 table bit-equal to its
+    plain version (the same rounded products and sums, in order); ``scatter8``
+    on bf16 ``dy`` and bf16-rounded ``w8`` within 1e-5 of ``sum |w8| |dy|``
+    per target and bit-equal across runs; each counts in its own counter."""
+    rng = np.random.default_rng(m + c + 1)
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card)
+    dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
+    nbr = _random_map(rng, m, n).to(card)
+    w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
+    g8 = cuda_gather8
+    counts = g8.GATHER8_LAUNCHES, g8.SCATTER8_LAUNCHES, g8.GATHER8_BF16_LAUNCHES, g8.SCATTER8_BF16_LAUNCHES
+    out = g8.gather8_forward(feats, nbr, w8, True)
+    dfe = g8.scatter8(dy, nbr, w8, n, True)
+    torch.cuda.synchronize()
+    assert (g8.GATHER8_LAUNCHES, g8.SCATTER8_LAUNCHES, g8.GATHER8_BF16_LAUNCHES, g8.SCATTER8_BF16_LAUNCHES) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert torch.equal(out, g8.gather8_plain(feats, nbr, w8, True))
+    assert not torch.equal(out, g8.gather8_forward(feats, nbr, w8))  # the table was rounded
+    want = g8.scatter8_plain(dy, nbr, w8, n, True)
+    bound = g8.scatter8_plain(dy.abs(), nbr, w8.abs(), n, True)
+    assert bool(((dfe - want).abs() <= 1e-5 * bound).all()), float((dfe - want).abs().max())
+    assert torch.equal(g8.scatter8(dy, nbr, w8, n, True), dfe)
+
+
+@pytest.mark.cuda
+def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
+    """Under ``conv.BF16_OPERANDS`` and ``cuda_gather8.SCATTER8_BF16`` an eval
+    forward of MinkUNet and one SPVCNN train step launch the bf16 kernels
+    and none of the f32 conv, backward, gather8 or scatter8 kernels."""
+    monkeypatch.setattr(conv, "BF16_OPERANDS", True)
+    monkeypatch.setattr(cuda_gather8, "SCATTER8_BF16", True)
+
+    def counters():
+        return (cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES,
+                cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES, cuda_gather8.GATHER8_BF16_LAUNCHES,
+                cuda_gather8.SCATTER8_BF16_LAUNCHES)
+
+    torch.manual_seed(0)
+    before = counters()
+    eb = prepare_eval_batch(None, *(t.to(card) for t in _frames(53)), level_caps=CAPS, augment=False)
+    with torch.inference_mode():
+        logits, _ = MinkUNet(num_classes=19).eval().to(card)(eb.feats, eb.plan)
+    mid = counters()
+    assert mid[:4] == before[:4] and mid[4] - before[4] == 42 and mid[5:] == before[5:]
+    assert bool(logits.isfinite().all()) and not logits[~eb.plan.levels[0].valid].any()
+    xyz, sig, valid = (t.to(card) for t in _frames(54))
+    labels = torch.randint(0, 19, valid.shape, generator=torch.Generator().manual_seed(1)).to(card)
+    tb = prepare_train_batch(None, xyz, sig, valid, labels, level_caps=CAPS, augment=False, with_points=True)
+    model = SPVCNN(num_classes=19, dropout_rate=0.0).to(card).train()
+    logits, _ = forward_batch(model, tb)
+    torch.nn.functional.cross_entropy(logits[tb.plan.levels[0].valid], tb.labels[tb.plan.levels[0].valid].long()).backward()
+    torch.cuda.synchronize()
+    after = counters()
+    assert after[:4] == mid[:4], f"an f32 kernel launched on the bf16 route: {mid} -> {after}"
+    assert after[4] - mid[4] == 42 and after[5] - mid[5] == 42 and after[6] - mid[6] == 8 and after[7] - mid[7] == 2
+    assert all(bool(p.grad.isfinite().all()) for p in model.parameters() if p.grad is not None)
