@@ -96,13 +96,18 @@ Phases 14-18 drive the second model family, SPVCNN (``model_name="SPVCNN"``),
 through the same entry points; they run beside the MinkUNet phase whose batch
 or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
 
-14. ``gather8`` kernel vs its plain version at every (m, n, c) of one
-    full-width SPVCNN forward (B = 4: two trilinear devoxelizes and the 4 + 2
-    child sums of the two point->voxel averages), plus an all-sentinel map
-    and an unsorted map with duplicate and out-of-range targets: bit-equal.
-    Kernel, plain and bound times per shape and per forward; ``library_ms``
-    is ``F.embedding_bag(nbr, feats_ext, per_sample_weights=w8, mode="sum",
-    padding_idx=n)``, the one PyTorch call of the same function.
+14. ``gather8`` and ``child_sum`` kernels vs their plain versions at every
+    call of one full-width SPVCNN forward (B = 4: ``gather8`` for the two
+    trilinear devoxelizes, ``child_sum`` for the two point->voxel averages,
+    each a chain of 4 or 2 levels in one launch), plus an all-sentinel map,
+    an unsorted map with duplicate and out-of-range targets and an inf weight:
+    bit-equal, sign of zero included, and on a rerun; each chain also bit-equal
+    to its levels run as one ``gather8`` launch each, which is timed beside
+    it.  Kernel, plain and bound times per call and per forward, and the
+    trilinear shapes on full maps and the chains on full trees;
+    ``library_ms`` is ``F.embedding_bag(nbr, feats_ext, per_sample_weights=w8,
+    mode="sum", padding_idx=n)`` for ``gather8``, and ``index_add_`` of the
+    points into their ancestors for ``child_sum``.
 15. ``scatter8`` kernel vs its plain version (``index_add_``) at both shapes
     of one SPVCNN train step (B = 5): within SCATTER_TOL * sum |w8| |dy| per
     target (the plain version adds with atomics in no fixed order, and a
@@ -115,9 +120,10 @@ or tree they share (14 and 16 after 6, 15 and 17 after 9, 18 after 13).
     that ``embedding_bag`` call.
 16. the SPVCNN eval slice: ``run_eval`` with ``model_name="SPVCNN"``, one
     warm-up batch and 3 timed batches; points/s, overflow, launches
-    (``gather8`` 8 per batch); kernel path vs plain path logits as phase 6.
-17. the SPVCNN train slice as phase 8 (``gather8`` 8 and ``scatter8`` 2
-    launches per step, dropout on, per-frame seeds), and the train step of
+    (``gather8`` and ``child_sum`` 2 each per batch); kernel path vs plain
+    path logits as phase 6.
+17. the SPVCNN train slice as phase 8 (``gather8``, ``child_sum`` and
+    ``scatter8`` 2 launches each per step, dropout on, per-frame seeds), and the train step of
     phase 9 with fixed dropout seeds.
 18. ``run_fused_lidal_round`` with SPVCNN on phase 12's tree: prob maps finite
     with rows summing to 1, some supervoxel selected, frames/s.
@@ -218,7 +224,7 @@ bf16, sums in f32) at full width with the seeded weights, batches and caps of
 phases 5, 8, 12, 16 and 17; every earlier phase runs on the f32 route, the
 default, as before.  Its parts run beside the phase whose model or tree they
 share (a and b after 6 and 16, a and c after 9 and 17, d after 29 (iii)); on
-the route no f32 conv, backward, gather8 or scatter8 may launch.
+the route no f32 conv, backward, gather8, child_sum or scatter8 may launch.
 
 30. (a) every routed call at the shapes of one B = 4 forward and one B = 5
     step against its plain bf16 version, with the gates of phases 19-21
@@ -227,7 +233,10 @@ the route no f32 conv, backward, gather8 or scatter8 may launch.
     epilogue (rows with no real tap exactly 0; the wrapper's casts timed
     apart, the f32 ``subm_conv`` beside it), ``conv_dx_dw_fused`` (the stem's
     dW alone, beside its dx + dW call; the f32 ``conv_dx_dw`` beside it),
-    ``gather8`` on a bf16 table (bit-equal) and ``scatter8`` on bf16 rows.
+    ``gather8`` and ``child_sum`` as in phase 14 on bf16-rounded tables
+    (bit-equal) and ``scatter8`` on bf16-rounded rows, none allocating more
+    than its f32 instance (the kernels round f32 rows in registers: no bf16
+    copy).
     (b) ``run_eval`` with MinkUNet and SPVCNN at B = 4 on both routes in
     turns (f32, bf16, bf16, f32): points/s; one batch's logits on the route
     against the f32 route's (max difference over the largest logit, rms,
@@ -240,8 +249,8 @@ the route no f32 conv, backward, gather8 or scatter8 may launch.
     both rounds' selections within the budget, and the selected supervoxels
     against phase 12's f32 round (counts and |A n B| / |A u B|, printed, not
     gated).  The record's ``subm_conv_bf16``, ``conv_dx_dw_bf16``,
-    ``gather8_bf16`` and ``scatter8_bf16`` entries are (a)'s numbers, with
-    the launches of (b)-(d)'s bf16 runs.
+    ``gather8_bf16``, ``child_sum_bf16`` and ``scatter8_bf16`` entries are
+    (a)'s numbers, with the launches of (b)-(d)'s bf16 runs.
 
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
@@ -260,8 +269,9 @@ bounds beside it); the bf16
 probe kernels are held to the bf16 tensor-core rate of 989 TFLOP/s and to the
 bf16 table rows their map names.  ``library_ms`` times one PyTorch call that
 computes the same function where there is one (``torch.searchsorted`` for the
-lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8`` and
-their bf16 instances, on the same rounded operands), used nowhere in the port.  The last two lines of standard output are
+lookup, ``embedding_bag`` and its backward for ``gather8`` / ``scatter8``,
+``index_add_`` for ``child_sum``, and their bf16 instances, on the same
+rounded operands), used nowhere in the port.  The last two lines of standard output are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 
@@ -395,7 +405,8 @@ def require(ok: bool, what: str) -> None:
 
 
 KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8",
-           "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused", "gather8_bf16", "scatter8_bf16")
+           "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused", "gather8_bf16", "scatter8_bf16",
+           "child_sum", "child_sum_bf16")
 
 
 def reset_launches() -> None:
@@ -405,8 +416,8 @@ def reset_launches() -> None:
 
     for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband, cuda_conv_dxdw_fused):
         mod.LAUNCHES = 0
-    cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = 0
-    cuda_gather8.GATHER8_BF16_LAUNCHES = cuda_gather8.SCATTER8_BF16_LAUNCHES = 0
+    cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = cuda_gather8.CHILD_SUM_LAUNCHES = 0
+    cuda_gather8.GATHER8_BF16_LAUNCHES = cuda_gather8.SCATTER8_BF16_LAUNCHES = cuda_gather8.CHILD_SUM_BF16_LAUNCHES = 0
     cuda_conv_bf16.GATHER_FIRST_LAUNCHES = cuda_conv_bf16.BYTE_PLANES_LAUNCHES = 0
 
 
@@ -420,7 +431,8 @@ def read_launches(expected) -> dict:
                                 cuda_nnband.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES,
                                 cuda_gather8.SCATTER8_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES,
                                 cuda_conv_bf16.BYTE_PLANES_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES,
-                                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES)))
+                                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES,
+                                cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES)))
     never = [k for k in expected if counts[k] == 0]
     require(not never, f"kernels of the path that never launched: {never} ({counts})")
     return counts
@@ -643,10 +655,12 @@ def train_slice_phase(cfg, dev, caps, tag="8 slice", n_pts=N_PTS):
     spvcnn = cfg.is_spvcnn
     reset_launches()
     state = run_train(cfg, max_iter=1 + TIMED_STEPS, log_every=1, on_step=on_step, device=dev)
-    launches = read_launches(("lookup_sorted", "subm_conv", "conv_dx_dw") + (("gather8", "scatter8") if spvcnn else ()))
+    launches = read_launches(("lookup_sorted", "subm_conv", "conv_dx_dw") +
+                             (("gather8", "child_sum", "scatter8") if spvcnn else ()))
     require(state.step == 1 + TIMED_STEPS, f"run_train took {state.step} steps")
-    per_step = (launches["gather8"] / state.step, launches["scatter8"] / state.step)
-    require(per_step == ((8, 2) if spvcnn else (0, 0)), f"gather8 and scatter8 launched {per_step} times per step")
+    per_step = tuple(launches[k] / state.step for k in ("gather8", "child_sum", "scatter8"))
+    require(per_step == ((2, 2, 2) if spvcnn else (0, 0, 0)),
+            f"gather8, child_sum and scatter8 launched {per_step} times per step")
     require(all(np.isfinite(x) for x in losses), f"losses {losses}")
     seconds = times[-1] - times[0]
     print(f"[{tag}] run_train ({cfg.dataset_name} {cfg.model_name}): {TIMED_STEPS} steps of {b_train} x {n_pts}-point "
@@ -701,10 +715,11 @@ def train_step_parity_phase(state, tb, tag="9 train step"):
         # copy them, or one run's step would move the next run's start
         opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
         kernels = (cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw, cuda_gather8.gather8_forward,
-                   cuda_gather8.scatter8)
+                   cuda_gather8.child_sum, cuda_gather8.scatter8)
         if plain_forward:
             cuda_conv.subm_conv = cuda_conv.subm_conv_plain
             cuda_gather8.gather8_forward = cuda_gather8.gather8_plain
+            cuda_gather8.child_sum = cuda_gather8.child_sum_plain
         if plain_backward:
             cuda_conv_dxdw.conv_dx_dw = cuda_conv_dxdw.conv_dx_dw_plain
             cuda_gather8.scatter8 = cuda_gather8.scatter8_plain
@@ -714,7 +729,7 @@ def train_step_parity_phase(state, tb, tag="9 train step"):
             loss.backward()
         finally:
             (cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw, cuda_gather8.gather8_forward,
-             cuda_gather8.scatter8) = kernels
+             cuda_gather8.child_sum, cuda_gather8.scatter8) = kernels
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         stats = {n: b.clone() for n, b in model.named_buffers()}
         opt.step()
@@ -1172,64 +1187,200 @@ def dense_map_inputs(m, rows, c, dev, targets=None):
     return values.to(dev), nbr.to(dev), torch.rand((m, 8), generator=g).to(dev)
 
 
-def gather8_phase(model, eb):
-    """14: every gather8 call of one SPVCNN forward against its plain version,
-    bit for bit, and edge cases.  Returns the kernel's record fields."""
+def allocations(fn) -> int:
+    """Device allocations made while ``fn()`` runs (the caching allocator's count)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def chain_work(children, counts, cap0, c):
+    """(bytes, operations) the child-sum chain needs on these maps: the child
+    row of every node reached from the last level (32 bytes each), every point
+    under the last level read once in f32, the counts, the output; one add
+    per real child per column and one divide per output value."""
+    import torch
+
+    reached = torch.ones(counts.shape, dtype=torch.bool, device=counts.device)
+    caps = [cap0] + [ch.shape[1] for ch in children]
+    node_rows = adds = 0
+    for level in reversed(range(len(children))):
+        node_rows += int(reached.sum())
+        frame, row = reached.nonzero(as_tuple=True)
+        ch = children[level][frame, row]  # [nodes, 8]
+        real = (ch >= 0) & (ch < caps[level])
+        adds += int(real.sum()) * c
+        reached = torch.zeros((counts.shape[0], caps[level]), dtype=torch.bool, device=counts.device)
+        reached[frame[:, None].expand_as(ch)[real], ch[real]] = True
+    points = int(reached.sum())
+    nbytes_ = 32.0 * node_rows + 4.0 * points * c + 4.0 * counts.numel() + 4.0 * counts.numel() * c
+    return nbytes_, adds + counts.numel() * c, points
+
+
+def chain_by_levels(x, children, counts, route):
+    """The child-sum chain as one ``gather8`` launch a level (weights 1), then
+    the divide: the design ``child_sum`` replaces, to compare with."""
+    import torch
+
+    from lidal_tpu_torch.ops import cuda_gather8
+
+    b, c = x.shape[0], x.shape[2]
+    for child in children:
+        nbr = cuda_gather8._flatten_children(child, x.shape[1])
+        ones = torch.ones(nbr.shape, dtype=torch.float32, device=x.device)
+        x = cuda_gather8.gather8_forward(x.reshape(-1, c), nbr, ones, route).reshape(b, child.shape[1], c)
+    return x / counts.clamp_min(1).to(x.dtype)[..., None]
+
+
+def full_tree_inputs(x_shape, caps, dev):
+    """(x, children, counts) of a chain whose every point has an ancestor at
+    the last level: level l's rows split evenly over level l + 1's (row f
+    under f * cap_{l+1} // cap_l, at most 8 a parent), as frames whose voxels
+    fit the caps would give."""
+    import torch
+
+    b, cap0, c = x_shape
+    g = torch.Generator().manual_seed(SEED + 10)
+    children = []
+    for cap_f, cap_c in zip((cap0,) + tuple(caps[:-1]), caps):
+        f = torch.arange(cap_f)
+        parent = f * cap_c // cap_f
+        slot = f - torch.searchsorted(parent, parent)
+        child = torch.full((cap_c, 8), cap_f, dtype=torch.int32)
+        child[parent, slot] = f.to(torch.int32)
+        children.append(child[None].expand(b, -1, -1).contiguous().to(dev))
+    x = torch.randn(x_shape, generator=g).to(dev)
+    return x, children, torch.ones((b, caps[-1]), dtype=torch.int32, device=dev)
+
+
+def gather_work_phase(model, eb, route=False):
+    """14 (f32 route) and 30 (a) (``route``: the bf16 route): every ``gather8``
+    and ``child_sum`` call of one SPVCNN B = 4 eval forward against its plain
+    version, bit for bit (sign of zero included) and on a rerun; on the route
+    neither allocates more than the f32 instance (no bf16 copy).  ms of the
+    kernel, the plain version, the library call (``embedding_bag`` for the
+    trilinear gathers, ``index_add_`` over the points' ancestors for the
+    chains, on the same rounded operands on the route), the bound (f32 rows on
+    both routes: the kernels read f32 and round in registers); the chains also
+    against the same levels run as one ``gather8`` launch each.  Then the
+    trilinear shapes on full maps and the chains on full trees.  Returns the
+    record fields of ``gather8`` and of ``child_sum`` (or their bf16 twins)."""
     import torch
     import torch.nn.functional as F
 
     from lidal_tpu_torch.data.pipeline import forward_batch
     from lidal_tpu_torch.ops import cuda_gather8
+    from lidal_tpu_torch.ops.conv import _flatten_idx
 
-    captured, calls = {}, {}
+    tag = "30a" if route else "14"
+    g_calls, c_calls = {}, {}
     kernel, plain = cuda_gather8.gather8_forward, cuda_gather8.gather8_plain
+    chain, chain_plain = cuda_gather8.child_sum, cuda_gather8.child_sum_plain
 
-    def recorder(feats, nbr, w8, bf16_table=False):
-        require(not bf16_table, "gather8 on the f32 route asked for a bf16 table")
+    def g_recorder(feats, nbr, w8, bf16_table=False):
+        require(bf16_table == route, f"gather8 asked for bf16_table={bf16_table} on the {'bf16' if route else 'f32'} route")
         key = (nbr.shape[0], feats.shape[0], feats.shape[1])
-        calls[key] = calls.get(key, 0) + 1
-        if key not in captured:
-            captured[key] = (feats.clone(), nbr.clone(), w8.clone())
-        return kernel(feats, nbr, w8)
+        n_, args = g_calls.get(key, (0, None))
+        g_calls[key] = (n_ + 1, args or (feats.clone(), nbr.clone(), w8.clone()))
+        return kernel(feats, nbr, w8, bf16_table)
 
-    cuda_gather8.gather8_forward = recorder
+    def c_recorder(x, children, counts, bf16=False):
+        require(bf16 == route, f"child_sum asked for bf16={bf16} on the {'bf16' if route else 'f32'} route")
+        key = (len(children), x.shape[1], counts.shape[1], x.shape[2])
+        n_, args = c_calls.get(key, (0, None))
+        c_calls[key] = (n_ + 1, args or (x.clone(), [ch.clone() for ch in children], counts.clone()))
+        return chain(x, children, counts, bf16)
+
+    cuda_gather8.gather8_forward, cuda_gather8.child_sum = g_recorder, c_recorder
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), bf16_route() if route else contextlib.nullcontext():
             forward_batch(model, eb)
     finally:
-        cuda_gather8.gather8_forward = kernel
-    require(sum(calls.values()) == 8, f"{sum(calls.values())} gather8 calls in one forward, not 8")
+        cuda_gather8.gather8_forward, cuda_gather8.child_sum = kernel, chain
+    n_g, n_c = sum(v[0] for v in g_calls.values()), sum(v[0] for v in c_calls.values())
+    require((n_g, n_c) == (2, 2), f"{n_g} gather8 and {n_c} child_sum calls in one forward, not 2 and 2")
 
-    k_total = p_total = lib_total = 0.0
-    least = Bound()
+    rnd = _bf16 if route else (lambda t: t)
+    rec = {name: {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": Bound()} for name in ("gather8", "child_sum")}
     with torch.inference_mode():
-        for key in sorted(captured):
-            feats, nbr, w8 = args = captured[key]
+        for key in sorted(g_calls):
+            calls, (feats, nbr, w8) = g_calls[key]
             m, n, c = key
-            out = kernel(*args)
-            want = plain(*args)
-            require(torch.equal(out, want) and bool(out.isfinite().all()),
-                    f"gather8 {key}: {int((out != want).sum())} values differ from the plain version")
+            out = kernel(feats, nbr, w8, route)
+            want = plain(feats, nbr, w8, route)
+            require(torch.equal(out.view(torch.int32), want.view(torch.int32)) and bool(out.isfinite().all())
+                    and torch.equal(kernel(feats, nbr, w8, route), out),
+                    f"gather8 {key}: {int((out != want).sum())} values differ from the plain version, or a rerun differs")
+            if route:
+                require(allocations(lambda: kernel(feats, nbr, w8, True)) == allocations(lambda: kernel(feats, nbr, w8)) == 1,
+                        f"gather8 {key}: the route allocated more than its output")
             real = (nbr >= 0) & (nbr < n)
-            pairs = int(real.sum())
-            rows = int(torch.unique(nbr[real]).numel())  # table rows this map reads
-            b_ms = least.add(nbytes(nbr, w8, out) + 4.0 * rows * c, 2.0 * pairs * c, calls=calls[key])
-            # the one library call of the same function, on a table with the zero row appended
-            fx = torch.cat([feats, feats.new_zeros((1, c))])
+            pairs, rows = int(real.sum()), int(torch.unique(nbr[real]).numel())  # table rows this map reads, in f32
+            b_ms = rec["gather8"]["bound"].add(nbytes(nbr, w8, out) + 4.0 * rows * c, 2.0 * pairs * c, calls=calls)
+            # the one library call of the same function, on the (rounded) table with the zero row appended
+            fx = torch.cat([rnd(feats), feats.new_zeros((1, c))])
             lib = F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n)
             require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), f"gather8 {key}: embedding_bag computes another function")
             del want, lib
-            k_ms = cuda_ms(lambda: kernel(*args))
-            p_ms = cuda_ms(lambda: plain(*args), reps=3)
-            lib_ms = cuda_ms(lambda: F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n), reps=3)
-            k_total += calls[key] * k_ms
-            p_total += calls[key] * p_ms
-            lib_total += calls[key] * lib_ms
-            print(f"[14 gather8] m={m} n={n} c={c} x{calls[key]}: bit-equal to the plain version; kernel {k_ms:.3f} ms, "
-                  f"plain {p_ms:.3f} ms, embedding_bag {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs on {rows} table "
-                  f"rows, weights {'all 1' if bool((w8 == 1).all()) else 'trilinear'})")
+            ms = {"ms": cuda_ms(lambda: kernel(feats, nbr, w8, route)),
+                  "plain": cuda_ms(lambda: plain(feats, nbr, w8, route), reps=3),
+                  "lib": cuda_ms(lambda: F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n),
+                                 reps=3)}
+            for name in ms:
+                rec["gather8"][name] += calls * ms[name]
+            print(f"[{tag} gather8] m={m} n={n} c={c} x{calls}{' bf16 table' if route else ''}: bit-equal to the plain "
+                  f"version and on a rerun{', allocates its output alone' if route else ''}; kernel {ms['ms']:.3f} ms, "
+                  f"plain {ms['plain']:.3f} ms, embedding_bag {ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({pairs} real "
+                  f"pairs on {rows} table rows)")
             del out, fx
-        # edge cases: a map of sentinels only; targets in no order, twice in a row, out of range
+        avg_of = {2: eb.pplan.avg2, 4: eb.pplan.avg4}
+        for key in sorted(c_calls):
+            calls, (x, children, counts) = c_calls[key]
+            levels, cap0, cap_l, c = key
+            b = x.shape[0]
+            out = chain(x, children, counts, route)
+            want = chain_plain(x, children, counts, route)
+            require(torch.equal(out.view(torch.int32), want.view(torch.int32)) and bool(out.isfinite().all())
+                    and torch.equal(chain(x, children, counts, route).view(torch.int32), out.view(torch.int32)),
+                    f"child_sum {key}: {int((out != want).sum())} values differ from the plain version, or a rerun differs")
+            if route:
+                require(allocations(lambda: chain(x, children, counts, True)) == allocations(lambda: chain(x, children, counts))
+                        == 1, f"child_sum {key}: the route allocated more than its output")
+            require(torch.equal(chain_by_levels(x, children, counts, route).view(torch.int32), out.view(torch.int32)),
+                    f"child_sum {key}: differs from its levels run as gather8 launches")
+            work, ops, points = chain_work(children, counts, cap0, c)
+            b_ms = rec["child_sum"]["bound"].add(work, ops, calls=calls)
+            # the library call: the points' sums into their ancestors at the last level, index_add_
+            anc = _flatten_idx(avg_of[levels].anc, cap_l).long().reshape(-1)
+            xr = rnd(x).reshape(-1, c)
+            sums = torch.zeros((b * cap_l + 1, c), device=x.device)
+
+            def lib_call():
+                return sums.zero_().index_add_(0, anc, xr)
+
+            lib = lib_call()[:-1].reshape(b, cap_l, c) / counts.clamp_min(1)[..., None]
+            abs_lib = torch.zeros_like(sums).index_add_(0, anc, xr.abs())[:-1].reshape(b, cap_l, c) / counts.clamp_min(1)[..., None]
+            require(bool(((lib - out).abs() <= (2.0**-6 if route else 1e-5) * abs_lib + 1e-30).all()),
+                    f"child_sum {key}: index_add_ computes another function")
+            del want, lib, abs_lib
+            ms = {"ms": cuda_ms(lambda: chain(x, children, counts, route)),
+                  "plain": cuda_ms(lambda: chain_plain(x, children, counts, route), reps=3),
+                  "lib": cuda_ms(lib_call, reps=3)}
+            levels_ms = cuda_ms(lambda: chain_by_levels(x, children, counts, route))
+            for name in ms:
+                rec["child_sum"][name] += calls * ms[name]
+            print(f"[{tag} child_sum] {levels} levels {cap0} -> {cap_l} rows a frame x{b}, c={c}"
+                  f"{' bf16 levels' if route else ''}: bit-equal to the plain chain and on a rerun"
+                  f"{', allocates its output alone' if route else ''}; kernel {ms['ms']:.3f} ms, the levels as "
+                  f"{levels} gather8 launches {levels_ms:.3f} ms, plain {ms['plain']:.3f} ms, index_add_ "
+                  f"{ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({points} points under the last level)")
+            del out, sums
+        # edge cases: a map of sentinels only; targets in no order, twice in a row, out of range;
+        # a row of sentinels whose weight is inf (its sum is NaN, not +0)
         dev = eb.feats.device
         g = torch.Generator().manual_seed(SEED + 8)
         feats = torch.randn((3000, 256), generator=g).to(dev)
@@ -1238,30 +1389,51 @@ def gather8_phase(model, eb):
         nbr[::7, 3] = nbr[::7, 1]
         nbr[5::11] = 3000
         nbr[2, 0], nbr[3, 1] = -1, 3005
-        nbr, w8 = nbr.to(dev), torch.randn((20000, 8), generator=g).to(dev)
-        out = kernel(feats, nbr, w8)
-        require(torch.equal(out, plain(feats, nbr, w8)) and not bool(out[5::11].any()), "gather8 on an unsorted map")
+        nbr[17] = 3000
+        w8 = torch.randn((20000, 8), generator=g)
+        w8[17, 3] = float("inf")
+        nbr, w8 = nbr.to(dev), w8.to(dev)
+        out, want = kernel(feats, nbr, w8, route), plain(feats, nbr, w8, route)
+        fin = want.isfinite()
+        require(torch.equal(fin, out.isfinite()) and torch.equal(out[fin], want[fin]) and not bool(out[5::11].any())
+                and bool(out[17].isnan().all()), "gather8 on an unsorted map")
         sent = torch.full_like(nbr, 3000)
-        out = kernel(feats, sent, w8)
-        require(not bool(out.any()) and torch.equal(out, plain(feats, sent, w8)), "gather8 on an all-sentinel map")
+        out = kernel(feats, sent, w8.nan_to_num(posinf=1.0), route)
+        require(not bool(out.any()) and torch.equal(out, plain(feats, sent, w8.nan_to_num(posinf=1.0), route)),
+                "gather8 on an all-sentinel map")
         # The synthetic frames overflow the coarse caps, so few points keep a level-4 or level-2
-        # ancestor and the two trilinear maps above are mostly sentinels.  The same shapes with a
-        # full map (every point 8 real corners near its ancestor's row), as frames that fit would give:
-        for (m, n, c) in [k for k in sorted(captured) if k[0] > k[1]]:
-            feats, nbr, w8 = dense_map_inputs(m, n, c, dev)
-            out = kernel(feats, nbr, w8)
-            require(torch.equal(out, plain(feats, nbr, w8)), f"gather8 on a full map {m, n, c}")
-            k_ms = cuda_ms(lambda: kernel(feats, nbr, w8))
+        # ancestor: the trilinear maps above are mostly sentinels and the chains' trees sparse.
+        # The same shapes with full maps and full trees, as frames that fit would give:
+        for (m, n, c) in sorted(g_calls):
+            feats, nbr, w8 = dense_map_inputs(m, n, c, eb.feats.device)
+            out = kernel(feats, nbr, w8, route)
+            require(torch.equal(out, plain(feats, nbr, w8, route)), f"gather8 on a full map {m, n, c}")
+            k_ms = cuda_ms(lambda: kernel(feats, nbr, w8, route))
             b_ms = 1e3 * nbytes(feats, nbr, w8, out) / PEAK_BYTES
-            print(f"[14 gather8] full map m={m} n={n} c={c} ({8 * m // n} pairs per table row): bit-equal; kernel "
+            print(f"[{tag} gather8] full map m={m} n={n} c={c} ({8 * m // n} pairs per table row): bit-equal; kernel "
                   f"{k_ms:.3f} ms, bound {b_ms:.3f} ms")
             del feats, nbr, w8, out
-    print(f"[14 gather8] {len(captured)} shapes, 8 calls per forward, all bit-equal; edge cases bit-equal: unsorted "
-          f"columns with duplicate and out-of-range targets, all-sentinel rows and map; per forward: kernel "
-          f"{k_total:.2f} ms, plain {p_total:.1f} ms, embedding_bag {lib_total:.2f} ms, bound {least.total:.3f} ms "
-          f"(by {least.by})")
-    return {"max_abs_err": 0.0, "ms": k_total, "plain_ms": p_total, "bound_ms": least.total, "bound_by": least.by,
-            "library_ms": lib_total}
+        for key in sorted(c_calls):
+            _, (x, children, counts) = c_calls[key]
+            x, children, counts = full_tree_inputs(tuple(x.shape), [ch.shape[1] for ch in children], x.device)
+            out = chain(x, children, counts, route)
+            require(torch.equal(out.view(torch.int32), chain_plain(x, children, counts, route).view(torch.int32)),
+                    f"child_sum on a full tree {key}")
+            b = x.shape[0]
+            k_ms = cuda_ms(lambda: chain(x, children, counts, route))
+            l_ms = cuda_ms(lambda: chain_by_levels(x, children, counts, route))
+            work, _, points = chain_work(children, counts, x.shape[1], x.shape[2])
+            print(f"[{tag} child_sum] full tree {key[0]} levels {key[1]} -> {key[2]} rows a frame x{b}, c={key[3]} "
+                  f"({points} points under the last level): bit-equal; kernel {k_ms:.3f} ms, the levels as "
+                  f"gather8 launches {l_ms:.3f} ms, bound {1e3 * work / PEAK_BYTES:.3f} ms")
+            del x, children, counts, out
+    g, ch = rec["gather8"], rec["child_sum"]
+    print(f"[{tag} gather8] per forward{' on the bf16 route' if route else ''}: gather8 x2 {g['ms']:.3f} ms + "
+          f"child_sum x2 {ch['ms']:.3f} ms = {g['ms'] + ch['ms']:.3f} ms (no cast: the wrapper is the kernel), bound "
+          f"{g['bound'].total:.3f} + {ch['bound'].total:.3f} ms; plain {g['plain'] + ch['plain']:.1f} ms; library "
+          f"{g['lib'] + ch['lib']:.3f} ms; all bit-equal to the plain versions")
+    return tuple({"max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain"], "bound_ms": r["bound"].total,
+                  "bound_by": r["bound"].by, "library_ms": r["lib"]} for r in (g, ch))
 
 
 def scatter8_phase(state, tb):
@@ -1391,10 +1563,12 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     res = run_eval(cfg, model, batches[1:], dev, gen)
     end.record()
     torch.cuda.synchronize()
-    launches = read_launches(("lookup_sorted", "subm_conv") + (("gather8",) if spvcnn else ()))
+    launches = read_launches(("lookup_sorted", "subm_conv") + (("gather8", "child_sum") if spvcnn else ()))
     seconds = start.elapsed_time(end) / 1e3
-    require(launches["gather8"] == (8 * TIMED_BATCHES if spvcnn else 0) and launches["scatter8"] == 0,
-            f"gather8 launched {launches['gather8']} times in {TIMED_BATCHES} batches")
+    require(launches["gather8"] == launches["child_sum"] == (2 * TIMED_BATCHES if spvcnn else 0)
+            and launches["scatter8"] == 0,
+            f"gather8 and child_sum launched {launches['gather8']} and {launches['child_sum']} times in "
+            f"{TIMED_BATCHES} batches")
     require(res.points == TIMED_BATCHES * b * n_pts, f"points evaluated {res.points}")
     require(0.0 <= res.miou <= 1.0 and int(res.confusion.sum()) > 0, f"mIoU {res.miou}")
     print(f"[{slice_tag}] run_eval ({cfg.dataset_name} {cfg.model_name}): {TIMED_BATCHES} batches x {b} frames x {n_pts} points in "
@@ -1411,16 +1585,17 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
           f"forward {t_fwd:.1f} ms")
 
     # whole forward: kernel path vs plain path
-    kernels = cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward
+    kernels = cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward, cuda_gather8.child_sum
     cuda_merge.lookup_sorted = cuda_merge.lookup_sorted_plain
     cuda_conv.subm_conv = cuda_conv.subm_conv_plain
     cuda_gather8.gather8_forward = cuda_gather8.gather8_plain
+    cuda_gather8.child_sum = cuda_gather8.child_sum_plain
     try:
         eb_p = prepare(batches[1], SEED, spvcnn)
         with torch.inference_mode():
             logits_p, _ = forward_batch(model, eb_p)
     finally:
-        cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward = kernels
+        cuda_merge.lookup_sorted, cuda_conv.subm_conv, cuda_gather8.gather8_forward, cuda_gather8.child_sum = kernels
     for lk, lp in zip(eb.plan.levels, eb_p.plan.levels):
         require(torch.equal(lk.nbr3, lp.nbr3), "rulebooks of the kernel and plain paths differ")
     if spvcnn:
@@ -1462,7 +1637,7 @@ def spvcnn_round_phase(cfg_mink, dev, n_sv):
         frame_index=frame_index, device=dev,
     )
     seconds = time.perf_counter() - t0
-    launches = read_launches(("lookup_sorted", "subm_conv", "nn_band", "gather8"))
+    launches = read_launches(("lookup_sorted", "subm_conv", "nn_band", "gather8", "child_sum"))
     require(launches["nn_band"] == ROUND_FRAMES, f"nn_band launched {launches['nn_band']} times for {ROUND_FRAMES} frames")
     prev = Paths(lidal_runner._prev_cfg(cfg))
     worst_sum = 0.0
@@ -2575,7 +2750,7 @@ def rank_round_phase(cfg, root, dev, selection12):
 
 # ---- 30. the bf16 route (the JAX package's Pallas route on its TPU) ---------------------------------------------
 
-F32_KERNELS = ("subm_conv", "conv_dx_dw", "gather8", "scatter8")  # none may launch on the bf16 route
+F32_KERNELS = ("subm_conv", "conv_dx_dw", "gather8", "scatter8", "child_sum")  # none may launch on the bf16 route
 
 
 @contextlib.contextmanager
@@ -2771,79 +2946,15 @@ def route_backward_phase(state, tb):
             "bound_by": least.by, "library_ms": None}
 
 
-def route_gather8_phase(model, eb):
-    """30 (a): every ``gather8`` call of one SPVCNN B = 4 eval forward on the
-    route, on its bf16 table, bit-equal to its plain version and on a rerun;
-    ms of the wrapper (its cast of the table included) and of the cast, the
-    plain version, ``embedding_bag`` on the same rounded table, the bound.
-    Returns the record fields of ``gather8_bf16``."""
-    import torch
-    import torch.nn.functional as F
-
-    from lidal_tpu_torch.data.pipeline import forward_batch
-    from lidal_tpu_torch.ops import cuda_gather8
-
-    captured, calls = {}, {}
-    kernel, plain = cuda_gather8.gather8_forward, cuda_gather8.gather8_plain
-
-    def recorder(feats, nbr, w8, bf16_table=False):
-        require(bf16_table, "gather8 on the bf16 route without a bf16 table")
-        key = (nbr.shape[0], feats.shape[0], feats.shape[1])
-        calls[key] = calls.get(key, 0) + 1
-        if key not in captured:
-            captured[key] = (feats.clone(), nbr.clone(), w8.clone())
-        return kernel(feats, nbr, w8, True)
-
-    cuda_gather8.gather8_forward = recorder
-    try:
-        with torch.inference_mode(), bf16_route():
-            forward_batch(model, eb)
-    finally:
-        cuda_gather8.gather8_forward = kernel
-    require(sum(calls.values()) == 8, f"{sum(calls.values())} gather8 calls in one forward, not 8")
-    total = {"ms": 0.0, "cast": 0.0, "plain": 0.0, "lib": 0.0}
-    least = Bound()
-    with torch.inference_mode():
-        for key in sorted(captured):
-            feats, nbr, w8 = captured[key]
-            m, n, c = key
-            out = kernel(feats, nbr, w8, True)
-            want = plain(feats, nbr, w8, True)
-            require(torch.equal(out, want) and torch.equal(kernel(feats, nbr, w8, True), out) and bool(out.isfinite().all()),
-                    f"gather8 bf16 {key}: {int((out != want).sum())} values differ from the plain version, or a rerun differs")
-            real = (nbr >= 0) & (nbr < n)
-            pairs, rows = int(real.sum()), int(torch.unique(nbr[real]).numel())
-            b_ms = least.add(nbytes(nbr, w8, out) + 2.0 * rows * c, 2.0 * pairs * c, calls=calls[key])
-            fx = torch.cat([_bf16(feats), feats.new_zeros((1, c))])  # the same rounded table for the library call
-            lib = F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n)
-            require(torch.allclose(lib, out, rtol=1e-4, atol=1e-4), f"gather8 bf16 {key}: embedding_bag computes another function")
-            del want, lib
-            ms = {
-                "ms": cuda_ms(lambda: kernel(feats, nbr, w8, True)),
-                "cast": cuda_ms(lambda: feats.to(torch.bfloat16)),
-                "plain": cuda_ms(lambda: plain(feats, nbr, w8, True), reps=3),
-                "lib": cuda_ms(lambda: F.embedding_bag(nbr, fx, per_sample_weights=w8, mode="sum", padding_idx=n), reps=3),
-            }
-            for name in total:
-                total[name] += calls[key] * ms[name]
-            print(f"[30a gather8] m={m} n={n} c={c} x{calls[key]}: bf16 table, bit-equal to the plain version and on a "
-                  f"rerun; wrapper {ms['ms']:.3f} ms (the table's cast {ms['cast']:.3f}), plain {ms['plain']:.3f} ms, "
-                  f"embedding_bag {ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs on {rows} table rows)")
-            del out, fx
-    print(f"[30a gather8] {len(captured)} shapes, 8 calls per forward, all bit-equal; per forward: wrapper {total['ms']:.2f} "
-          f"ms (casts {total['cast']:.2f}), plain {total['plain']:.1f} ms, embedding_bag {total['lib']:.2f} ms, bound "
-          f"{least.total:.3f} ms (by {least.by})")
-    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
-            "bound_by": least.by, "library_ms": total["lib"]}
-
-
 def route_scatter8_phase(state, tb):
     """30 (a): both ``scatter8`` calls of one SPVCNN B = 5 train step on the route
-    (bf16 ``dy``, ``w8`` rounded to bf16) against the plain version: within
-    PROBE_TOL of ``sum |w8| |dy|``, no further from f64 than F64_FACTOR times
-    the plain version, bit-equal on a rerun; ms beside the plain version and
-    ``embedding_bag``'s backward on the same rounded operands.  Returns the
-    record fields of ``scatter8_bf16``."""
+    (``dy`` and ``w8`` rounded to bf16 as the kernel reads them) against the
+    plain version: within PROBE_TOL of ``sum |w8| |dy|``, no further from f64
+    than F64_FACTOR times the plain version, bit-equal on a rerun and to the f32
+    kernel on operands rounded beforehand, allocating what the f32 instance
+    does (no bf16 copy of ``dy``); ms beside the plain version, the f32
+    instance and ``embedding_bag``'s backward on the same rounded operands.
+    Returns the record fields of ``scatter8_bf16``."""
     import torch
     import torch.nn.functional as F
 
@@ -2866,13 +2977,17 @@ def route_scatter8_phase(state, tb):
         cuda_gather8.scatter8 = kernel
     require(len(captured) == 2, f"{len(captured)} scatter8 shapes in one train step, not 2")
     err = 0.0
-    total = {"ms": 0.0, "plain": 0.0, "lib": 0.0}
+    total = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "f32": 0.0}
     least = Bound()
     for key in sorted(captured):
         dy, nbr, w8, n = captured[key]
         m, _, c = key
         got = kernel(dy, nbr, w8, n, True)
         require(torch.equal(got, kernel(dy, nbr, w8, n, True)), f"scatter8 bf16 {key}: two runs differ")
+        require(torch.equal(got, kernel(_bf16(dy), nbr, _bf16(w8), n)),
+                f"scatter8 bf16 {key}: differs from the f32 kernel on operands rounded beforehand")
+        require(allocations(lambda: kernel(dy, nbr, w8, n, True)) == allocations(lambda: kernel(dy, nbr, w8, n)) == 2,
+                f"scatter8 bf16 {key}: the route allocated more than the f32 instance")
         want = plain(dy, nbr, w8, n, True)
         abs_sum = plain(dy.abs(), nbr, w8.abs(), n, True)
         ref = plain(_bf16(dy).double(), nbr, _bf16(w8).double(), n)
@@ -2885,7 +3000,7 @@ def route_scatter8_phase(state, tb):
         err = max(err, float(d.max()))
         real = (nbr >= 0) & (nbr < n)
         pairs, rows = int(real.sum()), int(real.any(dim=1).sum())
-        b_ms = least.add(nbytes(nbr, w8, got) + 2.0 * rows * c, 2.0 * pairs * c)
+        b_ms = least.add(nbytes(nbr, w8, got) + 4.0 * rows * c, 2.0 * pairs * c)  # the f32 rows of dy it reads
         del want, abs_sum, ref, d
         fx = torch.zeros((n + 1, c), device=dy.device, requires_grad=True)
         bag = F.embedding_bag(nbr, fx, per_sample_weights=_bf16(w8), mode="sum", padding_idx=n)
@@ -2895,16 +3010,19 @@ def route_scatter8_phase(state, tb):
                 f"scatter8 bf16 {key}: the backward of embedding_bag computes another function")
         ms = {
             "ms": cuda_ms(lambda: kernel(dy, nbr, w8, n, True)),
+            "f32": cuda_ms(lambda: kernel(dy, nbr, w8, n)),
             "plain": cuda_ms(lambda: plain(dy, nbr, w8, n, True), reps=3),
             "lib": cuda_ms(lambda: torch.autograd.grad(bag, fx, dyb, retain_graph=True), reps=3),
         }
         del bag, fx, lib
         for name in total:
             total[name] += ms[name]
-        print(f"[30a scatter8] m={m} n={n} c={c}: bf16 dy and w8, within {PROBE_TOL} of sum |w8||dy|, from f64 {e_k:.1e} "
-              f"(plain {e_p:.1e}), bit-equal across runs; kernel {ms['ms']:.3f} ms, plain {ms['plain']:.3f} ms, "
+        print(f"[30a scatter8] m={m} n={n} c={c}: dy and w8 rounded to bf16, within {PROBE_TOL} of sum |w8||dy|, from "
+              f"f64 {e_k:.1e} (plain {e_p:.1e}), bit-equal across runs and to the f32 kernel on rounded operands, no "
+              f"bf16 copy; kernel {ms['ms']:.3f} ms (the f32 instance {ms['f32']:.3f}), plain {ms['plain']:.3f} ms, "
               f"embedding_bag backward {ms['lib']:.3f} ms, bound {b_ms:.3f} ms ({pairs} real pairs from {rows} rows)")
-    print(f"[30a scatter8] 2 calls per train step: kernel {total['ms']:.3f} ms, plain {total['plain']:.2f} ms, "
+    print(f"[30a scatter8] 2 calls per train step: kernel {total['ms']:.3f} ms (the f32 instance {total['f32']:.3f}), "
+          f"plain {total['plain']:.2f} ms, "
           f"embedding_bag backward {total['lib']:.2f} ms, bound {least.total:.3f} ms (by {least.by})")
     return {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain"], "bound_ms": least.total,
             "bound_by": least.by, "library_ms": total["lib"]}
@@ -2940,11 +3058,12 @@ def route_eval_phase(cfg, model, batches, prepare, dev, caps):
             end.record()
             torch.cuda.synchronize()
         if first:
-            launches = read_route_launches(("lookup_sorted", "conv_gather_first") + (("gather8_bf16",) if spvcnn else ()))
+            launches = read_route_launches(("lookup_sorted", "conv_gather_first") +
+                                           (("gather8_bf16", "child_sum_bf16") if spvcnn else ()))
         require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
         rates[route].append(res.points / (start.elapsed_time(end) / 1e3))
     require(launches["conv_gather_first"] == 42 * TIMED_BATCHES and
-            launches["gather8_bf16"] == (8 * TIMED_BATCHES if spvcnn else 0),
+            launches["gather8_bf16"] == launches["child_sum_bf16"] == (2 * TIMED_BATCHES if spvcnn else 0),
             f"launches on the route in {TIMED_BATCHES} batches: {launches}")
     eb = prepare(batches[1], SEED, spvcnn)
     with torch.inference_mode():
@@ -2998,13 +3117,14 @@ def route_train_phase(cfg_train, root, dev):
         torch.cuda.synchronize()
         if first:
             launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused") +
-                                           (("gather8_bf16", "scatter8_bf16") if spvcnn else ()))
+                                           (("gather8_bf16", "child_sum_bf16", "scatter8_bf16") if spvcnn else ()))
         require(state.step == 1 + TIMED_STEPS and all(np.isfinite(losses)), f"{route}: {state.step} steps, losses {losses}")
         runs.append((route, TIMED_STEPS / (times[-1] - times[0]), losses))
         del state
     steps = 1 + TIMED_STEPS
     require(launches["conv_dx_dw_fused"] == 42 * steps and launches["conv_gather_first"] == 42 * steps and
-            (launches["gather8_bf16"], launches["scatter8_bf16"]) == ((8 * steps, 2 * steps) if spvcnn else (0, 0)),
+            tuple(launches[k] for k in ("gather8_bf16", "child_sum_bf16", "scatter8_bf16")) ==
+            ((2 * steps,) * 3 if spvcnn else (0, 0, 0)),
             f"launches on the route in {steps} steps: {launches}")
     bf = [r for r in runs if r[0] == "bf16"]
     f32 = [r for r in runs if r[0] == "f32"]
@@ -3194,13 +3314,13 @@ def main() -> None:
     randomise_bn(spvcnn, SEED + 1)
     spvcnn = spvcnn.to(dev)
     eb_s = prepare(b0, SEED, with_points=True)
-    gather8 = gather8_phase(spvcnn, eb_s)
+    gather8, child_sum = gather_work_phase(spvcnn, eb_s)
     del eb_s
     torch.cuda.empty_cache()
     launches_16, _ = eval_slice_phase(cfg_spv, spvcnn, batches, prepare, dev, caps, "16 slice", "16 forward")
     # ---- 30 (a, b). the bf16 route: SPVCNN's gather8, eval at B = 4 ----------------------------------
     eb_s = prepare(b0, SEED, with_points=True)
-    route_g8 = route_gather8_phase(spvcnn, eb_s)
+    route_g8, route_cs = gather_work_phase(spvcnn, eb_s, route=True)
     del eb_s
     route["eval SPVCNN"] = route_eval_phase(cfg_spv, spvcnn, batches, prepare, dev, caps)
     del spvcnn
@@ -3369,6 +3489,10 @@ def main() -> None:
                 "name": "gather8", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
                 "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": total["gather8"], **gather8,
             },
+            {  # the chain of gather8_pallas calls of lidal_tpu/ops/devoxelize.py:_child_sum, in one launch
+                "name": "child_sum", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": total["child_sum"], **child_sum,
+            },
             {
                 "name": "scatter8", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
                 "replaces": "lidal_tpu/ops/pallas_gather8.py:300", "launches": total["scatter8"], **scatter8,
@@ -3397,6 +3521,10 @@ def main() -> None:
             {
                 "name": "gather8_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
                 "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": on_route["gather8_bf16"], **route_g8,
+            },
+            {
+                "name": "child_sum_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",
+                "replaces": "lidal_tpu/ops/pallas_gather8.py:124", "launches": on_route["child_sum_bf16"], **route_cs,
             },
             {
                 "name": "scatter8_bf16", "route": "cuda", "source": "lidal_tpu_torch/csrc/gather8.cu",

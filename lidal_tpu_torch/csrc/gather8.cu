@@ -1,40 +1,79 @@
-// Weighted 8-tap row gather and its transpose (the SPVCNN point branch).
+// Weighted 8-tap row gather, its transpose, and the child-sum chain of the
+// SPVCNN point branch.
 //
 // Replaces lidal_tpu/ops/pallas_gather8.py:gather8_pallas and scatter8_pallas:
 //
-//   gather8:   out[i]    = sum_{k < 8} w8[i, k] * feats[nbr[i, k]]
-//   scatter8:  dfeats[t] = sum_{(i, k): nbr[i, k] == t} w8[i, k] * dy[i]
+//   gather8:    out[i]    = sum_{k < 8} w8[i, k] * feats[nbr[i, k]]
+//   scatter8:   dfeats[t] = sum_{(i, k): nbr[i, k] == t} w8[i, k] * dy[i]
+//   child sums: out[o]    = (sum over the subtree of o) / max(counts[o], 1)
 //
-// An index outside [0, n) is the sentinel and contributes zero.  The columns of
-// nbr need not be sorted.
+// The last is the chain of gather8_pallas calls with weights 1 that
+// lidal_tpu/ops/devoxelize.py:_child_sum runs down the voxel tree (levels
+// chained 8-tap child sums, then the divide by the ancestor counts), in one
+// launch.  An index outside [0, n) is the sentinel and contributes zero.  The
+// columns of nbr need not be sorted.
 //
-// The TPU kernels turn both into matrix products with one-hot blocks over a
-// band of the sorted map, in bf16.  None of that carries over: an SM gathers
-// rows directly, in f32.  The bf16 route (ops/conv.BF16_OPERANDS and
+// The TPU kernels turn all of this into matrix products with one-hot blocks
+// over a band of the sorted map, in bf16.  None of that carries over: an SM
+// gathers rows directly, in f32.  The bf16 route (ops/conv.BF16_OPERANDS and
 // ops/cuda_gather8.SCATTER8_BF16, the counterparts of lidal_tpu/ops/conv.py:
 // USE_PALLAS and pallas_gather8.py:USE_PALLAS_BWD) rounds what the TPU
 // kernels round: gather8 reads its table as bf16 (pallas_gather8.py:139; the
-// one-hot product of :105-106 is exact, w8 stays f32), scatter8 reads dy as
-// bf16 and rounds w8 to bf16 (:314 and the weighted one-hot of :284).  Both
-// are the same kernels with the rows' type as a template parameter, which
-// halves the bytes the rows take; the products and sums stay f32, in the same
-// order.
+// one-hot product of :105-106 is exact, w8 stays f32), every level of the
+// child-sum chain reads the level below as bf16 (each gather8_pallas call
+// casts its table), scatter8 reads dy as bf16 and rounds w8 to bf16 (:314 and
+// the weighted one-hot of :284).  The kernels read the f32 rows and round each
+// value in registers (to nearest, ties to even, two values a conversion: the
+// bits of a cast), so no bf16 copy of a table is made; the products and sums
+// stay f32, in the same order.  The price is a conversion per value read: on
+// a full map, where each table value is read 8 times, the route's trilinear
+// gather took 0.39-0.40 ms against f32's 0.31 (phase 14 / 30 (a) below).
 //
-// What bounds both on an H100: bytes.  gather8 does 2 operations for every 4
-// bytes it reads; the trilinear call at B = 4 writes 537 MB and reads an 8 MB
-// table that stays in the 50 MB L2.  Measured on an NVIDIA H100 80GB HBM3
-// (700.00 W) with a map that has no sentinel: gather8 0.30 ms against a bound
-// of 0.17 ms (m = 524288, n = 8192, c = 256; chip_smoke.py); scatter8 1.97-1.99
-// ms, 0.33 of it the transposed map, against a bound of 0.22 ms (m = 655360,
-// n = 10240, c = 256, 512 pairs a target; tools/kernel_shapes.py).
+// What bounds them on an H100: bytes.  gather8 does 2 operations for every 4
+// bytes it reads.  Its trilinear calls at B = 4 write 537 and 268 MB and read
+// tables of 8 and 34 MB that stay in the 50 MB L2; on SPVCNN's maps most rows
+// have no real corner.
 //
-// gather8: one warp per output row.  Lanes 0-7 read the row's 8 indices and
-// weights once and share them by shuffle; each lane then owns 16-byte column
-// slices (float4, neighbouring lanes on neighbouring addresses), loads its
-// slice of the 8 source rows (a sentinel tap loads nothing and counts as a
-// zero row) and sums over k in ascending order.  Every product and every sum
-// is rounded on its own (__fmul_rn / __fadd_rn, no FMA contraction), which is
-// the arithmetic of the plain PyTorch version, so the two are bit-equal.
+// gather8: warps stream over the rows, 4 rows a step.  A step's 32 (index,
+// weight) pairs are one coalesced load, one pair a lane, and the next step's
+// are loaded before the current step's sums.  A row with no real tap and
+// finite weights is +0 exactly (+0 plus any w * 0), so it is stored without
+// loads, and a step of four such rows as one contiguous run.  Otherwise each
+// lane owns 16-byte column slices, loads its slice of the 8 source rows (a
+// sentinel tap loads nothing and counts as a zero row) and sums over k in
+// ascending order.  Every product and every sum is rounded on its own
+// (__fmul_rn / __fadd_rn, no FMA contraction), which is the arithmetic of the
+// plain PyTorch version, so the two are bit-equal.  The map is read and the
+// output written with evict-first hints (__ldcs / __stcs), so the hundreds of
+// MB streamed through L2 do not push the table out (plain stores were 4.5 %
+// slower on the B = 4 level-4 call).  The grid is as many blocks as the card
+// holds at once, at most 64 registers a thread: with 80 or 127 (an unrolled
+// column loop) a full map ran 15-70 % slower.  Measured on an NVIDIA H100
+// 80GB HBM3 (700.00 W), chip_smoke.py phase 14: the two trilinear calls of a
+// B = 4 SPVCNN forward 0.222 + 0.134 ms against bounds of 0.173 + 0.100 ms
+// (the first version 0.257-0.268 + 0.178-0.182); a torch zero_() of the
+// 537 MB output alone takes 0.165 ms there.
+//
+// child sums: a warp per row of the chain's last level walks its subtree
+// depth first and keeps one partial sum per level in registers.  The walk is
+// a chain of dependent loads, so each step fetches as much as it can at once:
+// a node's 8 children arrive in lanes 0-7, and above the points the 8
+// children's own child rows in one load (two indices a lane); at the lowest
+// level the 8 point rows are loaded together; the warp's next row's children
+// are loaded before the current subtree is walked.  Each level's sum runs
+// over its 8 children in ascending order, a sentinel child adding +0, every
+// add rounded on its own: the chain's order, so the result is bit-equal to
+// the levels run one after another.  Only the last level is written, divided
+// by its count in the epilogue (IEEE division, the bits of torch's).  A point
+// without an ancestor at the last level is never read, where the chain read
+// and wrote every level in full, empty rows included.  The backward is not
+// here: it is one row gather through the points' ancestors
+// (ops/devoxelize.py).  Measured as above: the two chains of a B = 4 forward
+// 0.049-0.066 + 0.061-0.066 ms, where the same levels as six gather8 launches
+// take 0.46-0.83 ms; on full trees (every point under the last level)
+// 0.115-0.124 and 0.223-0.233 ms against 0.23-0.42 and 0.43-0.70.  They are
+// latency-bound (bounds 0.007-0.022 ms): the sparse trees leave ~2 points
+// under a level-4 voxel, and a warp's walk is ~5 dependent loads deep.
 //
 // scatter8: deterministic, no float atomics.  The first version of this
 // kernel took its transposed map from a stable torch.sort of all m * 8 keys and
@@ -84,6 +123,7 @@ namespace {
 
 constexpr int kTaps = 8;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kRowsPerStep = 4;  // gather8 rows a warp takes at once: 4 x 8 (index, weight) pairs, one a lane
 constexpr int kBlockSum = 16;
 constexpr int kMapThreads = 256;
 constexpr int kScanPer = 16;  // counts a scan thread takes
@@ -93,22 +133,29 @@ constexpr int kRankTile = 2048;  // ids of a segment staged at once to count aga
 constexpr int kRankBlocks = 264;  // the counting kernel's grid: two blocks an SM
 constexpr int kLongSegment = 128;  // pairs; a longer segment is split over the block's warps
 constexpr int kMaxScatterC = 1024;
+constexpr int kMaxChainLevels = 4;
+constexpr int kMaxChainC = 512;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Four consecutive row values from column slice `col` of f32 rows (float4) or
-// of bf16 rows (8 bytes, widened exactly to f32).
-template <bool BF16>
-__device__ __forceinline__ float4 load4(const void* __restrict__ rows, size_t col) {
-  if (BF16) {
-    const uint2 b = __ldg(reinterpret_cast<const uint2*>(rows) + col);
-    return make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u), __uint_as_float(b.y << 16),
-                       __uint_as_float(b.y & 0xffff0000u));
-  }
-  return __ldg(reinterpret_cast<const float4*>(rows) + col);
+// v rounded to bf16 (to nearest, ties to even) and widened back to f32.
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// Four values rounded to bf16 (to nearest, ties to even) and widened back,
+// two to a conversion.
+__device__ __forceinline__ void round4(float4& v) {
+  const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+  const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(v.z, v.w));
+  v = make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// w rounded to bf16 (to nearest, ties to even) and widened back to f32.
-__device__ __forceinline__ float round_bf16(float w) { return __bfloat162float(__float2bfloat16_rn(w)); }
+// Four consecutive values from column slice `col` of f32 rows, each rounded
+// to bf16 when ROUND: the bits a bf16 copy of the rows would give.
+template <bool ROUND>
+__device__ __forceinline__ float4 load4(const float4* __restrict__ rows, size_t col) {
+  float4 v = __ldg(rows + col);
+  if (ROUND) round4(v);
+  return v;
+}
 
 __device__ __forceinline__ void axpy_rn(float4& acc, float w, const float4& v) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(w, v.x));
@@ -117,39 +164,214 @@ __device__ __forceinline__ void axpy_rn(float4& acc, float w, const float4& v) {
   acc.w = __fadd_rn(acc.w, __fmul_rn(w, v.w));
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gather8_kernel(const void* __restrict__ feats, const int* __restrict__ nbr,
-               const float* __restrict__ w8, float4* __restrict__ out, int m, int n, int c4) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= m) return;  // the whole warp leaves together
+__device__ __forceinline__ void add_rn(float4& acc, const float4& v) {
+  acc.x = __fadd_rn(acc.x, v.x);
+  acc.y = __fadd_rn(acc.y, v.y);
+  acc.z = __fadd_rn(acc.z, v.z);
+  acc.w = __fadd_rn(acc.w, v.w);
+}
+
+// Blocks of `kernel` the card holds at once (all its SMs), at most `want`.
+template <typename Kernel>
+unsigned resident_blocks(Kernel kernel, long long want) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarpsPerBlock * 32, 0);
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// At most 64 registers a thread (32 warps an SM): a row with real taps keeps
+// 8 loads in flight a lane, so the card needs many warps to cover their latency.
+template <bool ROUND>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 4)
+gather8_kernel(const float4* __restrict__ feats, const int* __restrict__ nbr, const float* __restrict__ w8,
+               float4* __restrict__ out, int m, int n, int c4) {
   const int lane = threadIdx.x & 31;
+  const long long pairs = (long long)m * kTaps;
+  const long long steps = ((long long)m + kRowsPerStep - 1) / kRowsPerStep;
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  long long step = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  // lane l holds tap l % 8 of row l / 8 of its step
   int idx = n;
   float w = 0.0f;
-  if (lane < kTaps) {
-    idx = nbr[(size_t)row * kTaps + lane];
-    w = w8[(size_t)row * kTaps + lane];
+  if (step < steps && step * 32 + lane < pairs) {
+    idx = __ldcs(nbr + step * 32 + lane);
+    w = __ldcs(w8 + step * 32 + lane);
   }
-  int idxs[kTaps];
-  float ws[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    idxs[k] = __shfl_sync(0xffffffffu, idx, k);
-    ws[k] = __shfl_sync(0xffffffffu, w, k);
-  }
-  float4* o = out + (size_t)row * c4;
-  for (int col = lane; col < c4; col += 32) {
-    float4 v[kTaps];
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      const int j = idxs[k];
-      v[k] = (j >= 0 && j < n) ? load4<BF16>(feats, (size_t)j * c4 + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (; step < steps; step += stride) {  // warp-uniform
+    const long long next = step + stride;
+    int next_idx = n;
+    float next_w = 0.0f;
+    if (next < steps && next * 32 + lane < pairs) {  // the next step's map, in flight during this step
+      next_idx = __ldcs(nbr + next * 32 + lane);
+      next_w = __ldcs(w8 + next * 32 + lane);
     }
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    // taps that need their sum: a real row, or a weight whose product with 0 is not 0;
+    // a row without one is +0 plus w * 0, eight times: +0 exactly
+    const unsigned busy = __ballot_sync(kFull, (idx >= 0 && idx < n) || !isfinite(w));
+    if (busy == 0) {  // the step's rows are one contiguous run of zeros
+      const long long first = step * kRowsPerStep;
+      const long long len = ((first + kRowsPerStep < m ? first + kRowsPerStep : m) - first) * c4;
+      for (long long i = lane; i < len; i += 32) __stcs(out + first * c4 + i, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    for (int r = 0; r < kRowsPerStep && busy != 0; ++r) {
+      const long long row = step * kRowsPerStep + r;
+      if (row >= m) break;
+      float4* o = out + row * c4;
+      if (((busy >> (8 * r)) & 0xffu) == 0) {
+        for (int col = lane; col < c4; col += 32) __stcs(o + col, make_float4(0.f, 0.f, 0.f, 0.f));
+        continue;
+      }
+      int idxs[kTaps];
+      float ws[kTaps];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) axpy_rn(acc, ws[k], v[k]);
-    o[col] = acc;
+      for (int k = 0; k < kTaps; ++k) {
+        idxs[k] = __shfl_sync(kFull, idx, 8 * r + k);
+        ws[k] = __shfl_sync(kFull, w, 8 * r + k);
+      }
+      for (int col = lane; col < c4; col += 32) {
+        float4 v[kTaps];
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) {
+          const int j = idxs[k];
+          v[k] = (j >= 0 && j < n) ? load4<ROUND>(feats, (size_t)j * c4 + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < kTaps; ++k) axpy_rn(acc, ws[k], v[k]);
+        __stcs(o + col, acc);
+      }
+    }
+    idx = next_idx;
+    w = next_w;
   }
+}
+
+// The chain's arguments: the points and each level's child map.
+struct Chain {
+  const float4* x;  // [frames * caps[0], c4]
+  const int* child[kMaxChainLevels];  // child[l]: [frames, caps[l + 1], 8], rows of level l of the frame
+  int caps[kMaxChainLevels + 1];  // rows of each level per frame; a child outside [0, caps[l]) is the sentinel
+  int c4;
+};
+
+// The sum at level D >= 1 (before the divide) of a node whose 8 children
+// (rows of level D - 1) lanes 0-7 hold in `j`, into acc, S float4 column
+// slices a lane: the children in ascending order, each add rounded on its
+// own, a sentinel child adding +0.  With ROUND every child (a point row, or
+// the sum of a level below) is rounded to bf16 before it is added, as each
+// level's table is on the route.  Above the points, the 8 children's own
+// child rows arrive in one load (lanes 4k..4k+3 read child k's, two indices
+// each) before the first child's subtree is walked.
+template <int D, int S, bool ROUND>
+__device__ __forceinline__ void children_sum(const Chain& a, int b, int j, int lane, float4 (&acc)[S]) {
+  const int cap_f = a.caps[D - 1];
+#pragma unroll
+  for (int s = 0; s < S; ++s) acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (D == 1) {
+    int idxs[kTaps];
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) idxs[k] = __shfl_sync(kFull, j, k);
+    const float4* x = a.x + (size_t)b * cap_f * a.c4;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int col = lane + 32 * s;
+      float4 v[kTaps];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const bool real = idxs[k] >= 0 && idxs[k] < cap_f && col < a.c4;
+        v[k] = real ? load4<ROUND>(x, (size_t)idxs[k] * a.c4 + col) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) add_rn(acc[s], v[k]);
+    }
+  } else {
+    const int cap_g = a.caps[D - 2];
+    const int own = __shfl_sync(kFull, j, lane >> 2);
+    int2 g = make_int2(cap_g, cap_g);
+    if (own >= 0 && own < cap_f) {
+      g = __ldg(reinterpret_cast<const int2*>(a.child[D - 2] + ((size_t)b * cap_f + own) * kTaps) + (lane & 3));
+    }
+#pragma unroll 1
+    for (int k = 0; k < kTaps; ++k) {
+      const int jk = __shfl_sync(kFull, j, k);
+      float4 sub[S];
+      if (jk >= 0 && jk < cap_f) {  // warp-uniform
+        // child k's children into lanes 0-7: lane t takes half t % 2 of lane 4k + t / 2's pair
+        const int src = 4 * k + ((lane >> 1) & 3);
+        const int gx = __shfl_sync(kFull, g.x, src), gy = __shfl_sync(kFull, g.y, src);
+        children_sum<D - 1, S, ROUND>(a, b, (lane & 1) ? gy : gx, lane, sub);
+        if (ROUND) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) round4(sub[s]);
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) sub[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) add_rn(acc[s], sub[s]);
+    }
+  }
+}
+
+// The children of row o of the last level (o < rows) in lanes 0-7, else sentinels.
+__device__ __forceinline__ int root_children(const Chain& a, int levels, long long o, long long rows, int lane) {
+  int j = -1;
+  if (o < rows && lane < kTaps) j = __ldg(a.child[levels - 1] + o * kTaps + lane);
+  return j;
+}
+
+// A warp per row of level L: the subtree's sum divided by max(count, 1).
+// The next row's children are loaded before this row's subtree is walked.
+template <int L, int S, bool ROUND>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+child_sum_kernel(Chain a, const int* __restrict__ counts, float4* __restrict__ out, int frames) {
+  const int lane = threadIdx.x & 31;
+  const long long rows = (long long)frames * a.caps[L];
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  long long o = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  int j = root_children(a, L, o, rows, lane);
+  for (; o < rows; o += stride) {  // warp-uniform
+    const int j_next = root_children(a, L, o + stride, rows, lane);
+    const int b = (int)(o / a.caps[L]);
+    float4 acc[S];
+    children_sum<L, S, ROUND>(a, b, j, lane, acc);
+    const int cnt = counts[o];
+    const float d = (float)(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int col = lane + 32 * s;
+      if (col < a.c4) {
+        out[o * a.c4 + col] = make_float4(__fdiv_rn(acc[s].x, d), __fdiv_rn(acc[s].y, d), __fdiv_rn(acc[s].z, d),
+                                          __fdiv_rn(acc[s].w, d));
+      }
+    }
+    j = j_next;
+  }
+}
+
+template <int L, int S>
+int launch_chain(const Chain& a, const int* counts, float4* out, int frames, int round, cudaStream_t st) {
+  const long long warps = (long long)frames * a.caps[L];
+  const long long want = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (round) {
+    const unsigned blocks = resident_blocks(child_sum_kernel<L, S, true>, want);
+    child_sum_kernel<L, S, true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(a, counts, out, frames);
+  } else {
+    const unsigned blocks = resident_blocks(child_sum_kernel<L, S, false>, want);
+    child_sum_kernel<L, S, false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(a, counts, out, frames);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_chain_s(const Chain& a, const int* counts, float4* out, int frames, int round, cudaStream_t st) {
+  if (a.c4 <= 32) return launch_chain<L, 1>(a, counts, out, frames, round, st);
+  if (a.c4 <= 64) return launch_chain<L, 2>(a, counts, out, frames, round, st);
+  return launch_chain<L, 4>(a, counts, out, frames, round, st);
 }
 
 __global__ void map_count_kernel(const int* __restrict__ nbr, int pairs, int n, int* __restrict__ counts) {
@@ -350,7 +572,7 @@ map_rank_kernel(const int* __restrict__ offsets, const int* __restrict__ long_co
 // One warp's sum over the pairs order[begin : end] of a target, S float4
 // column slices a lane.
 template <int S, bool BF16>
-__device__ __forceinline__ void segment_sum(const void* __restrict__ dy, const float* __restrict__ w8,
+__device__ __forceinline__ void segment_sum(const float4* __restrict__ dy, const float* __restrict__ w8,
                                             const int* __restrict__ order, int begin, int end, int c4,
                                             int lane, float4 (&total)[S]) {
 #pragma unroll
@@ -398,7 +620,7 @@ __device__ __forceinline__ void segment_sum(const void* __restrict__ dy, const f
 
 template <int S, bool BF16>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-scatter8_sum_kernel(const void* __restrict__ dy, const float* __restrict__ w8, const int* __restrict__ order,
+scatter8_sum_kernel(const float4* __restrict__ dy, const float* __restrict__ w8, const int* __restrict__ order,
                     const int* __restrict__ offsets, float4* __restrict__ out, int n, int c4) {
   __shared__ float4 part[kWarpsPerBlock][32 * S];
   const int warp = threadIdx.x >> 5;
@@ -445,7 +667,7 @@ scatter8_sum_kernel(const void* __restrict__ dy, const float* __restrict__ w8, c
 }
 
 template <int S>
-void launch_sum(int bf16, unsigned blocks, cudaStream_t st, const void* dy, const float* w8, const int* order,
+void launch_sum(int bf16, unsigned blocks, cudaStream_t st, const float4* dy, const float* w8, const int* order,
                 const int* offsets, float4* out, int n, int c4) {
   if (bf16)
     scatter8_sum_kernel<S, true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(dy, w8, order, offsets, out, n, c4);
@@ -474,23 +696,59 @@ int build_map(const int* nbr, int pairs, int n, int* counts, int* offsets, int* 
 
 }  // namespace
 
-// feats: f32 [n, c] (bf16 == 0) or bf16 [n, c] (bf16 == 1); nbr: int32 [m, 8];
-// w8: f32 [m, 8]; out: f32 [m, c]; all contiguous on the current device, feats
-// and out 16-byte aligned (8-byte for bf16 rows), c % 4 == 0.  Returns
-// cudaGetLastError() after the launch.
+// feats: f32 [n, c], each value rounded to bf16 as it is read when
+// round_bf16 != 0; nbr: int32 [m, 8]; w8: f32 [m, 8]; out: f32 [m, c]; all
+// contiguous on the current device, feats and out 16-byte aligned, c % 4 == 0.
+// Returns cudaGetLastError() after the launch.
 extern "C" int lidal_gather8(const void* feats, const void* nbr, const void* w8, void* out,
-                             int m, int n, int c, int bf16, void* stream) {
+                             int m, int n, int c, int round_bf16, void* stream) {
   if (m == 0 || c == 0) return (int)cudaSuccess;
   if (m < 0 || n < 0 || c < 0 || c % 4 != 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((m + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const long long want = ((long long)m + kRowsPerStep * kWarpsPerBlock - 1) / (kRowsPerStep * kWarpsPerBlock);
   const auto st = (cudaStream_t)stream;
-  if (bf16)
-    gather8_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(feats, (const int*)nbr, (const float*)w8, (float4*)out,
+  const auto* f = (const float4*)feats;
+  if (round_bf16) {
+    const unsigned blocks = resident_blocks(gather8_kernel<true>, want);
+    gather8_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, st>>>(f, (const int*)nbr, (const float*)w8, (float4*)out,
                                                                  m, n, c / 4);
-  else
-    gather8_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(feats, (const int*)nbr, (const float*)w8,
-                                                                  (float4*)out, m, n, c / 4);
+  } else {
+    const unsigned blocks = resident_blocks(gather8_kernel<false>, want);
+    gather8_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, st>>>(f, (const int*)nbr, (const float*)w8, (float4*)out,
+                                                                  m, n, c / 4);
+  }
   return (int)cudaGetLastError();
+}
+
+// The child-sum chain over `levels` (1-4) levels of `frames` frames: x f32
+// [frames * caps[0], c] (each value rounded to bf16 as it is read, and each
+// level's sum before the next level adds it, when round_bf16 != 0); child_l
+// int32 [frames, caps[l + 1], 8], 8-byte aligned, for l < levels (a value
+// outside [0, caps[l]) is the sentinel; the pointers past `levels` are not read);
+// counts int32 [frames, caps[levels]]; out f32 [frames * caps[levels], c] =
+// the subtree sums divided by max(counts, 1).  All contiguous on the current
+// device, x and out 16-byte aligned, c % 4 == 0 and c <= 512.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int lidal_child_sum(const void* x, const void* child0, const void* child1, const void* child2,
+                               const void* child3, const void* counts, void* out, int frames, int levels, int cap0,
+                               int cap1, int cap2, int cap3, int cap4, int c, int round_bf16, void* stream) {
+  if (levels < 1 || levels > kMaxChainLevels || frames < 0 || c < 0 || c % 4 != 0 || c > kMaxChainC) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Chain a{(const float4*)x, {(const int*)child0, (const int*)child1, (const int*)child2, (const int*)child3},
+          {cap0, cap1, cap2, cap3, cap4}, c / 4};
+  for (int l = 0; l <= levels; ++l) {
+    if (a.caps[l] < 0) return (int)cudaErrorInvalidValue;
+  }
+  if (frames == 0 || c == 0 || a.caps[levels] == 0) return (int)cudaSuccess;
+  const auto st = (cudaStream_t)stream;
+  const auto* cnt = (const int*)counts;
+  auto* y = (float4*)out;
+  switch (levels) {
+    case 1: return launch_chain_s<1>(a, cnt, y, frames, round_bf16, st);
+    case 2: return launch_chain_s<2>(a, cnt, y, frames, round_bf16, st);
+    case 3: return launch_chain_s<3>(a, cnt, y, frames, round_bf16, st);
+    default: return launch_chain_s<4>(a, cnt, y, frames, round_bf16, st);
+  }
 }
 
 // The transposed map of nbr (int32 [m, 8]) over n targets: offsets int32
@@ -506,11 +764,11 @@ extern "C" int lidal_transpose8(const void* nbr, void* counts, void* offsets, vo
                    (cudaStream_t)stream);
 }
 
-// dy: f32 [m, c] (bf16 == 0) or bf16 [m, c] (bf16 == 1, and each w8 then
-// rounded to bf16 as it is read); w8: f32 [m, 8]; nbr: int32 [m, 8]; counts,
-// offsets, order, tmp: the scratch of lidal_transpose8; out: f32 [n, c]; all
-// contiguous on the current device, dy and out 16-byte aligned (8-byte for
-// bf16 rows), c % 4 == 0 and c <= 1024.  Builds the transposed map, then sums.
+// dy: f32 [m, c] (with bf16 != 0 each value of dy and of w8 is rounded to
+// bf16 as it is read); w8: f32 [m, 8]; nbr: int32 [m, 8]; counts, offsets,
+// order, tmp: the scratch of lidal_transpose8; out: f32 [n, c]; all
+// contiguous on the current device, dy and out 16-byte aligned, c % 4 == 0
+// and c <= 1024.  Builds the transposed map, then sums.
 // Returns cudaGetLastError() after the launches.
 extern "C" int lidal_scatter8(const void* dy, const void* w8, const void* nbr, void* counts, void* offsets,
                               void* order, void* tmp, void* out, int m, int n, int c, int bf16, void* stream) {
@@ -524,18 +782,19 @@ extern "C" int lidal_scatter8(const void* dy, const void* w8, const void* nbr, v
   if (err != (int)cudaSuccess) return err;
   const int c4 = c / 4;
   const unsigned blocks = (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  const auto* d = (const float4*)dy;
   const float* w = (const float*)w8;
   const int* o = (const int*)order;
   const int* off = (const int*)offsets;
   float4* y = (float4*)out;
   if (c4 <= 32) {
-    launch_sum<1>(bf16, blocks, st, dy, w, o, off, y, n, c4);
+    launch_sum<1>(bf16, blocks, st, d, w, o, off, y, n, c4);
   } else if (c4 <= 64) {
-    launch_sum<2>(bf16, blocks, st, dy, w, o, off, y, n, c4);
+    launch_sum<2>(bf16, blocks, st, d, w, o, off, y, n, c4);
   } else if (c4 <= 128) {
-    launch_sum<4>(bf16, blocks, st, dy, w, o, off, y, n, c4);
+    launch_sum<4>(bf16, blocks, st, d, w, o, off, y, n, c4);
   } else {
-    launch_sum<8>(bf16, blocks, st, dy, w, o, off, y, n, c4);
+    launch_sum<8>(bf16, blocks, st, d, w, o, off, y, n, c4);
   }
   return (int)cudaGetLastError();
 }

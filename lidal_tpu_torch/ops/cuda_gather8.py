@@ -1,11 +1,15 @@
-"""Weighted 8-tap gather and its transpose (``csrc/gather8.cu``) with their
-plain versions: the point<->voxel transfers of SPVCNN.
+"""Weighted 8-tap gather, its transpose and the child-sum chain
+(``csrc/gather8.cu``) with their plain versions: the point<->voxel transfers
+of SPVCNN.
 
 Replaces ``lidal_tpu/ops/pallas_gather8.py``: ``gather8_pallas``,
-``scatter8_pallas`` and the ``custom_vjp`` ``gather8`` around them.
+``scatter8_pallas`` and the ``custom_vjp`` ``gather8`` around them, and the
+chain of ``gather8_pallas`` calls of ``lidal_tpu/ops/devoxelize.py:_child_sum``.
 
-    gather8:   out[i]    = sum_{k < 8} w8[i, k] * feats[nbr[i, k]]
-    scatter8:  dfeats[t] = sum_{(i, k): nbr[i, k] == t} w8[i, k] * dy[i]
+    gather8:    out[i]    = sum_{k < 8} w8[i, k] * feats[nbr[i, k]]
+    scatter8:   dfeats[t] = sum_{(i, k): nbr[i, k] == t} w8[i, k] * dy[i]
+    child_sum:  the levels' 8-tap child sums (weights 1) one after another,
+                divided by max(counts, 1), in one launch
 
 An index outside ``[0, n)`` is the sentinel and contributes zero; map columns
 need not be sorted.  A CUDA tensor launches the kernel; a CPU tensor takes the
@@ -16,25 +20,28 @@ target's segment, so the map equals :func:`build_transpose`'s) and sums
 without float atomics in an order the map fixes, so it gives the same bits on
 every run; :func:`scatter8_plain` is ``index_add_``, whose order on a card is
 not fixed, so the two agree within a tolerance scaled by ``sum |w8| |dy|`` per
-target.
+target.  ``child_sum`` is bit-equal to :func:`child_sum_plain`, the levels
+run one after another.
 
 The bf16 route rounds what the TPU kernels round: ``bf16_table=True`` reads
 ``feats`` as bf16 (``pallas_gather8.py:139``; ``w8`` stays f32, the one-hot
 of ``:105-106`` is exact), which ``ops/devoxelize.py`` asks for under
 ``ops/conv.BF16_OPERANDS`` as the JAX package's ``devoxelize.py:126-133``
-does under ``conv.USE_PALLAS``; ``bf16=True`` of :func:`scatter8` reads ``dy``
-as bf16 and rounds ``w8`` to bf16 (``:314`` and the weighted one-hot of
-``:284``), which the backward of :func:`gather8` asks for under
+does under ``conv.USE_PALLAS``; ``bf16=True`` of :func:`child_sum` reads the
+points and each level's sums as bf16, as the JAX chain casts the table of
+each of its ``gather8_pallas`` calls; ``bf16=True`` of :func:`scatter8`
+reads ``dy`` as bf16 and rounds ``w8`` to bf16 (``:314`` and the weighted
+one-hot of ``:284``), which the backward of :func:`gather8` asks for under
 :data:`SCATTER8_BF16`, the counterpart of ``pallas_gather8.USE_PALLAS_BWD``.
-The kernels take the bf16 rows as a template parameter (half the bytes); the
-products and sums stay f32 in the same order, and the plain versions round
-the same operands.
+The kernels take the f32 rows and round each value in registers, which gives
+the bits of a cast without a bf16 copy; the products and sums stay f32 in the
+same order, and the plain versions round the same operands.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -46,14 +53,18 @@ TAPS = 8
 # instances count apart.
 GATHER8_LAUNCHES = 0
 SCATTER8_LAUNCHES = 0
+CHILD_SUM_LAUNCHES = 0
 GATHER8_BF16_LAUNCHES = 0
 SCATTER8_BF16_LAUNCHES = 0
+CHILD_SUM_BF16_LAUNCHES = 0
 
 # The backward of :func:`gather8` reads dy as bf16 and rounds w8 to bf16: the
 # counterpart of lidal_tpu/ops/pallas_gather8.py:USE_PALLAS_BWD (off: f32).
 SCATTER8_BF16: bool = False
 
 _MAX_SCATTER_C = 1024  # a warp covers a row in at most 8 float4 slices a lane
+_MAX_CHAIN_C = 512  # the chain's warp keeps a row in at most 4 float4 slices a lane
+_MAX_CHAIN_LEVELS = 4
 
 
 def _check(rows, nbr, w8) -> None:
@@ -65,12 +76,11 @@ def _check(rows, nbr, w8) -> None:
 
 
 def _check_cuda(what: str, rows, nbr, w8) -> None:
-    """``rows`` f32, or bf16 (the route's tables)."""
-    row_type = torch.bfloat16 if rows.dtype == torch.bfloat16 else torch.float32
-    for name, x, dtype in ((what, rows, row_type), ("nbr", nbr, torch.int32), ("w8", w8, torch.float32)):
+    """``rows`` f32 on both routes: the route's kernels round them as they read."""
+    for name, x, dtype in ((what, rows, torch.float32), ("nbr", nbr, torch.int32), ("w8", w8, torch.float32)):
         if x.device != rows.device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {rows.device}")
-    if rows.shape[1] % 4 or rows.data_ptr() % (4 * rows.element_size()):
+    if rows.shape[1] % 4 or rows.data_ptr() % 16:
         raise ValueError(f"the kernel needs c % 4 == 0 and rows aligned to 4 values (vector loads); c = {rows.shape[1]}")
     if nbr.numel() >= 2**31:
         raise ValueError(f"the map has {nbr.numel()} (row, tap) pairs, the kernel indexes them in 32 bits")
@@ -103,8 +113,8 @@ def gather8_plain(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16
 
 def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16_table: bool = False) -> torch.Tensor:
     """out[i] = sum_k w8[i, k] * feats[nbr[i, k]], f32 [m, c]; no gradient.
-    With ``bf16_table`` the kernel reads ``feats`` rounded to bf16 (the
-    wrapper casts it at each call).
+    With ``bf16_table`` the kernel rounds each value of ``feats`` to bf16 as
+    it reads it (no copy of the table).
 
     Args:
       feats: f32 [n, c], c % 4 == 0 on a card.
@@ -116,10 +126,6 @@ def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf
     if feats.device.type != "cuda":
         raise ValueError(f"gather8 runs on CPU or CUDA tensors, got {feats.device}")
     _check(feats, nbr, w8)
-    if feats.dtype != torch.float32:
-        raise ValueError(f"feats must be f32, got {feats.dtype}")
-    if bf16_table:
-        feats = feats.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _check_cuda("feats", feats, nbr, w8)
     n, c = feats.shape
     m = nbr.shape[0]
@@ -206,8 +212,8 @@ def transpose_map(nbr: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor
 def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16: bool = False) -> torch.Tensor:
     """dfeats[t] = sum over the pairs with nbr[i, k] == t of w8[i, k] * dy[i],
     f32 [n, c]: the gradient of :func:`gather8` with respect to ``feats``.
-    With ``bf16`` the kernel reads ``dy`` (cast by the wrapper at each call)
-    and ``w8`` rounded to bf16.
+    With ``bf16`` the kernel rounds each value of ``dy`` and ``w8`` to bf16
+    as it reads it (no copy of ``dy``).
 
     Args:
       dy: f32 [m, c], c % 4 == 0 and c <= 1024 on a card.
@@ -220,10 +226,6 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16
     if dy.device.type != "cuda":
         raise ValueError(f"scatter8 runs on CPU or CUDA tensors, got {dy.device}")
     _check(dy, nbr, w8)
-    if dy.dtype != torch.float32:
-        raise ValueError(f"dy must be f32, got {dy.dtype}")
-    if bf16:
-        dy = dy.to(torch.bfloat16, memory_format=torch.contiguous_format)
     _check_cuda("dy", dy, nbr, w8)
     c = dy.shape[1]
     if c > _MAX_SCATTER_C:
@@ -248,6 +250,86 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16
         else:
             SCATTER8_LAUNCHES += 1
     kernels_build.check(err, "scatter8")
+    return out
+
+
+def _flatten_children(child: torch.Tensor, cap_f: int) -> torch.Tensor:
+    """[B, cap_c, 8] per-frame child rows -> [B * cap_c, 8] rows of the
+    stacked level (sentinel B * cap_f for anything outside [0, cap_f))."""
+    b = child.shape[0]
+    off = (torch.arange(b, dtype=torch.int32, device=child.device) * cap_f)[:, None, None]
+    real = (child >= 0) & (child < cap_f)
+    return torch.where(real, child + off, b * cap_f).to(torch.int32).reshape(-1, TAPS)
+
+
+def child_sum_plain(x: torch.Tensor, children: Sequence[torch.Tensor], counts: torch.Tensor,
+                    bf16: bool = False) -> torch.Tensor:
+    """Plain torch version of :func:`child_sum`: one :func:`gather8_plain`
+    with weights 1 per level (the JAX package's chain of ``gather8`` calls,
+    each level's table rounded to bf16 with ``bf16``), then the divide."""
+    b = x.shape[0]
+    for child in children:
+        nbr = _flatten_children(child, x.shape[1])
+        ones = torch.ones(nbr.shape, dtype=torch.float32, device=x.device)
+        x = gather8_plain(x.reshape(-1, x.shape[-1]), nbr, ones, bf16).reshape(b, child.shape[1], -1)
+    return x / counts.clamp_min(1).to(x.dtype)[..., None]
+
+
+def child_sum(x: torch.Tensor, children: Sequence[torch.Tensor], counts: torch.Tensor,
+              bf16: bool = False) -> torch.Tensor:
+    """The average of the points under each voxel of level L = len(children):
+    out[b, o] = (sum of x over the subtree of o) / max(counts[b, o], 1), f32
+    [B, cap_L, c]; no gradient.  The sums are those of the chain of 8-tap
+    child sums, level by level in ascending child order; with ``bf16`` the
+    kernel rounds the points and each level's sums to bf16 before the next
+    level adds them, as the route's chain rounds each level's table.
+
+    Args:
+      x: f32 [B, cap_0, c], c % 4 == 0 and c <= 512 on a card.
+      children: 1-4 int32 maps; children[l] [B, cap_{l+1}, 8] holds the rows
+        of level l under each row of level l + 1 (sentinel: outside [0, cap_l)).
+      counts: int32 [B, cap_L], the divisors (0 divides by 1).
+    """
+    if x.device.type == "cpu":
+        return child_sum_plain(x, children, counts, bf16)
+    if x.device.type != "cuda":
+        raise ValueError(f"child_sum runs on CPU or CUDA tensors, got {x.device}")
+    if not 1 <= len(children) <= _MAX_CHAIN_LEVELS:
+        raise ValueError(f"the chain kernel takes 1 to {_MAX_CHAIN_LEVELS} levels, got {len(children)}")
+    if x.dim() != 3 or x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"x must be a contiguous, 16-byte aligned f32 [B, cap, c] tensor, got {x.dtype} {tuple(x.shape)}")
+    b, cap0, c = x.shape
+    if c % 4 or c > _MAX_CHAIN_C:
+        raise ValueError(f"the chain kernel takes c % 4 == 0 and c <= {_MAX_CHAIN_C}, got {c}")
+    caps = [cap0]
+    for child in children:
+        if (child.dim() != 3 or child.shape[0] != b or child.shape[2] != TAPS or child.dtype != torch.int32
+                or not child.is_contiguous() or child.device != x.device or child.data_ptr() % 8):
+            raise ValueError(f"each child map must be a contiguous, 8-byte aligned int32 [{b}, cap, {TAPS}] tensor "
+                             f"on {x.device}")
+        caps.append(child.shape[1])
+    if counts.shape != (b, caps[-1]) or counts.dtype != torch.int32 or not counts.is_contiguous() or counts.device != x.device:
+        raise ValueError(f"counts must be a contiguous int32 [{b}, {caps[-1]}] tensor on {x.device}")
+    if b * max(caps) * max(c, TAPS) >= 2**31:
+        raise ValueError(f"the chain kernel indexes rows in 32 bits (B = {b}, caps {caps}, c = {c})")
+    out = torch.empty((b, caps[-1], c), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    maps = [child.data_ptr() for child in children] + [None] * (_MAX_CHAIN_LEVELS - len(children))
+    caps_arg = caps + [0] * (_MAX_CHAIN_LEVELS + 1 - len(caps))
+    fn = kernels_build.function(
+        "gather8", "lidal_child_sum", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    )
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), *maps, counts.data_ptr(), out.data_ptr(), b, len(children), *caps_arg, c, int(bf16),
+                 torch.cuda.current_stream().cuda_stream)
+    global CHILD_SUM_LAUNCHES, CHILD_SUM_BF16_LAUNCHES
+    with kernels_build.LAUNCH_LOCK:
+        if bf16:
+            CHILD_SUM_BF16_LAUNCHES += 1
+        else:
+            CHILD_SUM_LAUNCHES += 1
+    kernels_build.check(err, "child_sum")
     return out
 
 

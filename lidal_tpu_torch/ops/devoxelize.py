@@ -12,13 +12,15 @@ level-0 coords, and stride-1 transfers are identities.  All cross-stride maps
 are built once per batch into a :class:`PointPlan`, batched: every field
 carries the leading frame axis ``[B, ...]`` of the :class:`UNetPlan`.
 
-Both transfers run on one kernel, ``ops/cuda_gather8.gather8``: the trilinear
-devoxelize is the weighted 8-tap gather itself, and the average is a chain of
-8-tap child sums down the voxel tree (weights 1) divided by the precomputed
-ancestor counts.  Under ``ops/conv.BF16_OPERANDS`` both read a bf16 table, as
-the JAX package's ``gather8_pallas`` does under ``conv.USE_PALLAS``
-(``lidal_tpu/ops/devoxelize.py:126-133``).  The wrapper is called through its
-module, so a caller can swap in the plain version.
+Both transfers run on ``csrc/gather8.cu``: the trilinear devoxelize is the
+weighted 8-tap gather itself (``cuda_gather8.gather8``), and the average is
+the chain of 8-tap child sums down the voxel tree (weights 1) divided by the
+precomputed ancestor counts, one ``cuda_gather8.child_sum`` launch for all
+its levels.  Under ``ops/conv.BF16_OPERANDS`` both round their tables to
+bf16 as they read them, as the JAX package's ``gather8_pallas`` casts them
+under ``conv.USE_PALLAS`` (``lidal_tpu/ops/devoxelize.py:126-133``,
+``:158-173``, ``:191-201``).  The wrappers are called through their module,
+so a caller can swap in the plain versions.
 """
 
 from __future__ import annotations
@@ -138,34 +140,30 @@ def devoxelize_trilinear(voxel_feats: torch.Tensor, tri: TriMap) -> torch.Tensor
 
 
 class _ChildSum(torch.autograd.Function):
-    """One level down the voxel tree: out[b, o] = sum_d x[b, child[b, o, d]].
+    """The point average at one level: out[b, o] = (sum of x over the
+    subtree of o) / max(counts[b, o], 1), the chain of 8-tap child sums in one
+    ``cuda_gather8.child_sum`` launch.
 
-    Every fine row has exactly one parent, so the backward is the plain row
-    gather dx[b, f] = dy[b, parent[b, f]] (zero where the parent is the
-    sentinel): no scatter in either direction."""
+    Every point has at most one ancestor at the level, so the backward is
+    the plain row gather dx[b, p] = (dy / max(counts, 1))[b, anc[b, p]] (zero
+    where the ancestor is the sentinel): the chain's backward, a copy through
+    each level's parent, composed into one.  No scatter in either direction."""
 
     @staticmethod
-    def forward(ctx, x, child, parent):
-        b, cap_f, c = x.shape
-        ctx.save_for_backward(parent)
-        nbr = _flatten_nbr(child, cap_f)
-        ones = torch.ones(nbr.shape, dtype=torch.float32, device=x.device)
-        out = cuda_gather8.gather8_forward(x.reshape(b * cap_f, c).contiguous(), nbr, ones, conv.BF16_OPERANDS)
-        return out.reshape(b, child.shape[1], c)
+    def forward(ctx, x, children, anc, counts):
+        ctx.save_for_backward(anc, counts)
+        return cuda_gather8.child_sum(x.contiguous(), children, counts, conv.BF16_OPERANDS)
 
     @staticmethod
     def backward(ctx, dy):
-        (parent,) = ctx.saved_tensors
-        b, cap_c, c = dy.shape
-        idx = _flatten_idx(parent, cap_c).long()
-        real = idx < b * cap_c
-        dx = dy.reshape(b * cap_c, c).index_select(0, idx.clamp_max(max(b * cap_c - 1, 0)))
+        anc, counts = ctx.saved_tensors
+        g = dy / counts.clamp_min(1).to(dy.dtype)[..., None]  # the gradient of the divide, as autograd takes it
+        b, cap_l, c = g.shape
+        idx = _flatten_idx(anc, cap_l).long()
+        real = idx < b * cap_l
+        dx = g.reshape(b * cap_l, c).index_select(0, idx.clamp_max(max(b * cap_l - 1, 0)))
         dx.masked_fill_(~real[:, None], 0.0)  # dx is new memory
-        return dx.reshape(b, parent.shape[1], c), None, None
-
-
-def _child_sum(x: torch.Tensor, child: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
-    return _ChildSum.apply(x, child, parent)
+        return dx.reshape(b, anc.shape[1], c), None, None, None
 
 
 def point_to_voxel_avg_batched(
@@ -174,12 +172,10 @@ def point_to_voxel_avg_batched(
     """spvoxelize average [B, cap0, c] -> [B, cap_l, c] (invalid point rows
     must be zero): ``levels`` chained 8-tap child sums down the tree, then
     the divide by the precomputed ancestor counts (an empty voxel divides by
-    1).  Equal to :func:`point_to_voxel_avg` because a voxel dropped at a
-    level cap drops its whole subtree from ``child`` and from ``anc`` alike."""
-    x = point_feats
-    for l in range(levels):
-        x = _child_sum(x, downs[l].child, downs[l].parent)
-    return x / avg.counts.clamp_min(1).to(x.dtype)[..., None]
+    1), in one launch.  Equal to :func:`point_to_voxel_avg` because a voxel
+    dropped at a level cap drops its whole subtree from ``child`` and from
+    ``anc`` alike."""
+    return _ChildSum.apply(point_feats, tuple(d.child for d in downs[:levels]), avg.anc, avg.counts)
 
 
 def point_to_voxel_avg(point_feats: torch.Tensor, avg: AvgMap) -> torch.Tensor:

@@ -3,8 +3,8 @@ and the conv backward kernel at the shapes of one B = 5 train step.
 
     python3 lidal_tpu_torch/tools/kernel_shapes.py [ROOT] [--only SECTIONS]   # on an NVIDIA GPU
 
-SECTIONS is a comma-separated subset of ``lookup,conv,backward,nn_band,scatter8,probes,digests``
-(default: all).
+SECTIONS is a comma-separated subset of
+``lookup,conv,backward,nn_band,scatter8,gather8,probes,digests`` (default: all).
 
 ROOT (default: this checkout) goes first on ``sys.path`` before anything of the
 port is imported, so the same script measures another checkout with the same
@@ -39,6 +39,21 @@ seed 0).  It prints the card's name and power limit, then
   transposed map's ms (ROOT's ``transpose_map`` where it has one, else
   ``build_transpose``); where ROOT has ``transpose_map``, also its ms on maps
   whose every pair names one target (segments of 2^16, 2^18 and 2^20 ids);
+* ``gather8``, the point transfers of SPVCNN on both routes (f32, and the
+  bf16 route of ``ops/conv.BF16_OPERANDS`` and
+  ``cuda_gather8.SCATTER8_BF16``): the ms of each ``devoxelize_trilinear_batched``
+  and ``point_to_voxel_avg_batched`` call of one B = 4 eval forward (seed 0)
+  as the model makes it, and of each call of the ``gather8_forward`` /
+  ``child_sum`` wrappers inside them (ROOT's ``child_sum`` where it has one);
+  then both ``scatter8`` calls of one B = 5 train step (seed 0) on each route.
+  Where ROOT's route wrappers cast their tables to bf16 (packages without
+  ``child_sum``), the cast of each table is timed apart: the kernel is the
+  wrapper less it.  Each route's sums per forward and per step.  Where ROOT's
+  ``chip_smoke.py`` has phase 14's ``gather_work_phase``, that runs too on
+  the same forward and model, on both routes (every call against its plain
+  version, the library calls, the bounds, full maps and full trees), and
+  last a ``zero_()`` of each trilinear call's output, the card's rate for
+  writing those bytes;
 * ``probes``, the three bf16 probe kernels: ``conv_gather_first`` (kernel
   alone on packed operands, both ``pipelined`` values, and the wrapper) at the
   six shapes of ``tools/probe_conv_v3`` and on the three real maps of
@@ -61,13 +76,17 @@ seed 0).  It prints the card's name and power limit, then
   route and the bf16 probes had before the bf16 route (``subm_conv`` with and
   without its epilogue, ``conv_dx_dw``, ``gather8``, ``scatter8``,
   ``conv_gather_first`` without an epilogue, ``conv_dx_dw_fused`` in mode
-  ``dx_dw``) on seeded inputs at the sizes of a B = 4 level-0 conv, through
-  the signatures both packages share: two packages print equal lines where
-  their kernels give equal bits.
+  ``dx_dw``) on seeded inputs at the sizes of a B = 4 level-0 conv, of
+  ``gather8`` and ``scatter8`` on the bf16 route, and of SPVCNN's point
+  transfers on both routes (``devoxelize_trilinear_batched`` and
+  ``point_to_voxel_avg_batched`` of a B = 4 plan, seed 0, forward and
+  gradient), through the signatures both packages share: two packages print
+  equal lines where their kernels give equal bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -78,7 +97,7 @@ def _tile_rows(cout: int) -> int:
     return 64 if cout % 128 == 0 or cout % 96 == 0 else 128
 
 
-SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8", "probes", "digests")
+SECTIONS = ("lookup", "conv", "backward", "nn_band", "scatter8", "gather8", "probes", "digests")
 
 
 def main(root: str, only=SECTIONS) -> None:
@@ -103,10 +122,12 @@ def main(root: str, only=SECTIONS) -> None:
         nn_band_shape(cs, dev)
     if "scatter8" in only:
         scatter8_shapes(cs, dev)
+    if "gather8" in only:
+        gather8_shapes(cs, dev)
     if "probes" in only:
         probe_shapes(cs, dev)
     if "digests" in only:
-        digests(dev)
+        digests(cs, dev)
 
 
 def forward_shapes(cs, dev, only) -> None:
@@ -381,6 +402,135 @@ def scatter8_shapes(cs, dev) -> None:
                   f"torch.sort + searchsorted {cs.cuda_ms(lambda: cuda_gather8.build_transpose(nbr, 1), reps=3):.4f} ms")
 
 
+@contextlib.contextmanager
+def _route(on: bool):
+    """The bf16 route's two switches, set and restored."""
+    from lidal_tpu_torch.ops import conv, cuda_gather8
+
+    conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = on
+    try:
+        yield
+    finally:
+        conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = False
+
+
+def _spvcnn_eval_batch(cs, dev):
+    import numpy as np
+    import torch
+
+    from lidal_tpu_torch.config import SK_CONFIG
+    from lidal_tpu_torch.data.pipeline import prepare_eval_batch
+
+    batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap)
+    return prepare_eval_batch(torch.Generator().manual_seed(0),
+                              *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid")),
+                              level_caps=SK_CONFIG.level_caps, with_points=True)
+
+
+def gather8_shapes(cs, dev) -> None:
+    """SPVCNN's point transfers of one B = 4 forward and scatter8's calls of
+    one B = 5 train step, on both routes."""
+    import numpy as np
+    import torch
+
+    from lidal_tpu_torch.config import SK_CONFIG, RunConfig
+    from lidal_tpu_torch.data.pipeline import forward_batch, prepare_train_batch
+    from lidal_tpu_torch.models import spvcnn as spv
+    from lidal_tpu_torch.ops import cuda_gather8
+    from lidal_tpu_torch.runtime.train import train_step
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    eb = _spvcnn_eval_batch(cs, dev)
+    torch.manual_seed(0)
+    model = spv.SPVCNN(num_classes=SK_CONFIG.num_classes).eval().to(dev)
+    casts = not hasattr(cuda_gather8, "child_sum")  # the route's wrappers cast their tables to bf16
+    m0 = eb.plan.levels[0].coords.shape[0] * eb.plan.levels[0].coords.shape[1]
+    names = ("gather8_forward", "child_sum") if not casts else ("gather8_forward",)
+    for on in (False, True):
+        calls, inner = [], []
+        outer = spv.devoxelize_trilinear_batched, spv.point_to_voxel_avg_batched
+        wrappers = {name: getattr(cuda_gather8, name) for name in names}
+
+        def rec(fn, store):
+            def call(*args, **kwargs):
+                args = args + tuple(kwargs.values())  # the calls pass their last arguments by name or by place
+                store.append((fn, tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)))
+                return fn(*args)
+            return call
+
+        spv.devoxelize_trilinear_batched, spv.point_to_voxel_avg_batched = (rec(f, calls) for f in outer)
+        for name, fn in wrappers.items():
+            setattr(cuda_gather8, name, rec(fn, inner))
+        try:
+            with torch.inference_mode(), _route(on):
+                forward_batch(model, eb)
+        finally:
+            spv.devoxelize_trilinear_batched, spv.point_to_voxel_avg_batched = outer
+            for name, fn in wrappers.items():
+                setattr(cuda_gather8, name, fn)
+        label = "bf16 route" if on else "f32"
+        total = {"calls": 0.0, "wrappers": 0.0, "casts": 0.0}
+        with torch.inference_mode(), _route(on):
+            for fn, args in calls:
+                ms = cs.cuda_ms(lambda: fn(*args), reps=10)
+                total["calls"] += ms
+                print(f"gather8 {label}: {fn.__name__} {tuple(args[0].shape)} -> as the model calls it {ms:.4f} ms")
+            for fn, args in inner:
+                ms = cs.cuda_ms(lambda: fn(*args), reps=10)
+                total["wrappers"] += ms
+                cast = cs.cuda_ms(lambda: args[0].to(torch.bfloat16), reps=10) if on and casts else 0.0
+                total["casts"] += cast
+                print(f"gather8 {label}: {fn.__name__} {tuple(args[0].shape)}: wrapper {ms:.4f} ms"
+                      + (f", of which the table's cast {cast:.4f} ms" if cast else ""))
+        print(f"gather8 {label} per forward: {len(calls)} transfers {total['calls']:.4f} ms; {len(inner)} wrapper "
+              f"calls {total['wrappers']:.4f} ms" + (f", casts {total['casts']:.4f} ms, kernels "
+                                                      f"{total['wrappers'] - total['casts']:.4f} ms" if on and casts else ""))
+    del model, eb
+    batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap, SK_CONFIG.batch_size)
+    tb = prepare_train_batch(torch.Generator().manual_seed(0),
+                             *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
+                             level_caps=SK_CONFIG.level_caps, with_points=True)
+    kernel = cuda_gather8.scatter8
+    for on in (False, True):
+        captured = []
+
+        def recorder(dy, nbr, w8, n, *route):
+            captured.append((dy.clone(), nbr.clone(), w8.clone(), n, *route))
+            return kernel(dy, nbr, w8, n, *route)
+
+        state = init_state(RunConfig(dataset_name="SK", model_name="SPVCNN", seed=0), dev)
+        cuda_gather8.scatter8 = recorder
+        try:
+            with _route(on):
+                train_step(state, tb, cs.DROPOUT_SEEDS[: len(tb.feats)])
+        finally:
+            cuda_gather8.scatter8 = kernel
+        del state
+        label = "bf16 route" if on else "f32"
+        total = {"ms": 0.0, "cast": 0.0}
+        for args in captured:
+            ms = cs.cuda_ms(lambda: kernel(*args), reps=10)
+            cast = cs.cuda_ms(lambda: args[0].to(torch.bfloat16), reps=10) if on and casts else 0.0
+            total["ms"] += ms
+            total["cast"] += cast
+            print(f"scatter8 {label} m={args[0].shape[0]} n={args[3]} c={args[0].shape[1]}: wrapper {ms:.4f} ms"
+                  + (f", of which the cast of dy {cast:.4f} ms" if cast else ""))
+        print(f"scatter8 {label} per step: {len(captured)} calls {total['ms']:.4f} ms"
+              + (f", casts {total['cast']:.4f} ms, kernels {total['ms'] - total['cast']:.4f} ms" if on and casts else ""))
+    if hasattr(cs, "gather_work_phase"):
+        eb = _spvcnn_eval_batch(cs, dev)
+        torch.manual_seed(0)
+        model = spv.SPVCNN(num_classes=SK_CONFIG.num_classes).eval().to(dev)
+        cs.gather_work_phase(model, eb)
+        cs.gather_work_phase(model, eb, route=True)
+        del model, eb
+    for c in (256, 128):
+        out = torch.empty((m0, c), device=dev)
+        print(f"zero_() of a [{m0}, {c}] f32 output ({out.numel() * 4 / 1e6:.0f} MB): "
+              f"{cs.cuda_ms(lambda: out.zero_(), reps=20):.4f} ms")
+        del out
+
+
 def _rates(label, ms, real_flop, issued_flop) -> str:
     """ms, GFLOP and TFLOP/s on the real pairs and, where counted, on the products issued."""
     text = f"{label}: {ms:.4f} ms; real {real_flop / 1e9:.3f} GFLOP, {real_flop / ms / 1e9:.1f} TFLOP/s"
@@ -581,7 +731,7 @@ def probe_shapes(cs, dev) -> None:
               f"{hashlib.sha256(dwg.cpu().numpy().tobytes()).hexdigest()[:16]}")
 
 
-def digests(dev) -> None:
+def digests(cs, dev) -> None:
     """sha256 of each kernel's outputs on seeded inputs (the ``digests`` section)."""
     import hashlib
 
@@ -619,6 +769,28 @@ def digests(dev) -> None:
     table, dy8 = t(rng.standard_normal((n8, 256), dtype=np.float32)), t(rng.standard_normal((m8, 128), dtype=np.float32))
     print(f"digest gather8 m={m8} n={n8} c=256: {sha(cuda_gather8.gather8_forward(table, nbr8, w8))}")
     print(f"digest scatter8 m={m8} n={n8} c=128: {sha(cuda_gather8.scatter8(dy8, nbr8, w8, n8))}")
+    print(f"digest gather8 bf16 table m={m8} n={n8} c=256: {sha(cuda_gather8.gather8_forward(table, nbr8, w8, True))}")
+    print(f"digest scatter8 bf16 rows m={m8} n={n8} c=128: {sha(cuda_gather8.scatter8(dy8, nbr8, w8, n8, True))}")
+    # SPVCNN's point transfers on a B = 4 plan, both routes, forward and gradient
+    from lidal_tpu_torch.ops import devoxelize
+
+    eb = _spvcnn_eval_batch(cs, dev)
+    g = torch.Generator().manual_seed(4)
+    valid0 = eb.plan.levels[0].valid[..., None]
+    for on in (False, True):
+        with _route(on):
+            for name, lvl, c in (("tri2", 2, 128), ("tri4", 4, 256)):
+                vf = torch.randn((eb.plan.levels[lvl].coords.shape[:2]) + (c,), generator=g).to(dev).requires_grad_(True)
+                out = devoxelize.devoxelize_trilinear_batched(vf, getattr(eb.pplan, name))
+                (grad,) = torch.autograd.grad(out, vf, torch.randn(out.shape, generator=g).to(dev))
+                print(f"digest devoxelize_trilinear_batched {name} c={c}{' bf16 route' if on else ''}: "
+                      f"{sha(out.detach(), grad)}")
+            for name, lvl, c in (("avg2", 2, 128), ("avg4", 4, 256)):
+                pf = (torch.randn(valid0.shape[:2] + (c,), generator=g).to(dev) * valid0).requires_grad_(True)
+                out = devoxelize.point_to_voxel_avg_batched(pf, eb.plan.downs, getattr(eb.pplan, name), lvl)
+                (grad,) = torch.autograd.grad(out, pf, torch.randn(out.shape, generator=g).to(dev))
+                print(f"digest point_to_voxel_avg_batched {name} c={c}{' bf16 route' if on else ''}: "
+                      f"{sha(out.detach(), grad)}")
 
 
 if __name__ == "__main__":

@@ -31,9 +31,11 @@ table, and the fused backward's dw bit-equal across two runs.  On the bf16
 route (``ops/conv.BF16_OPERANDS``): the gather-first conv with the eval-BN
 epilogue within 1e-5 of ``abs-sum * |scale| + |shift|`` of its plain version,
 the fused backward's dw alone bit-equal to its dw with dx, ``gather8`` on a
-bf16 table bit-equal to its plain version, ``scatter8`` on bf16 rows as the
-f32 one, and no f32 conv, backward, ``gather8`` or ``scatter8`` launch on the
-route.
+bf16-rounded table bit-equal to its plain version, ``scatter8`` on bf16-rounded
+rows as the f32 one, neither allocating a bf16 copy, and no f32 conv,
+backward, ``gather8``, ``child_sum`` or ``scatter8`` launch on the route.  The
+child-sum chain (``child_sum``) is bit-equal to its plain version, the levels
+run one after another, on both routes.
 """
 
 import copy
@@ -692,12 +694,14 @@ def test_spvcnn_kernel_path_matches_plain_path(card, monkeypatch):
         logits.square().mean().backward()
         return logits_eval, {n: p.grad.clone() for n, p in trained.named_parameters()}
 
-    counts = cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES
+    counts = cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES, cuda_gather8.CHILD_SUM_LAUNCHES
     logits, grads = run()
-    assert cuda_gather8.GATHER8_LAUNCHES == counts[0] + 16  # 8 per forward, train and eval
+    assert cuda_gather8.GATHER8_LAUNCHES == counts[0] + 4  # 2 trilinear per forward, train and eval
     assert cuda_gather8.SCATTER8_LAUNCHES == counts[1] + 2
+    assert cuda_gather8.CHILD_SUM_LAUNCHES == counts[2] + 4  # 2 chains per forward
     monkeypatch.setattr(cuda_conv_dxdw, "conv_dx_dw", cuda_conv_dxdw.conv_dx_dw_plain)
     monkeypatch.setattr(cuda_gather8, "gather8_forward", cuda_gather8.gather8_plain)
+    monkeypatch.setattr(cuda_gather8, "child_sum", cuda_gather8.child_sum_plain)
     monkeypatch.setattr(cuda_gather8, "scatter8", cuda_gather8.scatter8_plain)
     logits_p, grads_p = run()
     assert torch.equal(logits, logits_p)
@@ -942,10 +946,12 @@ def test_fused_backward_dw_alone_equals_dx_dw(card, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,c", [(5000, 300, 256), (777, 2000, 128), (64, 64, 4), (300, 7, 1024)])
 def test_bf16_gather8_and_scatter8_kernels_match_plain(card, m, n, c):
-    """The bf16-row instances: ``gather8`` on a bf16 table bit-equal to its
-    plain version (the same rounded products and sums, in order); ``scatter8``
-    on bf16 ``dy`` and bf16-rounded ``w8`` within 1e-5 of ``sum |w8| |dy|``
-    per target and bit-equal across runs; each counts in its own counter."""
+    """The bf16-row instances: ``gather8`` on a bf16-rounded table bit-equal
+    to its plain version (the same rounded products and sums, in order);
+    ``scatter8`` on bf16-rounded ``dy`` and ``w8`` within 1e-5 of
+    ``sum |w8| |dy|`` per target and bit-equal across runs, and bit-equal to
+    the f32 instance on rows rounded beforehand; each counts in its own
+    counter."""
     rng = np.random.default_rng(m + c + 1)
     feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card)
     dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
@@ -964,20 +970,120 @@ def test_bf16_gather8_and_scatter8_kernels_match_plain(card, m, n, c):
     bound = g8.scatter8_plain(dy.abs(), nbr, w8.abs(), n, True)
     assert bool(((dfe - want).abs() <= 1e-5 * bound).all()), float((dfe - want).abs().max())
     assert torch.equal(g8.scatter8(dy, nbr, w8, n, True), dfe)
+    # rounding in registers gives the bits of the cast: the f32 kernels on rounded operands agree
+    rounded = feats.bfloat16().float()
+    assert torch.equal(out, g8.gather8_forward(rounded, nbr, w8))
+    assert torch.equal(dfe, g8.scatter8(dy.bfloat16().float(), nbr, w8.bfloat16().float(), n))
+
+
+def _allocations(fn) -> int:
+    """Device allocations made while ``fn()`` runs."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+@pytest.mark.cuda
+def test_route_wrappers_allocate_no_bf16_copy(card):
+    """On the route ``gather8``, ``child_sum`` and ``scatter8`` allocate
+    what the f32 instances do (the output, and ``scatter8``'s map scratch):
+    no bf16 copy of the table, the points or ``dy``."""
+    rng = np.random.default_rng(5)
+    m, n, c = 4096, 512, 256
+    feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card)
+    dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
+    nbr = _random_map(rng, m, n).to(card)
+    w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
+    x, children, counts = _chain_inputs(rng, (2, 600, 200, 70), c, card)
+    for route in (False, True):
+        assert _allocations(lambda: cuda_gather8.gather8_forward(feats, nbr, w8, route)) == 1
+        assert _allocations(lambda: cuda_gather8.child_sum(x, children, counts, route)) == 1
+        assert _allocations(lambda: cuda_gather8.scatter8(dy, nbr, w8, n, route)) == 2
+
+
+def _chain_inputs(rng, shape, c, card):
+    """x f32 [B, cap_0, c] with -0.0 rows, child maps [B, cap_{l+1}, 8] with
+    sentinels, negative and out-of-range children, and counts: ``shape`` is
+    (B, cap_0, cap_1, ...)."""
+    b, caps = shape[0], shape[1:]
+    x = rng.standard_normal((b, caps[0], c)).astype(np.float32)
+    x[:, ::5] = -0.0
+    children = []
+    for l in range(len(caps) - 1):
+        ch = rng.integers(0, caps[l], size=(b, caps[l + 1], 8)).astype(np.int32)
+        ch[rng.random(ch.shape) > 0.5] = caps[l]
+        ch[:, ::7] = caps[l]
+        ch[0, 1, 2], ch[-1, 2, 3] = -1, caps[l] + 9
+        children.append(torch.from_numpy(ch).to(card))
+    counts = torch.from_numpy(rng.integers(0, 6, size=(b, caps[-1])).astype(np.int32)).to(card)
+    return torch.from_numpy(x).to(card), children, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape,c", [((2, 3000, 1000, 400, 150, 60), 256), ((3, 2000, 700, 250), 128),
+                                     ((1, 64, 16), 4), ((2, 500, 200, 90), 512), ((4, 900, 300, 100, 40), 12)])
+def test_child_sum_kernel_bit_equal_to_the_chain(card, shape, c, bf16):
+    """The fused chain against its plain version (one ``gather8_plain`` a
+    level, then the divide), bit for bit, sign of zero included, on a rerun
+    too; it counts in its own counter.  A SPVCNN plan's chains below."""
+    rng = np.random.default_rng(len(shape) + c)
+    x, children, counts = _chain_inputs(rng, shape, c, card)
+    before = cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES
+    got = cuda_gather8.child_sum(x, children, counts, bf16)
+    torch.cuda.synchronize()
+    after = cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES
+    assert after == (before[0] + (not bf16), before[1] + bf16)
+    want = cuda_gather8.child_sum_plain(x, children, counts, bf16)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(cuda_gather8.child_sum(x, children, counts, bf16).view(torch.int32), got.view(torch.int32))
+    with pytest.raises(ValueError):
+        cuda_gather8.child_sum(x[..., :3].contiguous(), children, counts)  # c % 4
+    with pytest.raises(ValueError):
+        cuda_gather8.child_sum(x, [children[0].long()] + children[1:], counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_child_sum_kernel_on_a_spvcnn_plan(card, bf16, monkeypatch):
+    """Both chains of a SPVCNN point plan through ``point_to_voxel_avg_batched``
+    against the plain chain, bit for bit, forward and backward."""
+    from lidal_tpu_torch.ops.devoxelize import point_to_voxel_avg_batched
+
+    monkeypatch.setattr(conv, "BF16_OPERANDS", bf16)
+    eb = prepare_eval_batch(None, *(t.to(card) for t in _frames(61)), level_caps=CAPS, augment=False, with_points=True)
+    rng = np.random.default_rng(62)
+    for name, levels in (("avg2", 2), ("avg4", 4)):
+        x = torch.from_numpy(rng.standard_normal((2, CAPS[0], 128)).astype(np.float32)).to(card)
+        x = (x * eb.plan.levels[0].valid[..., None]).requires_grad_(True)
+        dy = torch.from_numpy(rng.standard_normal((2, CAPS[levels], 128)).astype(np.float32)).to(card)
+        avg = getattr(eb.pplan, name)
+        got = point_to_voxel_avg_batched(x, eb.plan.downs, avg, levels)
+        (g,) = torch.autograd.grad(got, x, dy)
+        with monkeypatch.context() as mp:
+            mp.setattr(cuda_gather8, "child_sum", cuda_gather8.child_sum_plain)
+            want = point_to_voxel_avg_batched(x, eb.plan.downs, avg, levels)
+            (g_want,) = torch.autograd.grad(want, x, dy)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+        assert torch.equal(g.view(torch.int32), g_want.view(torch.int32)), name
+        assert bool((got != 0).any())
 
 
 @pytest.mark.cuda
 def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
     """Under ``conv.BF16_OPERANDS`` and ``cuda_gather8.SCATTER8_BF16`` an eval
     forward of MinkUNet and one SPVCNN train step launch the bf16 kernels
-    and none of the f32 conv, backward, gather8 or scatter8 kernels."""
+    and none of the f32 conv, backward, gather8, child_sum or scatter8 kernels."""
     monkeypatch.setattr(conv, "BF16_OPERANDS", True)
     monkeypatch.setattr(cuda_gather8, "SCATTER8_BF16", True)
 
     def counters():
         return (cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES,
-                cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES, cuda_gather8.GATHER8_BF16_LAUNCHES,
-                cuda_gather8.SCATTER8_BF16_LAUNCHES)
+                cuda_gather8.CHILD_SUM_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES,
+                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES,
+                cuda_gather8.CHILD_SUM_BF16_LAUNCHES)
 
     torch.manual_seed(0)
     before = counters()
@@ -985,7 +1091,7 @@ def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
     with torch.inference_mode():
         logits, _ = MinkUNet(num_classes=19).eval().to(card)(eb.feats, eb.plan)
     mid = counters()
-    assert mid[:4] == before[:4] and mid[4] - before[4] == 42 and mid[5:] == before[5:]
+    assert mid[:5] == before[:5] and mid[5] - before[5] == 42 and mid[6:] == before[6:]
     assert bool(logits.isfinite().all()) and not logits[~eb.plan.levels[0].valid].any()
     xyz, sig, valid = (t.to(card) for t in _frames(54))
     labels = torch.randint(0, 19, valid.shape, generator=torch.Generator().manual_seed(1)).to(card)
@@ -995,6 +1101,7 @@ def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
     torch.nn.functional.cross_entropy(logits[tb.plan.levels[0].valid], tb.labels[tb.plan.levels[0].valid].long()).backward()
     torch.cuda.synchronize()
     after = counters()
-    assert after[:4] == mid[:4], f"an f32 kernel launched on the bf16 route: {mid} -> {after}"
-    assert after[4] - mid[4] == 42 and after[5] - mid[5] == 42 and after[6] - mid[6] == 8 and after[7] - mid[7] == 2
+    assert after[:5] == mid[:5], f"an f32 kernel launched on the bf16 route: {mid} -> {after}"
+    assert after[5] - mid[5] == 42 and after[6] - mid[6] == 42
+    assert (after[7] - mid[7], after[8] - mid[8], after[9] - mid[9]) == (2, 2, 2)
     assert all(bool(p.grad.isfinite().all()) for p in model.parameters() if p.grad is not None)
