@@ -217,14 +217,16 @@ ranks on one GPU.  Any failed group or rank fails the run.
     then ``run_fused_lidal_round`` over the group with flags, saved maps and
     selections identical to phase 12's, ``nn_band`` launched once a frame.
 
-Phase 30 drives the bf16 route (``ops/conv.BF16_OPERANDS`` and
+Phase 30 drives the bf16 route (``ops/conv.bf16_route``, the command line's
+``--bf16_route``: ``ops/conv.BF16_OPERANDS`` and
 ``ops/cuda_gather8.SCATTER8_BF16``, the counterparts of the JAX package's
 ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``: operands staged in
 bf16, sums in f32) at full width with the seeded weights, batches and caps of
-phases 5, 8, 12, 16 and 17; every earlier phase runs on the f32 route, the
-default, as before.  Its parts run beside the phase whose model or tree they
-share (a and b after 6 and 16, a and c after 9 and 17, d after 29 (iii)); on
-the route no f32 conv, backward, gather8, child_sum or scatter8 may launch.
+phases 5, 8, 12, 16-18 and 25-29; every earlier phase runs on the f32 route,
+the default, as before.  Its parts run beside the phase whose model or tree
+they share (a and b after 6 and 16, a and c after 9 and 17, d after 29 (iii),
+e after 25, 26 and 27, f, g and h's round after 23, h's groups after 29 (ii));
+on the route no f32 conv, backward, gather8, child_sum or scatter8 may launch.
 
 30. (a) every routed call at the shapes of one B = 4 forward and one B = 5
     step against its plain bf16 version, with the gates of phases 19-21
@@ -248,14 +250,34 @@ the route no f32 conv, backward, gather8, child_sum or scatter8 may launch.
     route, twice: frames/s, the runs' maps, flags and selection bit-equal,
     both rounds' selections within the budget, and the selected supervoxels
     against phase 12's f32 round (counts and |A n B| / |A u B|, printed, not
-    gated).  The record's ``subm_conv_bf16``, ``conv_dx_dw_bf16``,
-    ``gather8_bf16``, ``child_sum_bf16`` and ``scatter8_bf16`` entries are
-    (a)'s numbers, with the launches of (b)-(d)'s bf16 runs.
+    gated).  (e) nuScenes beside phases 25-27: eval at B = 30 with MinkUNet
+    and SPVCNN as (b) (argmax agreement with f32 at least
+    ROUTE_ARGMAX_AGREE), training at B = 15 as (c), and phase 27's fused
+    round on the route (frames/s beside phase 27's, the selections against
+    its).  (f) after phase 23, on phase 12's prepared tree and weights: the
+    MinkUNet round on the route staged and fused, bit-equal (maps, flags,
+    supervoxel scores, selection), and phase 18's SPVCNN fused round on the
+    route; frames/s beside phases 12 and 18, selections against theirs.  (g)
+    ``cli.main(["run-experiment", "--rounds", "3", "--bf16_route", ...])``
+    in this process on phase 12's tree (round 0 labels every third frame,
+    EXPERIMENT_STEPS train steps a round, eval on) beside the same command
+    without the flag: seconds of each, and per round the supervoxels each
+    selects and their overlap (recorded, not gated).  (h) 29's multi-device
+    paths on the route, each rank turning it on itself: the one-rank NCCL
+    group (3 steps bit-equal to no group's, eval confusion equal), the two
+    gloo ranks' train step and eval (after 29 (ii); the step no further from
+    one process's than the f32 route's step is from the route's, every
+    weight within 2 lr, the eval confusion equal), and (f)'s round split
+    over two gloo ranks (maps bit-equal to (f)'s staged round, selection,
+    flags and maps identical to its fused round).  The record's
+    ``subm_conv_bf16``, ``conv_dx_dw_bf16``, ``gather8_bf16``,
+    ``child_sum_bf16`` and ``scatter8_bf16`` entries are (a)'s numbers,
+    with the launches of the bf16 runs of (b)-(g).
 
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
-rounds of phases 12, 18 and 27, the probes' run of phase 22), each counted
-from 0 just before it.  ``bound_ms`` is the least time the card could
+rounds of phases 12, 18 and 27, the probes' run of phase 22; on the route
+the runs of 30 (b)-(g)), each counted from 0 just before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (f32 outside the tensor cores; integer compares at half that),
@@ -1017,7 +1039,8 @@ def nn_band_phase(cfg, dev, seq="00", names=None, n_pts=N_PTS, tag="11 nn_band",
 
 def lidal_slice_phase(cfg, root, dev, n_sv):
     """12: staged and fused LiDAL rounds from the same weights; returns (the
-    kernels' launches in the fused round, its selection)."""
+    kernels' launches in the fused round, its selection, {"staged": seconds
+    of inference + scoring, "fused": seconds of the fused round})."""
     import torch
 
     from lidal_tpu_torch.active import lidal, lidal_runner
@@ -1146,7 +1169,7 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
           f"accumulation {t_slot - t_band:.1f} ms; host aggregate {t_agg:.1f} ms (host clock)")
     del model, ring, prob
     torch.cuda.empty_cache()
-    return launches, res_b
+    return launches, res_b, {"staged": t_inf + t_score, "fused": t_fused}
 
 
 def active_round_phase(cfg, dev):
@@ -1615,8 +1638,8 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
 
 
 def spvcnn_round_phase(cfg_mink, dev, n_sv):
-    """18: run_fused_lidal_round with SPVCNN on the round tree.  Returns each
-    kernel's launches in it."""
+    """18: run_fused_lidal_round with SPVCNN on the round tree.  Returns (each
+    kernel's launches in it, its selection, its seconds)."""
     from lidal_tpu_torch.active import lidal_runner
     from lidal_tpu_torch.data import semantic_kitti as sk
     from lidal_tpu_torch.runtime.paths import Paths
@@ -1654,7 +1677,7 @@ def spvcnn_round_phase(cfg_mink, dev, n_sv):
     print(f"[18 round] run_fused_lidal_round (SPVCNN): {ROUND_FRAMES} frames x {cfg.inf_reps} views in {seconds:.2f} s = "
           f"{ROUND_FRAMES / seconds:.3f} frames/s; prob rows sum to 1 within {worst_sum:.1e}; selected "
           f"{len(res.al_added)} supervoxels for labels and {len(res.sl_added)} for pseudo labels; launches {launches}")
-    return launches
+    return launches, res, seconds
 
 
 def bf16_rows_bytes(nbr, n, row_bytes):
@@ -2268,10 +2291,12 @@ def nu_prep_phase(cfg) -> int:
     return n_sv
 
 
-def nu_eval_phase(cfg, dev):
+def nu_eval_phase(cfg, dev, route):
     """25: the NU eval slice (B = 2 x batch_size = 30 val keyframes, NU caps)
-    with MinkUNet and SPVCNN; each warmed up through ``evaluate_command``.
-    Returns ({family: launches}, one eval batch dict)."""
+    with MinkUNet and SPVCNN; each warmed up through ``evaluate_command``;
+    beside each, 30 (e): the same batches on the bf16 route
+    (``route_eval_phase``), its launches into ``route``.  Returns ({family:
+    launches}, one eval batch dict)."""
     import torch
 
     from lidal_tpu_torch.cli.commands import _dataset_frames, evaluate_command
@@ -2306,6 +2331,8 @@ def nu_eval_phase(cfg, dev):
             cfg_f, model, [batch] * (1 + TIMED_BATCHES), prepare, dev, caps, f"25 slice {family}",
             f"25 forward {family}", b=NU_VAL_FRAMES, n_pts=NU_PTS, warm_up=lambda: evaluate_command(cfg_f, dev),
         )
+        route[f"NU eval {family}"] = route_eval_phase(cfg_f, model, [batch] * (1 + TIMED_BATCHES), prepare, dev, caps,
+                                                      b=NU_VAL_FRAMES, n_pts=NU_PTS, tag=f"[30e eval NU {family}]")
         del state, model
         torch.cuda.empty_cache()
     return launches, batch
@@ -2314,7 +2341,8 @@ def nu_eval_phase(cfg, dev):
 def nu_round_phase(cfg, root, dev, n_sv):
     """27 (after the grid and nn_band checks): staged and fused NU LiDAL rounds
     from the same weights, over the frames as the commands enumerate them;
-    returns the kernels' launches in the fused round."""
+    returns (the kernels' launches in the fused round, its selection, its
+    seconds)."""
     import torch
 
     from lidal_tpu_torch.active import lidal, lidal_runner
@@ -2392,7 +2420,7 @@ def nu_round_phase(cfg, root, dev, n_sv):
           f"{len(res_b.sl_added)} for pseudo labels")
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, res_b, t_fused
 
 
 def nu_import_phase(cfg, batch, dev):
@@ -2518,11 +2546,13 @@ def group_phase(cfg_train, cfg_eval, root, dev, batches, conf5, rate8):
         dist.destroy_process_group()
 
 
-def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device):
+def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device, route=False):
     """29 (ii), one of two ranks on ``device`` joined by gloo: training of the
     global B = 4 (2 frames a rank) up to step ``max_iter``, then eval of
     global batches of 4; then steps/s of 1 + 5 steps from the seed at the
-    same batch, and the time of a step's small all-reduces alone."""
+    same batch, and the time of a step's small all-reduces alone.  With
+    ``route`` (30 (h)) all of it on the bf16 route: a spawned process starts
+    from the modules' defaults, so the rank turns the route on itself."""
     import datetime
 
     import torch
@@ -2543,14 +2573,20 @@ def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device):
                             timeout=datetime.timedelta(seconds=300))
     try:
         group = dist.group.WORLD
-        state = run_train(cfg, max_iter=max_iter, device=dev, group=group)
-        loader = FrameBatchLoader(eval_files, lambda p: sk.read_frame(p, with_labels=True),
-                                  point_cap=cfg.data.point_cap, batch_size=4)
-        res = run_eval(cfg, state.model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9), group=group)
+        reset_launches()
+        with bf16_route(route):
+            state = run_train(cfg, max_iter=max_iter, device=dev, group=group)
+            loader = FrameBatchLoader(eval_files, lambda p: sk.read_frame(p, with_labels=True),
+                                      point_cap=cfg.data.point_cap, batch_size=4)
+            res = run_eval(cfg, state.model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9),
+                           group=group)
+        if route:  # the rank's step and eval on the route: no f32 kernel
+            read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused"))
         np.save(os.path.join(out_dir, f"confusion{rank}.npy"), res.confusion)
         np.save(os.path.join(out_dir, f"all_reduces{rank}.npy"), mesh.ALL_REDUCES)
         n0 = mesh.ALL_REDUCES
-        rate = timed_run_train(dataclasses.replace(cfg, checkpoint_root=os.path.join(out_dir, "timed")), dev, group)
+        with bf16_route(route):
+            rate = timed_run_train(dataclasses.replace(cfg, checkpoint_root=os.path.join(out_dir, "timed")), dev, group)
         per_step = (mesh.ALL_REDUCES - n0) // (1 + TIMED_STEPS)
         small = torch.zeros(97, device=dev)  # a BN's count and channel sums
         t_ar = cuda_ms(lambda: [mesh.all_reduce_(small, group) for _ in range(per_step)], reps=3)
@@ -2559,14 +2595,32 @@ def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device):
         dist.destroy_process_group()
 
 
-def gloo_phase(cfg_train, root, dev):
+def step_distance(got, want):
+    """Two state dicts after a train step: (parameter entries further apart
+    than 1e-2 lr, parameter entries, the largest parameter difference, the
+    largest BN-statistic difference over max(1, |want|))."""
+    far = total = 0
+    worst = stats = 0.0
+    for name, w in want.items():
+        d = (got[name] - w).abs()
+        if "running" in name:
+            stats = max(stats, float((d / w.abs().clamp_min(1.0)).max()))
+            continue
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-2 * LR).sum())
+        total += d.numel()
+    return far, total, worst, stats
+
+
+def gloo_phase(cfg_train, root, dev, route=False):
     """29 (ii): two processes on the one card joined by gloo (NCCL puts no two
     ranks on one GPU): one train step at a global B = 4 of the full-width
     MinkUNet from phase 8's trained state and Adam moments, as phase 9's step,
     against one process's B = 4 step from the same state (phase 9's
     tolerances; from a fresh Adam every near-zero gradient whose sign the sum
     order flips moves its weight by 2 lr), and the eval confusion of the
-    group-trained weights against one process's."""
+    group-trained weights against one process's.  With ``route`` (30 (h)) the
+    ranks and the one process all on the bf16 route, with the same gates."""
     import torch
     import torch.multiprocessing as tmp_mp
 
@@ -2577,11 +2631,12 @@ def gloo_phase(cfg_train, root, dev):
     from lidal_tpu_torch.runtime.paths import Paths
     from lidal_tpu_torch.runtime.train_loop import init_state, run_train
 
-    out_dir = os.path.join(root, "gloo")
+    tag, suffix = ("[30h gloo]", "_bf16") if route else ("[29 gloo]", "")
+    out_dir = os.path.join(root, "gloo" + suffix)
     os.makedirs(out_dir)
-    cfg2 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_gloo"),
+    cfg2 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_gloo" + suffix),
                                data_override=dataclasses.replace(cfg_train.data, batch_size=2))
-    cfg1 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_one"),
+    cfg1 = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, "check_points_29_one" + suffix),
                                data_override=dataclasses.replace(cfg_train.data, batch_size=4))
     eval_files = sk.list_frames(cfg_train.data_root, ["00"])[:8]
     phase8 = ckpt.ckpt_path(Paths(cfg_train).ckpt_dir())
@@ -2592,53 +2647,69 @@ def gloo_phase(cfg_train, root, dev):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     rank_dev = str(torch.device("cuda", torch.cuda.current_device())) if dev.type == "cuda" else str(dev)
-    tmp_mp.start_processes(gloo_rank, args=(free_port(), cfg2, step0 + 1, eval_files, out_dir, rank_dev), nprocs=2,
-                           join=True, start_method="spawn")
+    tmp_mp.start_processes(gloo_rank, args=(free_port(), cfg2, step0 + 1, eval_files, out_dir, rank_dev, route),
+                           nprocs=2, join=True, start_method="spawn")
     t_ranks = time.perf_counter() - t0
     confs = [np.load(os.path.join(out_dir, f"confusion{r}.npy")) for r in range(2)]
     all_reduces = [int(np.load(os.path.join(out_dir, f"all_reduces{r}.npy"))) for r in range(2)]
     require(min(all_reduces) > 0 and np.array_equal(*confs), f"the ranks' results differ: {all_reduces}")
 
-    single = run_train(cfg1, max_iter=step0 + 1, log_every=10**9, device=dev).model.state_dict()
+    reset_launches()
+    with bf16_route(route):
+        single = run_train(cfg1, max_iter=step0 + 1, log_every=10**9, device=dev).model.state_dict()
+    if route:
+        read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused"))
     trained = init_state(cfg2, dev)
     require(ckpt.restore_checkpoint(Paths(cfg2).ckpt_dir(), trained) is not None and trained.step == step0 + 1,
             "rank 0 wrote no checkpoint of its step")
-    far = total = 0
-    worst = 0.0
-    for name, got in trained.model.state_dict().items():
-        d = (got - single[name]).abs()
-        if "running" in name:  # BN statistics: phase 9's 1e-4 of max(1, |plain|)
-            require(bool((d <= 1e-4 * single[name].abs().clamp_min(1.0)).all()),
-                    f"BN statistic {name}: {float(d.max())}")
-            continue
-        worst = max(worst, float(d.max()))
-        require(float(d.max()) <= 2 * LR, f"parameter {name} after Adam: {float(d.max())}")
-        far += int((d > 1e-2 * LR).sum())
-        total += d.numel()
-    require(far <= 1e-3 * total, f"{far} of {total} parameters differ by more than 1e-2 * lr after Adam")
-    rate1 = timed_run_train(dataclasses.replace(cfg1, checkpoint_root=os.path.join(out_dir, "timed1")), dev)
-    rate2, per_step, t_ar = np.load(os.path.join(out_dir, "timing0.npy"))
-
+    far, total, worst, stats = step_distance(trained.model.state_dict(), single)
+    if not route:
+        require(stats <= 1e-4, f"BN statistics differ by {stats:.2e} of max(1, |plain|)")  # phase 9's
+        require(worst <= 2 * LR, f"a parameter after Adam differs by {worst}")
+        require(far <= 1e-3 * total, f"{far} of {total} parameters differ by more than 1e-2 * lr after Adam")
+        bar = f"(tol {2 * LR})"
+    else:
+        # On the route a reordered f32 sum ahead of a bf16 rounding (the ranks' BN sums) moves the few operands
+        # near a rounding boundary by a whole bf16 step, and Adam turns a gradient's flipped sign into a 2 lr
+        # move: the ranks' step is held to be no further from one process's than the f32 route's step from the
+        # same state is from the route's; each weight within 2 lr plus its own f32 rounding.
+        cfg1f = dataclasses.replace(cfg1, checkpoint_root=cfg1.checkpoint_root + "_f32")
+        os.makedirs(Paths(cfg1f).ckpt_dir())
+        shutil.copy(phase8, ckpt.ckpt_path(Paths(cfg1f).ckpt_dir()))
+        f32 = run_train(cfg1f, max_iter=step0 + 1, log_every=10**9, device=dev).model.state_dict()
+        far_f32, _, worst_f32, stats_f32 = step_distance(f32, single)
+        require(stats <= max(1e-4, stats_f32), f"BN statistics differ by {stats:.2e} (the f32 route's {stats_f32:.2e})")
+        require(worst <= 2 * LR * (1 + 1e-4), f"a parameter after Adam differs by {worst}")
+        require(far <= far_f32, f"{far} of {total} parameters differ by more than 1e-2 * lr after Adam, the f32 "
+                                f"route's step from one process's {far_f32}")
+        bar = (f"(tol {2 * LR}); the f32 route's step against the route's from the same state: worst |d| "
+               f"{worst_f32:.2e}, {far_f32} beyond 1e-2 * lr, BN statistics {stats_f32:.2e}; the ranks' BN "
+               f"statistics {stats:.2e} of max(1, |x|)")
     model = trained.model.eval()
     loader = FrameBatchLoader(eval_files, lambda p: sk.read_frame(p, with_labels=True),
                               point_cap=cfg1.data.point_cap, batch_size=4)
-    res = run_eval(cfg1, model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9))
+    with bf16_route(route):
+        rate1 = timed_run_train(dataclasses.replace(cfg1, checkpoint_root=os.path.join(out_dir, "timed1")), dev)
+        res = run_eval(cfg1, model, loader, dev, torch.Generator(device="cpu").manual_seed(SEED + 9))
+    rate2, per_step, t_ar = np.load(os.path.join(out_dir, "timing0.npy"))
     require(np.array_equal(res.confusion, confs[0]), "the two ranks' eval confusion differs from one process's")
-    print(f"[29 gloo] 2 processes on {dev} joined by gloo: train step {step0 + 1} at a global B = 4 (2 a rank) and "
+    print(f"{tag} 2 processes on {dev} joined by gloo: train step {step0 + 1} at a global B = 4 (2 a rank) and "
           f"eval of {len(eval_files)} frames in {t_ranks:.1f} s (spawn, start-up and kernel loads included); "
-          f"{all_reduces[0]} all-reduces a rank; after Adam worst |d| {worst:.2e} (tol {2 * LR}), {far} of {total} "
+          f"{all_reduces[0]} all-reduces a rank; after Adam worst |d| {worst:.2e} {bar}, {far} of {total} "
           f"parameters beyond 1e-2 * lr; eval confusion equal to one process's ({int(res.confusion.sum())} points)")
-    print(f"[29 gloo] train at a global B = 4, {TIMED_STEPS} steps after a warm-up from the seed: 2 gloo ranks on "
+    print(f"{tag} train at a global B = 4, {TIMED_STEPS} steps after a warm-up from the seed: 2 gloo ranks on "
           f"the one card {rate2:.3f} steps/s, one process {rate1:.3f} steps/s ({rate2 / rate1:.2f}x); a step's "
           f"{int(per_step)} all-reduces through gloo, the small ones alone (97 floats each, CUDA tensors via the "
           f"host): {t_ar:.2f} ms")
 
 
-def round_rank(rank, port, cfg, ranks_root, out_dir, device):
+def round_rank(rank, port, cfg, ranks_root, out_dir, device, route=False):
     """29 (iii), one of two ranks on ``device`` joined by gloo, on phase 12's
     tree and weights: ``run_prob_inference`` over this rank's share of the
-    frames (``process_shard``), each map held here against phase 12's staged
-    map, then ``run_fused_lidal_round`` over the group in ``ranks_root``."""
+    frames (``process_shard``), each map held here against the staged maps
+    under ``cfg.processing_root`` (phase 12's), then
+    ``run_fused_lidal_round`` over the group in ``ranks_root``.  With
+    ``route`` (30 (h)) both on the bf16 route, turned on by the rank itself."""
     import datetime
 
     import torch
@@ -2667,25 +2738,27 @@ def round_rank(rank, port, cfg, ranks_root, out_dir, device):
         by_id = {sk.frame_id(p): p for p in files}
         inf_cfg = lidal_runner._prev_cfg(cfg)
         share = mesh.process_shard(len(files), group)
-        t0 = time.perf_counter()
-        maps = run_prob_inference(inf_cfg, model, files[share.start : share.stop],
-                                  lambda p: sk.read_frame(p, with_labels=False), sk.frame_id, save=False, device=dev,
-                                  first_index=share.start)
-        t_inf = time.perf_counter() - t0
-        staged = Paths(inf_cfg)
-        differ = [name for (seq, name), (prob, pred, _) in maps.items()
-                  if not (np.array_equal(prob, np.load(os.path.join(staged.prob_dir(seq), f"{name}.npy")))
-                          and np.array_equal(pred, np.load(os.path.join(staged.pred_dir(seq), f"{name}.npy"))))]
-        mesh.sync_hosts("inference", group)
-        reset_launches()
-        t0 = time.perf_counter()
-        res = lidal_runner.run_fused_lidal_round(
-            dataclasses.replace(cfg, processing_root=ranks_root), model,
-            lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
-            frame_index=frame_index, device=dev, group=group,
-        )
-        t_fused = time.perf_counter() - t0
-        launches = read_launches(("lookup_sorted", "subm_conv", "nn_band"))
+        with bf16_route(route):
+            t0 = time.perf_counter()
+            maps = run_prob_inference(inf_cfg, model, files[share.start : share.stop],
+                                      lambda p: sk.read_frame(p, with_labels=False), sk.frame_id, save=False,
+                                      device=dev, first_index=share.start)
+            t_inf = time.perf_counter() - t0
+            staged = Paths(inf_cfg)
+            differ = [name for (seq, name), (prob, pred, _) in maps.items()
+                      if not (np.array_equal(prob, np.load(os.path.join(staged.prob_dir(seq), f"{name}.npy")))
+                              and np.array_equal(pred, np.load(os.path.join(staged.pred_dir(seq), f"{name}.npy"))))]
+            mesh.sync_hosts("inference", group)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = lidal_runner.run_fused_lidal_round(
+                dataclasses.replace(cfg, processing_root=ranks_root), model,
+                lambda seq, name: sk.read_frame(by_id[(seq, name)], with_labels=False)[:2],
+                frame_index=frame_index, device=dev, group=group,
+            )
+            t_fused = time.perf_counter() - t0
+        launches = (read_route_launches(("lookup_sorted", "conv_gather_first", "nn_band")) if route
+                    else read_launches(("lookup_sorted", "subm_conv", "nn_band")))
         torch.save({"inferred": sorted(maps), "differ": differ, "t_inf": t_inf, "t_fused": t_fused,
                     "launches": launches, "selection": [np.asarray(x) for x in res]},
                    os.path.join(out_dir, f"rank{rank}.pt"))
@@ -2693,33 +2766,37 @@ def round_rank(rank, port, cfg, ranks_root, out_dir, device):
         dist.destroy_process_group()
 
 
-def rank_round_phase(cfg, root, dev, selection12):
+def rank_round_phase(cfg, root, dev, selection12, fused_root=None, route=False):
     """29 (iii): phase 12's inference and fused round split over two gloo
     ranks on the card, as ``torchrun`` splits them over cards: every frame
-    inferred by one rank, its maps bit-equal to phase 12's; the fused
-    round's selection on both ranks, its flags and its saved prob / pred
-    maps (each written by the rank that owns the frame) identical to phase
-    12's; ``nn_band`` launched once a frame over the two ranks."""
+    inferred by one rank, its maps bit-equal to the staged maps under
+    ``cfg.processing_root`` (phase 12's); the fused round's selection on both
+    ranks, its flags and its saved prob / pred maps (each written by the
+    rank that owns the frame) identical to ``selection12`` and to the fused
+    round's tree ``fused_root`` (phase 12's); ``nn_band`` launched once a
+    frame over the two ranks.  With ``route`` (30 (h)) the ranks on the bf16
+    route, held to the route's staged and fused rounds of 30 (f)."""
     import torch
     import torch.multiprocessing as tmp_mp
 
     from lidal_tpu_torch.active import lidal_runner
     from lidal_tpu_torch.runtime.paths import Paths
 
-    fused12 = os.path.join(root, "Processing_fused")  # phase 12's fused tree
-    cfg_r = dataclasses.replace(cfg, processing_root=os.path.join(root, "Processing_ranks"))
+    fused12 = fused_root or os.path.join(root, "Processing_fused")  # phase 12's fused tree
+    tag, suffix = ("[30h ranks]", "_bf16") if route else ("[29 ranks]", "")
+    cfg_r = dataclasses.replace(cfg, processing_root=os.path.join(root, "Processing_ranks" + suffix))
     shutil.copytree(fused12, cfg_r.processing_root)
     prev_r, prev_12 = Paths(lidal_runner._prev_cfg(cfg_r)), Paths(lidal_runner._prev_cfg(
         dataclasses.replace(cfg, processing_root=fused12)))
     for d in (Paths(cfg_r).sv_flag_dir("00"), prev_r.prob_dir("00"), prev_r.pred_dir("00")):
         shutil.rmtree(d)  # the round writes them anew
-    out_dir = os.path.join(root, "ranks")
+    out_dir = os.path.join(root, "ranks" + suffix)
     os.makedirs(out_dir)
     torch.cuda.empty_cache()
     rank_dev = str(torch.device("cuda", torch.cuda.current_device())) if dev.type == "cuda" else str(dev)
     t0 = time.perf_counter()
-    tmp_mp.start_processes(round_rank, args=(free_port(), cfg, cfg_r.processing_root, out_dir, rank_dev), nprocs=2,
-                           join=True, start_method="spawn")
+    tmp_mp.start_processes(round_rank, args=(free_port(), cfg, cfg_r.processing_root, out_dir, rank_dev, route),
+                           nprocs=2, join=True, start_method="spawn")
     t_ranks = time.perf_counter() - t0
     got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
     inferred = got[0]["inferred"] + got[1]["inferred"]
@@ -2740,11 +2817,12 @@ def rank_round_phase(cfg, root, dev, selection12):
                     f"{have}/{name} differs from phase 12's")
     t_inf = max(g["t_inf"] for g in got)
     t_fused = max(g["t_fused"] for g in got)
-    print(f"[29 ranks] 2 gloo ranks on {dev} in {t_ranks:.1f} s (spawn and start-up included): run_prob_inference "
+    print(f"{tag} 2 gloo ranks on {dev} in {t_ranks:.1f} s (spawn and start-up included): run_prob_inference "
           f"{ROUND_FRAMES} frames x {cfg.inf_reps} views ({len(got[0]['inferred'])} + {len(got[1]['inferred'])}) in "
-          f"{t_inf:.2f} s ({ROUND_FRAMES / t_inf:.3f} frames/s), maps bit-equal to phase 12's; run_fused_lidal_round "
-          f"in {t_fused:.2f} s ({ROUND_FRAMES / t_fused:.3f} frames/s), selection, flags and saved maps identical to "
-          f"phase 12's ({len(selection12.al_added)} + {len(selection12.sl_added)} supervoxels); launches rank 0 "
+          f"{t_inf:.2f} s ({ROUND_FRAMES / t_inf:.3f} frames/s), maps bit-equal to one process's staged round; "
+          f"run_fused_lidal_round in {t_fused:.2f} s ({ROUND_FRAMES / t_fused:.3f} frames/s), selection, flags and "
+          f"saved maps identical to one process's fused round ({len(selection12.al_added)} + "
+          f"{len(selection12.sl_added)} supervoxels); launches rank 0 "
           f"{got[0]['launches']}, rank 1 {got[1]['launches']}")
 
 
@@ -2753,18 +2831,14 @@ def rank_round_phase(cfg, root, dev, selection12):
 F32_KERNELS = ("subm_conv", "conv_dx_dw", "gather8", "scatter8", "child_sum")  # none may launch on the bf16 route
 
 
-@contextlib.contextmanager
-def bf16_route():
-    """Within: ``ops/conv.BF16_OPERANDS`` and ``ops/cuda_gather8.SCATTER8_BF16``
-    on (the counterparts of the JAX package's ``conv.USE_PALLAS`` and
-    ``pallas_gather8.USE_PALLAS_BWD``); both off again after."""
-    from lidal_tpu_torch.ops import conv, cuda_gather8
+def bf16_route(on: bool = True):
+    """``ops/conv.bf16_route(on)``: within, ``ops/conv.BF16_OPERANDS`` and
+    ``ops/cuda_gather8.SCATTER8_BF16`` (the counterparts of the JAX package's
+    ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``) set to ``on``;
+    both restored after."""
+    from lidal_tpu_torch.ops import conv
 
-    conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = True
-    try:
-        yield
-    finally:
-        conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = False
+    return conv.bf16_route(on)
 
 
 def read_route_launches(expected) -> dict:
@@ -2778,6 +2852,12 @@ def read_route_launches(expected) -> dict:
 
 def _bf16(x):
     return x.bfloat16().float()
+
+
+def selection_overlap(a, b) -> float:
+    """|A n B| / |A u B| of two arrays of supervoxel ids (0 when both are empty)."""
+    x, y = set(np.asarray(a).tolist()), set(np.asarray(b).tolist())
+    return len(x & y) / max(1, len(x | y))
 
 
 def route_forward_phase(model, eb):
@@ -3028,9 +3108,10 @@ def route_scatter8_phase(state, tb):
             "bound_by": least.by, "library_ms": total["lib"]}
 
 
-def route_eval_phase(cfg, model, batches, prepare, dev, caps):
-    """30 (b): ``run_eval`` over the timed batches on the f32 route and on the
-    bf16 route in turns (f32, bf16, bf16, f32; each after its warm-up), points/s
+def route_eval_phase(cfg, model, batches, prepare, dev, caps, b=B, n_pts=N_PTS, tag=None):
+    """30 (b), and (e) on nuScenes: ``run_eval`` over the timed batches (each
+    of ``b`` frames of ``n_pts`` points) on the f32 route and on the bf16
+    route in turns (f32, bf16, bf16, f32; each after its warm-up), points/s
     of both, each kernel's launches in the first bf16 run; then one batch's
     logits on the bf16 route against the f32 route's: finite, 0 on invalid
     rows, argmax agreement at least ROUTE_ARGMAX_AGREE, bit-equal on a rerun.
@@ -3041,7 +3122,7 @@ def route_eval_phase(cfg, model, batches, prepare, dev, caps):
     from lidal_tpu_torch.runtime.evaluate import run_eval
 
     spvcnn = cfg.is_spvcnn
-    tag = f"[30b eval {cfg.model_name}]"
+    tag = tag or f"[30b eval {cfg.model_name}]"
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
     with bf16_route():
         run_eval(cfg, model, batches[:1], dev, gen)  # warm-up of the route
@@ -3060,7 +3141,7 @@ def route_eval_phase(cfg, model, batches, prepare, dev, caps):
         if first:
             launches = read_route_launches(("lookup_sorted", "conv_gather_first") +
                                            (("gather8_bf16", "child_sum_bf16") if spvcnn else ()))
-        require(res.points == TIMED_BATCHES * B * N_PTS, f"points evaluated {res.points}")
+        require(res.points == TIMED_BATCHES * b * n_pts, f"points evaluated {res.points}")
         rates[route].append(res.points / (start.elapsed_time(end) / 1e3))
     require(launches["conv_gather_first"] == 42 * TIMED_BATCHES and
             launches["gather8_bf16"] == launches["child_sum_bf16"] == (2 * TIMED_BATCHES if spvcnn else 0),
@@ -3078,7 +3159,7 @@ def route_eval_phase(cfg, model, batches, prepare, dev, caps):
     rms = float((bf - f32)[valid0].square().mean().sqrt() / f32[valid0].square().mean().sqrt())
     agree = float((bf.argmax(-1) == f32.argmax(-1))[valid0].float().mean())
     require(agree >= ROUTE_ARGMAX_AGREE, f"argmax agreement of the bf16 and f32 routes {agree}")
-    print(f"{tag} run_eval, {TIMED_BATCHES} batches x {B} x {N_PTS} points, in turns f32, bf16, bf16, f32: "
+    print(f"{tag} run_eval, {TIMED_BATCHES} batches x {b} x {n_pts} points, in turns f32, bf16, bf16, f32: "
           f"f32 {', '.join(f'{r:,.0f}' for r in rates['f32'])} points/s, bf16 {', '.join(f'{r:,.0f}' for r in rates['bf16'])} "
           f"points/s (bf16 / f32 by the means {np.mean(rates['bf16']) / np.mean(rates['f32']):.3f}); launches on the route "
           f"{launches}; logits bf16 vs f32 on one batch: max|d| / max|f32| {share:.3e}, rms {rms:.3e}, argmax agreement "
@@ -3086,8 +3167,8 @@ def route_eval_phase(cfg, model, batches, prepare, dev, caps):
     return launches
 
 
-def route_train_phase(cfg_train, root, dev):
-    """30 (c): ``run_train`` (1 + TIMED_STEPS steps from ``init_state``'s seeded
+def route_train_phase(cfg_train, root, dev, tag=None):
+    """30 (c), and (e) on nuScenes: ``run_train`` (1 + TIMED_STEPS steps from ``init_state``'s seeded
     state, the same batches) on the f32 and the bf16 route in turns (f32,
     bf16, bf16, f32), each from a fresh checkpoint directory: steps/s of
     both, each step's loss on both (the first step's from the same state
@@ -3098,7 +3179,7 @@ def route_train_phase(cfg_train, root, dev):
     from lidal_tpu_torch.runtime.train_loop import run_train
 
     spvcnn = cfg_train.is_spvcnn
-    tag = f"[30c train {cfg_train.model_name}]"
+    tag = tag or f"[30c train {cfg_train.model_name}]"
     runs, launches = [], None
     turns = ("f32", "bf16", "bf16", "f32") if not spvcnn else ("bf16", "f32")
     for i, route in enumerate(turns):
@@ -3207,21 +3288,305 @@ def route_round_phase(cfg, root, dev, selection12, n_sv):
         for kind in ("al_added", "sl_added"):  # each greedy pass stays within the budget
             require(int(sv_pnums[getattr(res, kind)].sum()) <= limit, f"the {route} round's {kind} exceed the budget")
 
-    def overlap(x, y):
-        x, y = set(x.tolist()), set(y.tolist())
-        return len(x & y) / max(1, len(x | y))
-
     print(f"[30d round] run_fused_lidal_round on the bf16 route (phase 12's weights, {ROUND_FRAMES} frames x {cfg.inf_reps} "
           f"views): {t_a:.2f} s, {t_b:.2f} s = {ROUND_FRAMES / t_a:.3f}, {ROUND_FRAMES / t_b:.3f} frames/s; prob / pred "
           f"maps, flags and selection bit-equal across the two runs; launches {launches}")
     print(f"[30d round] selections, bf16 against phase 12's f32 round: labels {len(a.al_added)} against "
           f"{len(selection12.al_added)} supervoxels ({used['bf16']} and {used['f32']} points of a budget of {limit}), "
-          f"overlap |A n B| / |A u B| {overlap(a.al_added, selection12.al_added):.4f}; pseudo labels {len(a.sl_added)} "
-          f"against {len(selection12.sl_added)}, overlap {overlap(a.sl_added, selection12.sl_added):.4f}")
+          f"overlap |A n B| / |A u B| {selection_overlap(a.al_added, selection12.al_added):.4f}; pseudo labels {len(a.sl_added)} "
+          f"against {len(selection12.sl_added)}, overlap {selection_overlap(a.sl_added, selection12.sl_added):.4f}")
     for _, _, c in runs:
         shutil.rmtree(c.processing_root, ignore_errors=True)
     del model
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---- 30 (e)-(h). the bf16 route on nuScenes, SPVCNN and staged rounds, three rounds and ranks ------------------
+
+
+def route_round_tree(cfg, src_root, dst_root, seq, flags_from):
+    """A processing tree for one round of ``cfg`` under ``dst_root``: the
+    grids and supervoxels of the prepared tree ``src_root`` and, as the
+    previous round's flags of ``cfg``'s model, the directory ``flags_from``.
+    Returns ``cfg`` on the copy."""
+    from lidal_tpu_torch.runtime.paths import Paths
+
+    for part in ("grid", "super_voxel"):
+        shutil.copytree(os.path.join(src_root, cfg.dataset_name, part), os.path.join(dst_root, cfg.dataset_name, part))
+    cfg_r = dataclasses.replace(cfg, processing_root=dst_root)
+    shutil.copytree(flags_from, Paths(cfg_r).sv_flag_dir(seq, r_id=cfg.r_id - 1))
+    return cfg_r
+
+
+def route_lidal_round(cfg, model, files, read_fn, frame_id, dev, staged=False):
+    """One LiDAL round of ``cfg`` on the bf16 route over ``files``: staged
+    (``run_prob_inference``, then ``run_lidal_round``) or fused
+    (``run_fused_lidal_round``).  ``read_fn(file, with_labels=False)`` gives
+    (xyz, sig, ...).  Returns (its selection, the arrays the selection saw,
+    seconds, each kernel's launches: no f32 kernel, ``nn_band`` once a
+    frame)."""
+    import torch
+
+    from lidal_tpu_torch.active import lidal, lidal_runner
+    from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
+
+    seen = []
+    select = lidal.select
+
+    def recording_select(*args, **kwargs):
+        seen.append([np.array(a) for a in args[:5]])
+        return select(*args, **kwargs)
+
+    by_id = {frame_id(f): f for f in files}
+    lidal.select = recording_select
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with bf16_route():
+            if staged:
+                run_prob_inference(lidal_runner._prev_cfg(cfg), model, files, lambda f: read_fn(f, with_labels=False),
+                                   frame_id, device=dev)
+                res = lidal_runner.run_lidal_round(cfg, device=dev)
+            else:
+                res = lidal_runner.run_fused_lidal_round(
+                    cfg, model, lambda seq, name: read_fn(by_id[(seq, name)], with_labels=False)[:2],
+                    frame_index={frame_id(f): i for i, f in enumerate(files)}, device=dev,
+                )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_route_launches(("lookup_sorted", "conv_gather_first", "nn_band") +
+                                       (("gather8_bf16", "child_sum_bf16") if cfg.is_spvcnn else ()))
+    finally:
+        lidal.select = select
+    require(launches["nn_band"] == len(files), f"nn_band launched {launches['nn_band']} times for {len(files)} frames")
+    require(len(res.al_added) > 0, "the round on the bf16 route selected nothing")
+    return res, seen[0], seconds, launches
+
+
+def require_rounds_equal(cfg_a, res_a, seen_a, cfg_b, res_b, seen_b, seq, names, what):
+    """Two rounds' selections, the arrays their selections saw, their flags
+    and the prob / pred maps they wrote bit-equal; the prob maps finite."""
+    from lidal_tpu_torch.active import lidal_runner
+    from lidal_tpu_torch.runtime.paths import Paths
+
+    require(all(np.array_equal(x, y) for x, y in zip(seen_a, seen_b)),
+            f"{what}: supervoxel flags, scores, point counts or centres differ")
+    require(all(np.array_equal(x, y) for x, y in zip(res_a, res_b)), f"{what}: the selections differ")
+    pa, pb = Paths(lidal_runner._prev_cfg(cfg_a)), Paths(lidal_runner._prev_cfg(cfg_b))
+    for name in names:
+        for da, db in ((pa.prob_dir(seq), pb.prob_dir(seq)), (pa.pred_dir(seq), pb.pred_dir(seq)),
+                       (Paths(cfg_a).sv_flag_dir(seq), Paths(cfg_b).sv_flag_dir(seq))):
+            a = np.load(os.path.join(da, f"{name}.npy"))
+            require(np.array_equal(a, np.load(os.path.join(db, f"{name}.npy"))), f"{what}: {db}/{name}.npy differs")
+            require(bool(np.isfinite(a).all()), f"{what}: non-finite values in {da}/{name}.npy")
+
+
+def nu_route_round_phase(cfg, root, dev, selection27, t27):
+    """30 (e), after phase 27: phase 27's fused NU round (its weights, frames
+    and prepared tree) on the bf16 route: frames/s beside phase 27's f32
+    fused round, and the selected supervoxels against its (counts and
+    |A n B| / |A u B|, recorded, not gated).  Returns its launches."""
+    import torch
+
+    from lidal_tpu_torch.cli.commands import _dataset_frames
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    files, read_fn, frame_id = _dataset_frames(cfg, "train")
+    model = init_state(cfg, dev).model.eval()
+    randomise_bn(model, SEED + 7)  # phase 27's weights
+    cfg_r = route_round_tree(cfg, cfg.processing_root, os.path.join(root, "Processing_bf16"), NU_TRAIN_SCENE,
+                             Paths(cfg).sv_flag_dir(NU_TRAIN_SCENE, r_id=1))
+    res, _, seconds, launches = route_lidal_round(cfg_r, model, files, read_fn, frame_id, dev)
+    print(f"[30e round NU Mink] run_fused_lidal_round on the bf16 route ({NU_TRAIN_FRAMES} frames x {cfg.inf_reps} "
+          f"views): {seconds:.2f} s = {NU_TRAIN_FRAMES / seconds:.3f} frames/s (phase 27's f32 round "
+          f"{NU_TRAIN_FRAMES / t27:.3f}, bf16 / f32 {t27 / seconds:.3f}); labels {len(res.al_added)} against "
+          f"{len(selection27.al_added)} supervoxels, overlap {selection_overlap(res.al_added, selection27.al_added):.4f}; "
+          f"pseudo labels {len(res.sl_added)} against {len(selection27.sl_added)}, overlap "
+          f"{selection_overlap(res.sl_added, selection27.sl_added):.4f}; launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sk_route_rounds_phase(cfg, root, dev, f32):
+    """30 (f), after phase 23: on phase 12's prepared tree (its grids,
+    supervoxels and round-1 flags) and weights, the MinkUNet round on the
+    bf16 route staged and fused, bit-equal (maps, flags, the supervoxel
+    scores and the selection), and phase 18's SPVCNN fused round on the
+    route; frames/s beside phases 12 and 18 (``f32``: {"staged", "fused",
+    "spvcnn"}: (seconds, selection)), the selections against theirs
+    (recorded).  Returns ({path: launches}, the MinkUNet trees and fused
+    selection for 30 (h))."""
+    import torch
+
+    from lidal_tpu_torch.data import semantic_kitti as sk
+    from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.runtime.train_loop import init_state
+
+    src = os.path.join(root, "Processing_fused")  # phase 12's fused tree
+    flags1 = Paths(dataclasses.replace(cfg, processing_root=src)).sv_flag_dir("00", r_id=1)
+    files = sk.list_frames(cfg.data_root, cfg.data.train_split)
+    names = [f"{i:06d}" for i in range(ROUND_FRAMES)]
+    runs, launches = {}, {}
+    for family in ("Mink", "SPVCNN"):
+        cfg_f = dataclasses.replace(cfg, model_name=family)
+        model = init_state(cfg_f, dev).model.eval()
+        randomise_bn(model, SEED + 7)  # phases 12 and 18's weights
+        for mode in (("staged", "fused") if family == "Mink" else ("fused",)):
+            cfg_r = route_round_tree(cfg_f, src, os.path.join(root, f"Processing_bf16_{family}_{mode}"), "00", flags1)
+            runs[family, mode] = (cfg_r,) + route_lidal_round(cfg_r, model, files, sk.read_frame, sk.frame_id, dev,
+                                                              staged=mode == "staged")
+            launches[f"round {family} {mode}"] = runs[family, mode][-1]
+        del model
+        torch.cuda.empty_cache()
+    (cfg_s, res_s, seen_s, t_s, _), (cfg_f, res_f, seen_f, t_f, _) = runs["Mink", "staged"], runs["Mink", "fused"]
+    require_rounds_equal(cfg_s, res_s, seen_s, cfg_f, res_f, seen_f, "00", names, "staged vs fused on the bf16 route")
+    t12s, sel12 = f32["staged"]
+    t12f, _ = f32["fused"]
+    print(f"[30f round Mink] on the bf16 route (phase 12's weights, {ROUND_FRAMES} frames x {cfg.inf_reps} views): "
+          f"staged (run_prob_inference + run_lidal_round) {t_s:.2f} s = {ROUND_FRAMES / t_s:.3f} frames/s (phase 12's f32 "
+          f"{ROUND_FRAMES / t12s:.3f}), fused {t_f:.2f} s = {ROUND_FRAMES / t_f:.3f} frames/s (phase 12's f32 "
+          f"{ROUND_FRAMES / t12f:.3f}); staged == fused: {ROUND_FRAMES} prob and pred npys, sv_flag files, supervoxel "
+          f"scores and the selection bit-equal; labels {len(res_f.al_added)} against phase 12's {len(sel12.al_added)}, "
+          f"overlap {selection_overlap(res_f.al_added, sel12.al_added):.4f}; pseudo labels {len(res_f.sl_added)} "
+          f"against {len(sel12.sl_added)}, overlap {selection_overlap(res_f.sl_added, sel12.sl_added):.4f}")
+    _, res_p, _, t_p, l_p = runs["SPVCNN", "fused"]
+    t18, sel18 = f32["spvcnn"]
+    print(f"[30f round SPVCNN] run_fused_lidal_round on the bf16 route (phase 18's weights): {t_p:.2f} s = "
+          f"{ROUND_FRAMES / t_p:.3f} frames/s (phase 18's f32 {ROUND_FRAMES / t18:.3f}); labels {len(res_p.al_added)} "
+          f"against {len(sel18.al_added)}, overlap {selection_overlap(res_p.al_added, sel18.al_added):.4f}; pseudo "
+          f"labels {len(res_p.sl_added)} against {len(sel18.sl_added)}, overlap "
+          f"{selection_overlap(res_p.sl_added, sel18.sl_added):.4f}; launches {l_p}")
+    return launches, {"staged": cfg_s.processing_root, "fused": cfg_f.processing_root, "selection": res_f}
+
+
+def route_group_phase(cfg_train, cfg_eval, root, dev, batches):
+    """30 (h), after 29 (ii): 29 (i) on the bf16 route.  In a world-size-1
+    NCCL group: ``run_train`` at B = 5 bit-equal to no group's after 3 steps
+    (all-reduces counted), and ``run_eval`` of phase 5's model over its
+    batches through the group equal to no group's, both on the route."""
+    import torch
+    import torch.distributed as dist
+
+    from lidal_tpu_torch.models.minkunet import MinkUNet
+    from lidal_tpu_torch.parallel import mesh
+    from lidal_tpu_torch.runtime.evaluate import run_eval
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    group = dist.group.WORLD
+    try:
+        with bf16_route():
+            runs = {}
+            for tag, g in (("plain", None), ("group", group)):
+                cfg = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, f"check_points_30h_{tag}"))
+                mesh.ALL_REDUCES = 0
+                reset_launches()
+                runs[tag] = run_train(cfg, max_iter=3, log_every=10**9, device=dev, group=g).model.state_dict()
+                launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused"))
+            n_all_reduces = mesh.ALL_REDUCES
+            differ = [k for k, v in runs["plain"].items() if not torch.equal(v, runs["group"][k])]
+            require(not differ, f"3 steps on the route through the group differ from 3 without it: {differ[:4]}")
+            require(n_all_reduces > 0, "no all-reduce ran in the group's run_train")
+            torch.manual_seed(SEED)  # phase 5's model and generator
+            model = MinkUNet(num_classes=cfg_eval.data.num_classes).eval()
+            randomise_bn(model, SEED + 1)
+            model = model.to(dev)
+            confs = {}
+            for tag, g in (("plain", None), ("group", group)):
+                gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+                run_eval(cfg_eval, model, batches[:1], dev, gen, group=g)
+                confs[tag] = run_eval(cfg_eval, model, batches[1:], dev, gen, group=g).confusion
+        require(np.array_equal(confs["plain"], confs["group"]),
+                "run_eval on the route through the group differs from no group's")
+        print(f"[30h group] on the bf16 route, a world-size-1 NCCL group: run_train B = {cfg_train.data.batch_size}, "
+              f"after 3 steps {len(runs['plain'])} tensors bit-equal with and without the group, {n_all_reduces} "
+              f"all-reduces; run_eval of {TIMED_BATCHES} batches x {B} through the group: confusion equal to no "
+              f"group's ({int(confs['group'].sum())} points); launches of the group's run_train {launches}")
+    finally:
+        dist.destroy_process_group()
+
+
+EXPERIMENT_ROUNDS = 3  # rounds of 30 (g)'s run-experiment
+EXPERIMENT_STEPS = 3  # train steps a round there
+
+
+def experiment_phase(cfg, root, dev):
+    """30 (g): ``python -m lidal_tpu_torch.cli run-experiment --rounds 3``,
+    as ``cli.main`` in this process, on phase 12's tree (its frames, grids
+    and supervoxels; round 0 labels phase 12's round-1 frames, every third),
+    EXPERIMENT_STEPS train steps a round, eval on, with ``--bf16_route`` and
+    without it: seconds of each, the route run's launches (no f32 kernel)
+    and the f32 run's (no bf16 kernel), both switches off after each; per
+    round the supervoxels each run labels and pseudo-labels, and their
+    overlap |A n B| / |A u B| (recorded, not gated: from round 2 on the two
+    runs train on different labels).  The selection budget is 1 % of the
+    tree's points, as in phase 12 (``train_point_num`` has no flag:
+    ``config.SK_CONFIG`` carries the tree's count for the two commands).
+    Returns the route run's launches."""
+    from lidal_tpu_torch import config
+    from lidal_tpu_torch.cli import __main__ as cli
+    from lidal_tpu_torch.ops import conv, cuda_gather8
+    from lidal_tpu_torch.runtime.paths import Paths
+
+    src = os.path.join(root, "Processing_fused")  # phase 12's fused tree
+    flags1 = Paths(dataclasses.replace(cfg, processing_root=src)).sv_flag_dir("00", r_id=1)
+    names = sorted(os.listdir(flags1))
+    runs = {}
+    saved = config.SK_CONFIG
+    config.SK_CONFIG = dataclasses.replace(saved, train_point_num=cfg.data.train_point_num)
+    try:
+        for route in (True, False):
+            tag = "bf16" if route else "f32"
+            proc = os.path.join(root, f"Processing_experiment_{tag}")
+            for part in ("grid", "super_voxel"):
+                shutil.copytree(os.path.join(src, "SK", part), os.path.join(proc, "SK", part))
+            p0 = Paths(dataclasses.replace(cfg, processing_root=proc, r_id=0))
+            os.makedirs(p0.frame_flag_dir())
+            np.save(os.path.join(p0.frame_flag_dir(), "00.npy"), np.arange(ROUND_FRAMES) % 3 == 0)
+            shutil.copytree(flags1, p0.sv_flag_dir("00"))
+            argv = ["run-experiment", "--rounds", str(EXPERIMENT_ROUNDS), "--dataset_name", "SK", "--model_name",
+                    "Mink", "--label_unit", "sv", "--metric_name", "LiDAL", "--data_root", cfg.data_root,
+                    "--processing_root", proc, "--checkpoint_root", os.path.join(root, f"check_points_experiment_{tag}"),
+                    "--train_seqs", "00", "--val_seqs", "08", "--max_iter", str(EXPERIMENT_STEPS), "--inf_reps",
+                    str(cfg.inf_reps), "--batch_size", str(cfg.data.batch_size), "--point_cap", str(cfg.data.point_cap),
+                    "--level_caps", ",".join(map(str, cfg.data.level_caps)), "--device", str(dev)]
+            argv += ["--bf16_route"] if route else []
+            reset_launches()
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, f"run-experiment ({tag}) failed")
+            seconds = time.perf_counter() - t0
+            require(not conv.BF16_OPERANDS and not cuda_gather8.SCATTER8_BF16, "the route's switches stayed on")
+            if route:
+                launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused", "nn_band"))
+            else:
+                counts = read_launches(("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band"))
+                require(not counts["conv_gather_first"] and not counts["conv_dx_dw_fused"],
+                        f"bf16 kernels launched without --bf16_route: {counts}")
+            flags = []
+            for r in range(EXPERIMENT_ROUNDS + 1):
+                d = Paths(dataclasses.replace(cfg, processing_root=proc, r_id=r)).sv_flag_dir("00")
+                flags.append(np.concatenate([np.load(os.path.join(d, n)) for n in names]))
+            runs[tag] = seconds, flags
+    finally:
+        config.SK_CONFIG = saved
+    lines = []
+    for r in range(1, EXPERIMENT_ROUNDS + 1):
+        new = {}
+        for tag, (_, flags) in runs.items():
+            prev, now = flags[r - 1], flags[r]
+            require(bool((now[prev == 1] == 1).all()), f"{tag}: round {r} dropped earlier labels")
+            new[tag] = (np.flatnonzero((now == 1) & (prev != 1)), np.flatnonzero(now == 2))
+            require(len(new[tag][0]) > 0, f"{tag}: round {r} labelled nothing")
+        (al_b, sl_b), (al_f, sl_f) = new["bf16"], new["f32"]
+        lines.append(f"round {r}: labels {len(al_b)} / {len(al_f)}, overlap {selection_overlap(al_b, al_f):.4f}; "
+                     f"pseudo labels {len(sl_b)} / {len(sl_f)}, overlap {selection_overlap(sl_b, sl_f):.4f}")
+    print(f"[30g experiment] cli.main run-experiment --rounds {EXPERIMENT_ROUNDS} (max_iter {EXPERIMENT_STEPS}, eval "
+          f"on) on phase 12's tree: --bf16_route {runs['bf16'][0]:.1f} s, f32 {runs['f32'][0]:.1f} s; selections "
+          f"bf16 / f32 by round: {'; '.join(lines)}; launches on the route {launches}")
     return launches
 
 
@@ -3395,6 +3760,9 @@ def main() -> None:
         # ---- 29 (i, ii). a world-size-1 NCCL group; two ranks on the card joined by gloo -------------
         group_phase(cfg_train, cfg, root, dev, batches, conf5, rate8)
         gloo_phase(cfg_train, root, dev)
+        # ---- 30 (h). the bf16 route in a one-rank NCCL group and over two gloo ranks ----------------
+        route_group_phase(cfg_train, cfg, root, dev, batches)
+        gloo_phase(cfg_train, root, dev, route=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3418,13 +3786,21 @@ def main() -> None:
               f"registered by prepare_sk_grids: {time.perf_counter() - t0:.1f} s")
         grid_phase(cfg_round, dev)
         nn_band = nn_band_phase(cfg_round, dev)
-        round_launches, selection12 = lidal_slice_phase(cfg_round, root, dev, n_sv)
+        round_launches, selection12, t12 = lidal_slice_phase(cfg_round, root, dev, n_sv)
         rank_round_phase(cfg_round, root, dev, selection12)
         # ---- 30 (d). the bf16 route: phase 12's fused round ------------------------------------------
         route["round Mink"] = route_round_phase(cfg_round, root, dev, selection12, n_sv)
         active_round_phase(cfg_round, dev)
-        launches_18 = spvcnn_round_phase(cfg_round, dev, n_sv)
+        launches_18, selection18, t18 = spvcnn_round_phase(cfg_round, dev, n_sv)
         scoring_phase(cfg_round, root, dev)
+        # ---- 30 (f, h, g). the route: staged and SPVCNN rounds, the round over two ranks, 3 rounds ------
+        launches_f, trees = sk_route_rounds_phase(cfg_round, root, dev, {
+            "staged": (t12["staged"], selection12), "fused": (t12["fused"], selection12),
+            "spvcnn": (t18, selection18)})
+        route.update(launches_f)
+        rank_round_phase(dataclasses.replace(cfg_round, processing_root=trees["staged"]), root, dev,
+                         trees["selection"], fused_root=trees["fused"], route=True)
+        route["experiment"] = experiment_phase(cfg_round, root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3443,18 +3819,23 @@ def main() -> None:
             checkpoint_root=os.path.join(root, "check_points"), data_override=data,
         )
         n_sv_nu = nu_prep_phase(cfg_nu)
-        nu_eval, nu_batch = nu_eval_phase(cfg_nu, dev)
+        nu_eval, nu_batch = nu_eval_phase(cfg_nu, dev, route)  # with 30 (e)'s eval on the route
         cfg_nu_train = dataclasses.replace(cfg_nu, label_unit="fr", metric_name="full", r_id=1,
                                            max_iter=1 + TIMED_STEPS)
         trained, _, nu_train, _ = train_slice_phase(cfg_nu_train, dev, NU_CONFIG.level_caps, tag="26 slice",
                                                     n_pts=NU_PTS)
         del trained
         torch.cuda.empty_cache()
+        # ---- 30 (e). the bf16 route: NU training at B = 15 ------------------------------------------
+        route["NU train Mink"] = route_train_phase(cfg_nu_train, root, dev, tag="[30e train NU Mink]")
+        torch.cuda.empty_cache()
         names = [e["token"] for e in nu_seq_frames(cfg_nu)[NU_TRAIN_SCENE]]
         grid_phase(cfg_nu, dev, seq=NU_TRAIN_SCENE, name=names[NU_TRAIN_FRAMES // 2], n_pts=NU_PTS, tag="27 grid")
         nn_band_phase(cfg_nu, dev, seq=NU_TRAIN_SCENE, names=names[: lidal.NEI_NUM + 2], n_pts=NU_PTS,
                       tag="27 nn_band", edge_cases=False)
-        nu_round = nu_round_phase(cfg_nu, root, dev, n_sv_nu)
+        nu_round, selection27, t27 = nu_round_phase(cfg_nu, root, dev, n_sv_nu)
+        # ---- 30 (e). the bf16 route: phase 27's fused NU round ----------------------------------------
+        route["NU round Mink"] = nu_route_round_phase(cfg_nu, root, dev, selection27, t27)
         nu_import_phase(cfg_nu, nu_batch, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)

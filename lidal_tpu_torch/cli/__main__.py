@@ -16,11 +16,18 @@ Mirrors the reference's per-script CLIs (``train.py:208-219``,
 Every command that runs a model runs it on ``--device`` (default ``cuda``; ``cpu``
 runs the kernels' plain versions); ``prep`` runs on the host.
 
+``--bf16_route`` runs every model call of the command on the bf16 route: the
+route the JAX package takes on its TPU (``lidal_tpu/ops/conv.py:USE_PALLAS``
+and ``ops/pallas_gather8.py:USE_PALLAS_BWD``), operands staged in bf16 and
+sums in f32, on the bf16 kernels (``ops/conv.bf16_route``).  Off by default:
+without it every command runs the f32 kernels, on every device.
+
 Under ``torchrun`` (``torchrun --nproc_per_node=N -m lidal_tpu_torch.cli
 <command> ...``) every rank joins one process group first
 (``parallel/mesh.init_from_env``): ``--device cuda`` becomes
 ``cuda:LOCAL_RANK``, and ``train``, ``evaluate``, ``prob-inference``,
-``score``, ``fused-score`` and ``run-experiment`` run over the ranks.
+``score``, ``fused-score`` and ``run-experiment`` run over the ranks; every
+rank parses ``--bf16_route`` and takes the route itself.
 ``prep`` and ``import-torch`` join no group: rank 0 runs them alone and the
 other ranks return at once.
 """
@@ -35,6 +42,7 @@ import sys
 import torch.distributed as dist
 
 from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.ops import conv
 from lidal_tpu_torch.parallel import mesh
 
 
@@ -70,6 +78,9 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--val_seqs", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the command runs on (cuda | cuda:N | cpu)")
+    p.add_argument("--bf16_route", action="store_true",
+                   help="run every model call on the bf16 route, the JAX package's TPU route (operands "
+                        "staged in bf16, f32 sums; lidal_tpu/ops/conv.py:USE_PALLAS); off: f32")
 
 
 def _cfg(args) -> RunConfig:
@@ -120,7 +131,8 @@ def main(argv=None) -> int:
     device = mesh.init_from_env(args.device)
     group = dist.group.WORLD if dist.is_initialized() else None
     try:
-        _run(args, cfg, device, group)
+        with conv.bf16_route(args.bf16_route):
+            _run(args, cfg, device, group)
     finally:
         if group is not None:
             dist.destroy_process_group()

@@ -31,19 +31,40 @@ inference) and backward ``cuda_conv_dxdw_fused.conv_dx_dw_fused`` (dW alone
 where the input needs no gradient); SPVCNN's ``gather8`` then reads a bf16
 table (``ops/devoxelize.py``).  Activations between layers stay f32.  A
 shape that a bf16 kernel does not take raises: the route never falls back
-to the f32 kernels.
+to the f32 kernels.  :func:`bf16_route` is how the package's own code (the
+command line's ``--bf16_route``) turns the route on: it sets this switch and
+``cuda_gather8.SCATTER8_BF16`` together and restores both.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused
+from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8
 
 # The bf16 route (operands rounded to bf16, f32 sums): the counterpart of
 # lidal_tpu/ops/conv.py:USE_PALLAS.  A forward takes the route it finds here,
 # and its backward the same.
 BF16_OPERANDS: bool = False
+
+
+@contextlib.contextmanager
+def bf16_route(on: bool = True):
+    """Within: the bf16 route on (or off, with ``on=False``) for every conv and
+    for SPVCNN's point transfers and their backward: :data:`BF16_OPERANDS`
+    and ``cuda_gather8.SCATTER8_BF16``, the counterparts of the JAX package's
+    ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``, both set to
+    ``on``.  On exit, also after an exception, both get back the values they
+    had before, so the context nests."""
+    global BF16_OPERANDS
+    before = BF16_OPERANDS, cuda_gather8.SCATTER8_BF16
+    BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = bool(on)
+    try:
+        yield
+    finally:
+        BF16_OPERANDS, cuda_gather8.SCATTER8_BF16 = before
 
 
 def _flatten_nbr(nbr: torch.Tensor, cap_src: int) -> torch.Tensor:

@@ -97,12 +97,6 @@ def jax_pallas_route():
         yield
 
 
-@contextlib.contextmanager
-def port_bf16_route():
-    with mock.patch.object(conv, "BF16_OPERANDS", True), mock.patch.object(cuda_gather8, "SCATTER8_BF16", True):
-        yield
-
-
 # ---- the routed ops -------------------------------------------------------------------------------
 
 
@@ -116,12 +110,12 @@ def test_routed_conv_forward_matches_pallas_interpret(plan, kind, cin, cout, epi
         args = _train_conv_args(plan, kind)
         with jax_pallas_route():
             want = np.asarray(getattr(jconv, f"{kind}_conv_batched")(jnp.asarray(x), jnp.asarray(w), *map(jnp.asarray, args)))
-        with port_bf16_route():
+        with conv.bf16_route():
             got = getattr(conv, f"{kind}_conv_batched")(torch.from_numpy(x), torch.from_numpy(w), *map(torch.from_numpy, args))
     else:
         with jax_pallas_route():
             want = np.asarray(_call(kind, jconv, plan, x, w, scale, shift, epilogue))
-        with port_bf16_route():
+        with conv.bf16_route():
             got = _call(kind, conv, plan, x, w, scale, shift, epilogue)
     got = got.numpy()
     assert got.shape == want.shape
@@ -190,7 +184,7 @@ def test_routed_conv_backward_matches_pallas_interpret(plan, kind, cin, cout, ne
         return fused(*a, **kw)
 
     with mock.patch.object(cuda_conv_dxdw_fused, "conv_dx_dw_fused", counting):
-        dx, dw = port_grads(x, w, dy, port_bf16_route)
+        dx, dw = port_grads(x, w, dy, conv.bf16_route)
     assert calls["fused"] == 1
     if integer:
         np.testing.assert_array_equal(dw, dw_j)
@@ -222,7 +216,7 @@ def test_routed_gather8_and_scatter8_match_pallas_interpret(seed, n, m, c, densi
         out_j, vjp = jax.vjp(lambda f: pg8.gather8(f, jnp.asarray(nbr), jnp.asarray(w8)), jnp.asarray(feats))
         out_j, (df_j,) = np.asarray(out_j), vjp(jnp.asarray(dy))
     ft = torch.from_numpy(feats).requires_grad_(True)
-    with port_bf16_route():
+    with conv.bf16_route():
         out = cuda_gather8.gather8(ft, torch.from_numpy(nbr), torch.from_numpy(w8), True)
         out.backward(torch.from_numpy(dy))
     got, df = out.detach().numpy(), ft.grad.numpy()
@@ -294,7 +288,7 @@ def test_narrow_model_eval_on_the_route_matches_pallas_interpret(frames, family)
     xyz, sig, valid, _ = frames
     eb = prepare_eval_batch(None, *torch_args(xyz, sig, valid), level_caps=MODEL_CAPS, augment=False, with_points=spv)
     with torch.inference_mode():
-        with port_bf16_route():
+        with conv.bf16_route():
             logits, _ = forward_batch(model, eb)
         f32, _ = forward_batch(model, eb)
     valid0 = eb.plan.levels[0].valid.numpy()
@@ -334,7 +328,7 @@ def test_minkunet_train_step_on_the_route_matches_pallas_interpret(frames):
         return float(loss.detach()), {n: p.grad.numpy() for n, p in model.named_parameters()}
 
     launches = cuda_conv_dxdw_fused.LAUNCHES
-    loss, grads = port_step(port_bf16_route)
+    loss, grads = port_step(conv.bf16_route)
     assert cuda_conv_dxdw_fused.LAUNCHES == launches  # the CPU takes the plain versions: no launch
     _, grads_f32 = port_step(contextlib.nullcontext)
     np.testing.assert_allclose(loss, float(loss_j), rtol=1e-3)
@@ -413,7 +407,7 @@ def test_switch_is_off_by_default_and_flipping_it_changes_nothing_else(frames):
             before = _spvcnn_step(frames)
         assert flags["gather8"] and not any(flags["gather8"]) and flags["scatter8"] and not any(flags["scatter8"])
         flags["gather8"].clear(), flags["scatter8"].clear()
-        with _f32_wrappers_forbidden(), port_bf16_route():
+        with _f32_wrappers_forbidden(), conv.bf16_route():
             on = _spvcnn_step(frames)
         assert all(flags["gather8"]) and all(flags["scatter8"]) and len(flags["scatter8"]) == 2
         with _bf16_wrappers_forbidden():

@@ -1,5 +1,6 @@
 """The port's argparse front end (``python -m lidal_tpu_torch.cli``): the same
-subcommands, flags and defaults as ``lidal_tpu.cli`` plus ``--device``, a
+subcommands, flags and defaults as ``lidal_tpu.cli`` plus ``--device`` and
+``--bf16_route``, a
 frame-level round driven end to end on the CPU over
 ``tests/synth.make_mini_sk``: prep -> train -> prob-inference -> score -> train
 (``evaluate_command`` is driven by ``tests/test_torch_round.py``), and a
@@ -40,7 +41,8 @@ def _run_args(module):
 
 def test_flags_and_defaults_equal_the_jax_cli():
     want, got = _run_args(jax_cli), _run_args(cli)
-    assert set(got) == set(want) | {"device"} and got["device"].default == "cuda"
+    assert set(got) == set(want) | {"device", "bf16_route"} and got["device"].default == "cuda"
+    assert got["bf16_route"].default is False  # the bf16 route is opt-in: f32 by default
     for name, action in want.items():
         assert (got[name].default, got[name].type, type(got[name])) == (action.default, action.type, type(action)), name
     args = argparse.Namespace(**{k: a.default for k, a in got.items()})
