@@ -201,8 +201,8 @@ ranks on one GPU.  Any failed group or rank fails the run.
 
 29. (i) after phase 17, a world-size-1 NCCL group (``tcp://127.0.0.1`` on a
     free port): ``run_train`` at B = 5 with and without the group, 3 steps
-    each from the seed, every tensor bit-equal and ``ALL_REDUCES > 0``; steps/s
-    of 1 + 5 steps without and with the group in six turns (plain, group,
+    each from the seed, every tensor bit-equal and ``all_reduce.calls > 0``;
+    steps/s of 1 + 5 steps without and with the group in six turns (plain, group,
     group, plain, plain, group) beside phase 8's; ``run_eval`` through the group on phase 5's
     model, batches and generator gives phase 5's confusion.  (ii) two
     processes on the card joined by gloo (CUDA tensors all-reduced through
@@ -432,29 +432,19 @@ KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "sc
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (just before a main path runs)."""
-    from lidal_tpu_torch.ops import (cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8,
-                                     cuda_merge, cuda_nnband)
+    """Set every count of ``utils.profiling`` to 0, each kernel's launches
+    and the all-reduces (just before a main path runs)."""
+    from lidal_tpu_torch.utils import profiling
 
-    for mod in (cuda_merge, cuda_conv, cuda_conv_dxdw, cuda_nnband, cuda_conv_dxdw_fused):
-        mod.LAUNCHES = 0
-    cuda_gather8.GATHER8_LAUNCHES = cuda_gather8.SCATTER8_LAUNCHES = cuda_gather8.CHILD_SUM_LAUNCHES = 0
-    cuda_gather8.GATHER8_BF16_LAUNCHES = cuda_gather8.SCATTER8_BF16_LAUNCHES = cuda_gather8.CHILD_SUM_BF16_LAUNCHES = 0
-    cuda_conv_bf16.GATHER_FIRST_LAUNCHES = cuda_conv_bf16.BYTE_PLANES_LAUNCHES = 0
+    profiling.reset()
 
 
 def read_launches(expected) -> dict:
     """Every kernel's launch count (just after a main path ran); the kernels
     named in ``expected`` must have launched."""
-    from lidal_tpu_torch.ops import (cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8,
-                                     cuda_merge, cuda_nnband)
+    from lidal_tpu_torch.utils import profiling
 
-    counts = dict(zip(KERNELS, (cuda_merge.LAUNCHES, cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES,
-                                cuda_nnband.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES,
-                                cuda_gather8.SCATTER8_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES,
-                                cuda_conv_bf16.BYTE_PLANES_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES,
-                                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES,
-                                cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES)))
+    counts = {k: profiling.counter(f"launch.{k}") for k in KERNELS}
     never = [k for k in expected if counts[k] == 0]
     require(not never, f"kernels of the path that never launched: {never} ({counts})")
     return counts
@@ -927,6 +917,7 @@ def nn_band_phase(cfg, dev, seq="00", names=None, n_pts=N_PTS, tag="11 nn_band",
     from lidal_tpu_torch.ops import cuda_nnband
     from lidal_tpu_torch.prep.grid import load_grid_points
     from lidal_tpu_torch.runtime.paths import Paths
+    from lidal_tpu_torch.utils import profiling
 
     cap, slots = cfg.data.point_cap, lidal.NEI_NUM + 2
     grid_dir = Paths(cfg).grid_dir(seq)
@@ -944,10 +935,10 @@ def nn_band_phase(cfg, dev, seq="00", names=None, n_pts=N_PTS, tag="11 nn_band",
         blo, nb = nn_match.band_bounds(grids, pq)
         args = (grids.planar, pq.q_t, blo, nb)
         require(grids.planar.shape == (slots, 3, cap) and pq.q_t.shape == (3, cap), "main-path shape")
-        before = cuda_nnband.LAUNCHES
+        before = profiling.counter("launch.nn_band")
         d2, row = cuda_nnband.nn_band(*args)
         torch.cuda.synchronize()
-        require(cuda_nnband.LAUNCHES == before + 1, "nn_band did not count its launch")
+        require(profiling.counter("launch.nn_band") == before + 1, "nn_band did not count its launch")
         t0 = time.perf_counter()
         d2_p, row_p = cuda_nnband.nn_band_plain(*args)
         torch.cuda.synchronize()
@@ -1152,11 +1143,9 @@ def lidal_slice_phase(cfg, root, dev, n_sv):
         t_insert = cuda_ms(lambda: ring._insert(ring.key2slot[0], torch.from_numpy(buf).to(dev), N_PTS, prob0), reps=3)
         w = torch.from_numpy(ring.weights(nei)).to(dev)
         t_slot = cuda_ms(lambda: lidal.score_slot(ring.state, ring.key2slot[mid], w), reps=3)
-        launches_before = cuda_nnband.LAUNCHES
         pq = prepared_from_grid(HashGrid(*(f[ring.key2slot[mid]] for f in ring.state[0])))
         blo, nb = band_bounds(ring.state[0], pq)
         t_band = cuda_ms(lambda: cuda_nnband.nn_band(ring.state[0].planar, pq.q_t, blo, nb), reps=3)
-        cuda_nnband.LAUNCHES = launches_before
         scores = lidal.score_slot(ring.state, ring.key2slot[mid], w).cpu()
     agg = lidal_runner._SvAggregator(cfg, n_sv).make_aggregate("00", 0, Paths(cfg).supervoxel_dir("00", "KMeans"),
                                                                 [f"{i:06d}" for i in range(ROUND_FRAMES)], False)
@@ -2502,6 +2491,7 @@ def group_phase(cfg_train, cfg_eval, root, dev, batches, conf5, rate8):
     from lidal_tpu_torch.parallel import mesh
     from lidal_tpu_torch.runtime.evaluate import run_eval
     from lidal_tpu_torch.runtime.train_loop import run_train
+    from lidal_tpu_torch.utils import profiling
 
     def cfg_at(tag):
         return dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, f"check_points_29_{tag}"))
@@ -2512,10 +2502,10 @@ def group_phase(cfg_train, cfg_eval, root, dev, batches, conf5, rate8):
     print(f"[29 group] NCCL group of one rank on {dev} in {time.perf_counter() - t0:.1f} s")
     group = dist.group.WORLD
     try:
-        mesh.ALL_REDUCES = 0
+        n0 = profiling.counter("all_reduce.calls")
         plain = run_train(cfg_at("plain"), max_iter=3, log_every=10**9, device=dev).model.state_dict()
         grouped = run_train(cfg_at("group"), max_iter=3, log_every=10**9, device=dev, group=group).model.state_dict()
-        n_all_reduces = mesh.ALL_REDUCES
+        n_all_reduces = profiling.counter("all_reduce.calls") - n0
         differ = [k for k, v in plain.items() if not torch.equal(v, grouped[k])]
         require(not differ, f"3 steps through the group differ from 3 without it: {differ[:4]}")
         require(n_all_reduces > 0, "no all-reduce ran in the group's run_train")
@@ -2563,6 +2553,7 @@ def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device, route=Fals
     from lidal_tpu_torch.parallel import mesh
     from lidal_tpu_torch.runtime.evaluate import run_eval
     from lidal_tpu_torch.runtime.train_loop import run_train
+    from lidal_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2583,11 +2574,11 @@ def gloo_rank(rank, port, cfg, max_iter, eval_files, out_dir, device, route=Fals
         if route:  # the rank's step and eval on the route: no f32 kernel
             read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused"))
         np.save(os.path.join(out_dir, f"confusion{rank}.npy"), res.confusion)
-        np.save(os.path.join(out_dir, f"all_reduces{rank}.npy"), mesh.ALL_REDUCES)
-        n0 = mesh.ALL_REDUCES
+        np.save(os.path.join(out_dir, f"all_reduces{rank}.npy"), profiling.counter("all_reduce.calls"))
+        n0 = profiling.counter("all_reduce.calls")
         with bf16_route(route):
             rate = timed_run_train(dataclasses.replace(cfg, checkpoint_root=os.path.join(out_dir, "timed")), dev, group)
-        per_step = (mesh.ALL_REDUCES - n0) // (1 + TIMED_STEPS)
+        per_step = (profiling.counter("all_reduce.calls") - n0) // (1 + TIMED_STEPS)
         small = torch.zeros(97, device=dev)  # a BN's count and channel sums
         t_ar = cuda_ms(lambda: [mesh.all_reduce_(small, group) for _ in range(per_step)], reps=3)
         np.save(os.path.join(out_dir, f"timing{rank}.npy"), np.array([rate, per_step, t_ar]))
@@ -3471,9 +3462,9 @@ def route_group_phase(cfg_train, cfg_eval, root, dev, batches):
     import torch.distributed as dist
 
     from lidal_tpu_torch.models.minkunet import MinkUNet
-    from lidal_tpu_torch.parallel import mesh
     from lidal_tpu_torch.runtime.evaluate import run_eval
     from lidal_tpu_torch.runtime.train_loop import run_train
+    from lidal_tpu_torch.utils import profiling
 
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1,
                             device_id=torch.device("cuda", torch.cuda.current_device()))
@@ -3483,11 +3474,10 @@ def route_group_phase(cfg_train, cfg_eval, root, dev, batches):
             runs = {}
             for tag, g in (("plain", None), ("group", group)):
                 cfg = dataclasses.replace(cfg_train, checkpoint_root=os.path.join(root, f"check_points_30h_{tag}"))
-                mesh.ALL_REDUCES = 0
                 reset_launches()
                 runs[tag] = run_train(cfg, max_iter=3, log_every=10**9, device=dev, group=g).model.state_dict()
                 launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused"))
-            n_all_reduces = mesh.ALL_REDUCES
+            n_all_reduces = profiling.counter("all_reduce.calls")
             differ = [k for k, v in runs["plain"].items() if not torch.equal(v, runs["group"][k])]
             require(not differ, f"3 steps on the route through the group differ from 3 without it: {differ[:4]}")
             require(n_all_reduces > 0, "no all-reduce ran in the group's run_train")

@@ -1,0 +1,20 @@
+"""Mean host ms per call of the program's span ``train.upload``: a step's copies
+of its batch's arrays to the device (``runtime/train_loop.run_train``).
+
+Read from ``lidal_tpu_torch.utils.profiling.stats()`` after the run: the
+recorder holds the spans of the traced stretch, the only stretch a profiler
+runs in.  None where the program has no such span."""
+
+SPAN = "train.upload"
+
+
+def read(rec):
+    try:
+        from lidal_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    stats = getattr(profiling, "stats", None)
+    s = stats()["spans"].get(SPAN) if stats is not None else None
+    if not s or not s["count"]:
+        return None
+    return 1e3 * s["total_s"] / s["count"]

@@ -22,7 +22,12 @@ is queued before the prefetch of frame i + 1 is submitted, so a slot write
 never overtakes a score that still reads the slot.  ``torch.inference_mode``
 and the current device are per thread: the worker enters its own.  The
 kernels' launch counts stay exact across the two threads: each wrapper adds
-to its count under ``kernels_build.LAUNCH_LOCK``.
+to its count in ``utils.profiling`` under the recorder's lock.
+
+Spans (``utils.profiling``): on the caller's thread ``round.wait_prefetch``, ``round.score``, ``round.copy_wait``,
+``round.aggregate`` per scored frame and ``round.select`` once; on the
+prefetch thread ``round.read_frame``, ``round.infer`` (fused round) and
+``round.ring_insert`` per frame entering the ring.
 
 Over a process group (``group``) each rank scores its contiguous share of
 every sequence's frames (``parallel/mesh.process_shard``; its ring also
@@ -56,6 +61,7 @@ from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.prep.grid import load_grid_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.runtime.prob_inference import check_writes, frame_generator, make_multiview_fn, to_host
+from lidal_tpu_torch.utils import profiling
 
 
 def _prev_cfg(cfg: RunConfig) -> RunConfig:
@@ -164,14 +170,16 @@ class NeighborRing:
                 buf[:n] = xyz[:n]
                 rows = torch.arange(self.cap_in, device=self.device) < n
                 prob = torch.where(rows[:, None], prob.float(), 0.0)
-                self._insert(slot, torch.from_numpy(buf).to(self.device), n, prob)
+                xyz_pad = torch.from_numpy(buf).to(self.device)
             else:
                 # one packed upload (xyz | prob)
                 buf = np.zeros((self.cap_in, 3 + prob.shape[1]), np.float32)
                 buf[:n, :3] = xyz[:n]
                 buf[:n, 3:] = prob[:n]
                 dbuf = torch.from_numpy(buf).to(self.device)
-                self._insert(slot, dbuf[:, :3].contiguous(), n, dbuf[:, 3:])
+                xyz_pad, prob = dbuf[:, :3].contiguous(), dbuf[:, 3:]
+            with profiling.span("round.ring_insert"):
+                self._insert(slot, xyz_pad, n, prob)
 
     def weights(self, keys: Sequence) -> np.ndarray:
         """Per-slot multiplicity of ``keys`` (0 for unused slots)."""
@@ -291,9 +299,11 @@ def _score_frames(chunk: range, n_frames: int, device: torch.device, cap: int, l
             ring.ensure([fi] + lidal.neighbor_ids(fi, n_frames), loader)
 
     def drain(fi, p, q_xyz, scores, copied):
-        if copied is not None:
-            copied.synchronize()  # this frame's [2, cap] copy only
-        aggregate(fi, p, q_xyz, scores)
+        with profiling.span("round.copy_wait"):
+            if copied is not None:
+                copied.synchronize()  # this frame's [2, cap] copy only
+        with profiling.span("round.aggregate"):
+            aggregate(fi, p, q_xyz, scores)
 
     io = ThreadPoolExecutor(max_workers=1)
     try:
@@ -301,10 +311,12 @@ def _score_frames(chunk: range, n_frames: int, device: torch.device, cap: int, l
             nxt = io.submit(prefetch, chunk[0])
             pending = None  # (fi, p, q_xyz, stacked [2, cap] scores on the host, copy event)
             for fi in chunk:
-                nxt.result()
-                w = ring.weights(lidal.neighbor_ids(fi, n_frames))
-                p, q_xyz = ring.meta[fi]
-                scores, copied = to_host(lidal.score_slot(ring.state, ring.key2slot[fi], w))
+                with profiling.span("round.wait_prefetch"):
+                    nxt.result()
+                with profiling.span("round.score"):
+                    w = ring.weights(lidal.neighbor_ids(fi, n_frames))
+                    p, q_xyz = ring.meta[fi]
+                    scores, copied = to_host(lidal.score_slot(ring.state, ring.key2slot[fi], w))
                 # submitted after the score is queued: the slot writes of
                 # frame fi + 1 follow it on the stream
                 if fi + 1 in chunk:
@@ -322,15 +334,16 @@ def _select_and_save(sv_flags, agg: _SvAggregator, tpn: int, save_paths, frame_s
                      group: Optional[dist.ProcessGroup], device: torch.device):
     """Stage 4: greedy selection over the aggregated scores, one flag npy per
     frame (under a group: the group's scores, written by rank 0)."""
-    lead = mesh.rank(group) == 0
-    agg.all_reduce(group, device)
-    if lead:
-        agg.save_stats()
-    result = lidal.select(sv_flags, agg.sv_interds, agg.sv_interes, agg.sv_pnums, agg.sv_centers, tpn)
-    if lead:
-        for i, sp in enumerate(save_paths):
-            np.save(sp, result.sv_flags[frame_sv_offsets[i] : frame_sv_offsets[i + 1]])
-    mesh.sync_hosts("select", group)
+    with profiling.span("round.select"):
+        lead = mesh.rank(group) == 0
+        agg.all_reduce(group, device)
+        if lead:
+            agg.save_stats()
+        result = lidal.select(sv_flags, agg.sv_interds, agg.sv_interes, agg.sv_pnums, agg.sv_centers, tpn)
+        if lead:
+            for i, sp in enumerate(save_paths):
+                np.save(sp, result.sv_flags[frame_sv_offsets[i] : frame_sv_offsets[i + 1]])
+        mesh.sync_hosts("select", group)
     return result
 
 
@@ -363,8 +376,9 @@ def run_lidal_round(
 
         def load_frame(ni: int):
             nname = names[ni]
-            xyz = load_grid_points(os.path.join(grid_dir, f"{nname}.npz")).astype(np.float32)
-            prob = np.load(os.path.join(prob_dir, f"{nname}.npy")).astype(np.float32)
+            with profiling.span("round.read_frame"):
+                xyz = load_grid_points(os.path.join(grid_dir, f"{nname}.npz")).astype(np.float32)
+                prob = np.load(os.path.join(prob_dir, f"{nname}.npy")).astype(np.float32)
             return xyz, prob
 
         aggregate = agg.make_aggregate(seq, seq_idx, paths.supervoxel_dir(seq, "KMeans"), names, verbose)
@@ -463,12 +477,14 @@ def run_fused_lidal_round(
                 scope): multi-view inference on the device; only the
                 registered coords upload."""
                 name = names[ni]
-                xyz_raw, sig = read_fn(seq, name)
-                oxyz, osig, ovalid, _ = pad_points(xyz_raw, sig, None, cap)
-                prob_t, pred_t, _ = fn(
-                    frame_generator(inf_cfg.seed, frame_index[(seq, name)]),
-                    *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
-                )
+                with profiling.span("round.read_frame"):
+                    xyz_raw, sig = read_fn(seq, name)
+                    oxyz, osig, ovalid, _ = pad_points(xyz_raw, sig, None, cap)
+                with profiling.span("round.infer"):
+                    prob_t, pred_t, _ = fn(
+                        frame_generator(inf_cfg.seed, frame_index[(seq, name)]),
+                        *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
+                    )
                 if save_prob and ni in share:  # a neighbour beyond the share is saved by its own rank
                     writes.append(writer.submit(save_frame, name, len(xyz_raw), prob_t, pred_t))
                 gxyz = load_grid_points(os.path.join(grid_dir, f"{name}.npz")).astype(np.float32)

@@ -4,7 +4,9 @@
 Replaces torch DataLoader workers (reference ``sk_dataloader.py:48-56``,
 num_workers=4, pin_memory): a thread pool reads/pads frames while the device
 computes, and ``data/pipeline.prepare_*_batch`` does augmentation/voxelization
-on the device — the host does no more than file IO and label remap.
+on the device — the host does no more than file IO and label remap.  Spans
+(``utils.profiling``): ``loader.read_batch`` on the producer thread (read and
+pad one batch), ``loader.queue_wait`` where the consumer waits for a batch.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, pad_points
+from lidal_tpu_torch.utils import profiling
 
 
 class FrameBatchLoader:
@@ -134,19 +137,20 @@ class FrameBatchLoader:
                 for bfiles in batches:
                     if stop.is_set():
                         return
-                    items = list(pool.map(self._load_one, bfiles))
-                    b = len(items)
-                    # pad the ragged final batch with invalid frames (static shapes)
-                    xyz = np.zeros((bsz, self.point_cap, 3), np.float32)
-                    sig = np.zeros((bsz, self.point_cap), np.float32)
-                    valid = np.zeros((bsz, self.point_cap), bool)
-                    labels = np.full((bsz, self.point_cap), IGNORE_LABEL, np.int32)
-                    names = []
-                    trunc_points = 0
-                    for i, (f, oxyz, osig, ovalid, olab, trunc) in enumerate(items):
-                        xyz[i], sig[i], valid[i], labels[i] = oxyz, osig, ovalid, olab
-                        names.append(f)
-                        trunc_points += trunc
+                    with profiling.span("loader.read_batch"):
+                        items = list(pool.map(self._load_one, bfiles))
+                        b = len(items)
+                        # pad the ragged final batch with invalid frames (static shapes)
+                        xyz = np.zeros((bsz, self.point_cap, 3), np.float32)
+                        sig = np.zeros((bsz, self.point_cap), np.float32)
+                        valid = np.zeros((bsz, self.point_cap), bool)
+                        labels = np.full((bsz, self.point_cap), IGNORE_LABEL, np.int32)
+                        names = []
+                        trunc_points = 0
+                        for i, (f, oxyz, osig, ovalid, olab, trunc) in enumerate(items):
+                            xyz[i], sig[i], valid[i], labels[i] = oxyz, osig, ovalid, olab
+                            names.append(f)
+                            trunc_points += trunc
                     out_q.put(
                         {
                             "files": names,
@@ -164,7 +168,8 @@ class FrameBatchLoader:
         t.start()
         try:
             while True:
-                item = out_q.get()
+                with profiling.span("loader.queue_wait"):
+                    item = out_q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

@@ -36,9 +36,6 @@ _LIBS: dict = {}
 _FUNCTIONS: dict = {}  # (library, symbol) -> ctypes function with its argument types set
 _BUILD_LOCKS: dict = {}  # name -> lock: one build per library, whichever thread asks first
 _BUILD_LOCKS_GUARD = threading.Lock()
-# Held by every wrapper while it adds to its LAUNCHES count: the scoring round
-# launches kernels from two threads (inference prefetch and scoring).
-LAUNCH_LOCK = threading.Lock()
 # name -> (seconds spent building, or 0.0 when the library was already built;
 #          the compiler's resource report, kept beside the library)
 BUILD_LOG: dict = {}

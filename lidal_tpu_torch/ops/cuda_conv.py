@@ -13,9 +13,7 @@ import ctypes
 import torch
 
 from lidal_tpu_torch import kernels_build
-
-# Kernel launches since import (or since a caller reset it).
-LAUNCHES = 0
+from lidal_tpu_torch.utils import profiling
 
 # Elements of im2col rows the plain version materialises at once: a level-0
 # conv with cin = 128 would otherwise need ~7 GB at B = 4.
@@ -103,8 +101,6 @@ def subm_conv(feats, w, nbr, scale=None, shift=None, relu: bool = False) -> torc
             out.data_ptr(), m, n, k, cin, cout, epilogue,
             torch.cuda.current_stream().cuda_stream,
         )
-    global LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        LAUNCHES += 1
+    profiling.count("launch.subm_conv")
     kernels_build.check(err, "subm_conv")
     return out

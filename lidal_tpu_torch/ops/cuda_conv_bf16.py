@@ -38,10 +38,7 @@ import torch.nn.functional as F
 
 from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.ops.cuda_conv import subm_conv_plain
-
-# Kernel launches since import (or since a caller reset them).
-GATHER_FIRST_LAUNCHES = 0
-BYTE_PLANES_LAUNCHES = 0
+from lidal_tpu_torch.utils import profiling
 
 CIN_ALIGN = 16
 STAGE_COLS = 64  # (tap, channel) columns of a stage (kKS in gather_gemm_bf16.cuh)
@@ -210,12 +207,7 @@ def _launch(table, wt, nbr, planes: bool, pipelined: bool, scale=None, shift=Non
         err = fn(table.data_ptr(), wt.data_ptr(), nbr.data_ptr(), scale.data_ptr() if scale is not None else None,
                  shift.data_ptr() if shift is not None else None, out.data_ptr(), m, n, k, cin, cout, int(planes),
                  epilogue, bn, rows, ring_stages(bn, rows, pipelined), torch.cuda.current_stream().cuda_stream)
-    global GATHER_FIRST_LAUNCHES, BYTE_PLANES_LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        if planes:
-            BYTE_PLANES_LAUNCHES += 1
-        else:
-            GATHER_FIRST_LAUNCHES += 1
+    profiling.count("launch.conv_byte_planes" if planes else "launch.conv_gather_first")
     kernels_build.check(err, "conv_byte_planes" if planes else "conv_gather_first")
     return out
 

@@ -19,9 +19,7 @@ import torch
 
 from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.ops.cuda_conv import _PLAIN_CHUNK
-
-# Kernel launches since import (or since a caller reset it).
-LAUNCHES = 0
+from lidal_tpu_torch.utils import profiling
 
 _PAIRS_PER_STAGE = 64  # pairs a dwg block stages at a time (kStage in the source)
 _SEG_ROWS = 4096  # rows of the map a list block scans (kSegRows in the source)
@@ -153,8 +151,6 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
             m, n, k, c_src, c_dst, c_f, chunks, per_chunk, int(need_dx),
             torch.cuda.current_stream().cuda_stream,
         )
-    global LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        LAUNCHES += 1
+    profiling.count("launch.conv_dx_dw")
     kernels_build.check(err, "conv_dx_dw")
     return dx, dwg

@@ -38,9 +38,7 @@ import torch.nn.functional as F
 from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.ops.cuda_conv_bf16 import bf16_padded, column_tile, ring_stages, tile_rows
 from lidal_tpu_torch.ops.cuda_conv_dxdw import _SEG_ROWS, _check, conv_dx_dw_plain, pair_chunks
-
-# Kernel launches since import (or since a caller reset it).
-LAUNCHES = 0
+from lidal_tpu_torch.utils import profiling
 
 MODES = ("dx", "dx_zero_dw", "dx_dw")
 DW_ONLY = 3  # the C entry's mode for "dx_dw" with need_dx=False
@@ -158,9 +156,7 @@ def conv_dx_dw_fused(src, w2, nbr, f, mode: str = "dx_dw", need_dx: bool = True)
             MODES.index(mode) if need_dx else DW_ONLY,
             torch.cuda.current_stream().cuda_stream,
         )
-    global LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        LAUNCHES += 1
+    profiling.count("launch.conv_dx_dw_fused")
     kernels_build.check(err, "conv_dx_dw_fused")
     if need_dx and cd != c_dst:
         dx = dx[:, :c_dst].contiguous()

@@ -46,17 +46,9 @@ from typing import Sequence, Tuple
 import torch
 
 from lidal_tpu_torch import kernels_build
+from lidal_tpu_torch.utils import profiling
 
 TAPS = 8
-
-# Kernel launches since import (or since a caller reset them); the bf16-row
-# instances count apart.
-GATHER8_LAUNCHES = 0
-SCATTER8_LAUNCHES = 0
-CHILD_SUM_LAUNCHES = 0
-GATHER8_BF16_LAUNCHES = 0
-SCATTER8_BF16_LAUNCHES = 0
-CHILD_SUM_BF16_LAUNCHES = 0
 
 # The backward of :func:`gather8` reads dy as bf16 and rounds w8 to bf16: the
 # counterpart of lidal_tpu/ops/pallas_gather8.py:USE_PALLAS_BWD (off: f32).
@@ -138,12 +130,7 @@ def gather8_forward(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf
     with torch.cuda.device(feats.device):
         err = fn(feats.data_ptr(), nbr.data_ptr(), w8.data_ptr(), out.data_ptr(), m, n, c, int(bf16_table),
                  torch.cuda.current_stream().cuda_stream)
-    global GATHER8_LAUNCHES, GATHER8_BF16_LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        if bf16_table:
-            GATHER8_BF16_LAUNCHES += 1
-        else:
-            GATHER8_LAUNCHES += 1
+    profiling.count("launch.gather8_bf16" if bf16_table else "launch.gather8")
     kernels_build.check(err, "gather8")
     return out
 
@@ -243,12 +230,7 @@ def scatter8(dy: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, n: int, bf16
         err = fn(dy.data_ptr(), w8.data_ptr(), nbr.data_ptr(), counts.data_ptr(), offsets.data_ptr(),
                  order.data_ptr(), tmp.data_ptr(), out.data_ptr(), nbr.shape[0], n, c, int(bf16),
                  torch.cuda.current_stream().cuda_stream)
-    global SCATTER8_LAUNCHES, SCATTER8_BF16_LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        if bf16:
-            SCATTER8_BF16_LAUNCHES += 1
-        else:
-            SCATTER8_LAUNCHES += 1
+    profiling.count("launch.scatter8_bf16" if bf16 else "launch.scatter8")
     kernels_build.check(err, "scatter8")
     return out
 
@@ -323,12 +305,7 @@ def child_sum(x: torch.Tensor, children: Sequence[torch.Tensor], counts: torch.T
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), *maps, counts.data_ptr(), out.data_ptr(), b, len(children), *caps_arg, c, int(bf16),
                  torch.cuda.current_stream().cuda_stream)
-    global CHILD_SUM_LAUNCHES, CHILD_SUM_BF16_LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        if bf16:
-            CHILD_SUM_BF16_LAUNCHES += 1
-        else:
-            CHILD_SUM_LAUNCHES += 1
+    profiling.count("launch.child_sum_bf16" if bf16 else "launch.child_sum")
     kernels_build.check(err, "child_sum")
     return out
 

@@ -16,10 +16,7 @@ import torch
 
 from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY, key64
-
-# Kernel launches since import (or since a caller reset it): lets a run show
-# that its main path went through the kernel.
-LAUNCHES = 0
+from lidal_tpu_torch.utils import profiling
 
 
 def _check(t_hi, t_lo, q_hi, q_lo) -> tuple:
@@ -85,9 +82,7 @@ def lookup_sorted(t_hi, t_lo, q_hi, q_lo, with_found: bool) -> torch.Tensor:
             t_hi.data_ptr(), t_lo.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(), out.data_ptr(),
             t, s // t, n, m, int(with_found), torch.cuda.current_stream().cuda_stream,
         )
-    global LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        LAUNCHES += 1
+    profiling.count("launch.lookup_sorted")
     kernels_build.check(err, "lookup_sorted")
     return out
 

@@ -19,15 +19,13 @@ from typing import Tuple
 import torch
 
 from lidal_tpu_torch import kernels_build
+from lidal_tpu_torch.utils import profiling
 
 TILE = 256  # queries per band (one query tile)
 TN = 1024  # table rows per band block
 GROUP = 32  # rows per box of the kernel's pruned scan (kGroup of csrc/nn_band.cu)
 WINDOW = 2048  # rows the kernel stages in shared memory at once (kWindow)
 BIG_COORD = 1.0e9  # padding coordinate of invalid table rows (``build_grid``)
-
-# Kernel launches since import (or since a caller reset it).
-LAUNCHES = 0
 
 # Elements of one [slots, TILE, band rows] distance block of the plain version.
 _PLAIN_CHUNK = 1 << 26
@@ -141,8 +139,6 @@ def _launch(tbl, q_t, blo, nb, counted: bool):
             s, cap, p, None if pairs is None else pairs.data_ptr(), None if needed is None else needed.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    global LAUNCHES
-    with kernels_build.LAUNCH_LOCK:
-        LAUNCHES += 1
+    profiling.count("launch.nn_band")
     kernels_build.check(err, "nn_band")
     return d2, row, pairs, needed

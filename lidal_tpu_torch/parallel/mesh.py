@@ -31,16 +31,12 @@ from __future__ import annotations
 
 import datetime
 import os
-import threading
 from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
 
-# All-reduces issued through this module, counted like the kernels' LAUNCHES
-# (chip_smoke.py reads it to show that a collective ran).
-ALL_REDUCES = 0
-_COUNT_LOCK = threading.Lock()
+from lidal_tpu_torch.utils import profiling
 
 # How long a rank may wait in a collective: sized to the longest stage that
 # one rank runs while the others wait at a fence (a selection metric scored
@@ -104,12 +100,12 @@ def process_shard(n_items: int, group: Optional[dist.ProcessGroup]) -> range:
 
 def all_reduce_(t: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (no autograd) and return it; ``t``
-    itself without a group."""
-    global ALL_REDUCES
+    itself without a group.  Counted in ``utils.profiling``: calls
+    (``all_reduce.calls``) and the bytes of ``t`` (``all_reduce.bytes``)."""
     if group is None:
         return t
-    with _COUNT_LOCK:
-        ALL_REDUCES += 1
+    profiling.count("all_reduce.calls")
+    profiling.count("all_reduce.bytes", t.numel() * t.element_size())
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 

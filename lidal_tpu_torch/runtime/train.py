@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from lidal_tpu_torch.data.pipeline import IGNORE_LABEL, TrainBatch, forward_batch
 from lidal_tpu_torch.parallel import mesh
+from lidal_tpu_torch.utils import profiling
 
 # Elements per flat buffer of a gradient all-reduce (64 MiB of f32).
 BUCKET_NUMEL = 1 << 24
@@ -94,15 +95,25 @@ def train_step(state: TrainState, batch: TrainBatch, dropout_seeds=None,
     loss and the gradients are summed over the group before Adam (the model's
     BNs must sum over the same group: ``runtime/train_loop.build_model``).
     Returns the loss (detached, on the batch's device; reading it waits for
-    the device)."""
+    the device).  Spans (``utils.profiling``): ``train.step`` around
+    ``train.forward``, ``train.loss``, ``train.backward``,
+    ``train.all_reduce`` (with a group) and ``train.optimizer``."""
     model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    logits, _ = forward_batch(model, batch, dropout_seeds)
-    loss = cross_entropy_ignore(logits, batch.labels, group)
-    loss.backward()
-    loss = mesh.all_reduce_(loss.detach(), group)
-    sum_gradients(model, group)
-    opt.step()
-    state.step += 1
+    with profiling.span("train.step"):
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        with profiling.span("train.forward"):
+            logits, _ = forward_batch(model, batch, dropout_seeds)
+        with profiling.span("train.loss"):
+            loss = cross_entropy_ignore(logits, batch.labels, group)
+        with profiling.span("train.backward"):
+            loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            with profiling.span("train.all_reduce"):
+                loss = mesh.all_reduce_(loss, group)
+                sum_gradients(model, group)
+        with profiling.span("train.optimizer"):
+            opt.step()
+        state.step += 1
     return loss

@@ -10,8 +10,10 @@ Mode selection (reference train.py:89-109):
 
 Loop: epochs over the loader until step >= max_iter; checkpoint every
 ``ckpt_every`` steps and at the end (reference train.py:114-158).  One step
-is one Python iteration: prepare the batch on the device, then
-``runtime/train.train_step``.
+is one Python iteration: upload the batch, prepare it on the device, then
+``runtime/train.train_step``; each part is a span of ``utils.profiling``
+(``train.upload``, ``train.prepare_batch``, ``train.step``, and
+``train.log`` / ``train.checkpoint`` on the steps that log or save).
 
 Data parallel (``group``, reference ``train.py:26-53``): the global batch is
 ``batch_size`` frames per rank; rank r reads and prepares rows
@@ -49,6 +51,7 @@ from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.runtime import checkpoint as ckpt
 from lidal_tpu_torch.runtime.train import TrainState, flat_buckets, make_optimizer, train_step
+from lidal_tpu_torch.utils import profiling
 
 
 def build_model(cfg: RunConfig, group: Optional[dist.ProcessGroup] = None) -> MinkUNet:
@@ -263,19 +266,22 @@ def run_train(
         b = next(stream, None)
         if b is None:
             break
-        draws = sample_augment(gen, n_global)
-        tb = prepare_train_batch(
-            None,
-            *(torch.as_tensor(b[k]).to(device, non_blocking=True) for k in ("xyz", "sig", "valid", "labels")),
-            level_caps=data.level_caps,
-            scale=data.scale,
-            full_scale=data.full_scale,
-            draws=draws.rows(lo, hi),
-            with_points=cfg.is_spvcnn,
-        )
-        # SPVCNN's dropout: one seed per frame, so a frame's masks do not
-        # depend on its batch mates (models/layers.PerFrameDropout)
-        seeds = torch.randint(0, 2**62, (n_global,), generator=gen)[lo:hi].tolist() if cfg.is_spvcnn else None
+        with profiling.span("train.upload"):
+            arrays = [torch.as_tensor(b[k]).to(device, non_blocking=True) for k in ("xyz", "sig", "valid", "labels")]
+        with profiling.span("train.prepare_batch"):
+            draws = sample_augment(gen, n_global)
+            tb = prepare_train_batch(
+                None,
+                *arrays,
+                level_caps=data.level_caps,
+                scale=data.scale,
+                full_scale=data.full_scale,
+                draws=draws.rows(lo, hi),
+                with_points=cfg.is_spvcnn,
+            )
+            # SPVCNN's dropout: one seed per frame, so a frame's masks do not
+            # depend on its batch mates (models/layers.PerFrameDropout)
+            seeds = torch.randint(0, 2**62, (n_global,), generator=gen)[lo:hi].tolist() if cfg.is_spvcnn else None
         loss = train_step(state, tb, seeds, group)
         if b.get("trunc_points", 0):
             print(f"WARNING: point_cap truncated {b['trunc_points']} points this batch")
@@ -283,13 +289,15 @@ def run_train(
         if on_step is not None:
             on_step(step, loss)
         if step % log_every == 0:
-            ovf = mesh.all_reduce_(tb.overflow.sum(), group)
-            if lead:
-                ovf = int(ovf)
-                extra = f" voxel_overflow: {ovf}" if ovf else ""
-                print(f"Iteration: {step} loss: {float(loss):.4f}{extra}")
+            with profiling.span("train.log"):
+                ovf = mesh.all_reduce_(tb.overflow.sum(), group)
+                if lead:
+                    ovf = int(ovf)
+                    extra = f" voxel_overflow: {ovf}" if ovf else ""
+                    print(f"Iteration: {step} loss: {float(loss):.4f}{extra}")
         if step % cfg.ckpt_every == 0 and lead:
-            ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
+            with profiling.span("train.checkpoint"):
+                ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
     if lead:
         ckpt.save_checkpoint(paths.ckpt_dir(), state, ep_id)
     mesh.sync_hosts("train", group)

@@ -1,104 +1,147 @@
-"""Tracing / profiling utilities (port of ``lidal_tpu/utils/profiling.py``).
+"""The port's tracing: named spans and counters in one in-process recorder
+(the JAX package's ``utils/profiling.py`` has phase timers instead).
 
-The reference's observability is ``time.time()`` around the eval loop and loss
-prints (``evaluate.py:81,125-126``, ``train.py:149``).  Here: named phase
-timers that wait for the card's queued work, per-step throughput meters, and
-an optional ``torch.profiler`` trace context (Chrome / TensorBoard traces).
+* :func:`span` marks a stretch of host work at a layer boundary, named
+  ``<layer>.<what>`` (``train.step``, ``loader.queue_wait``,
+  ``round.aggregate``, ...).  With no ``torch.profiler`` running it returns
+  one shared no-op context: the cost is a read of torch's profiler flag.
+  Under a profiler it opens ``torch.profiler.record_function("lidal." +
+  name)``, so the span lies on the trace's clock beside the kernels it
+  queued, and adds to an aggregate per name: count, total seconds and self
+  seconds (the total less the time of the spans nested in it on the same
+  thread).  Spans record on every thread.  The aggregate holds the latest
+  profiled stretch: the first span recorded after spans were last seen off
+  clears it.
+* :func:`count` adds to a named counter, always, under one lock: the
+  kernels' launches (``launch.<kernel>``) and the collectives
+  (``all_reduce.calls``, ``all_reduce.bytes``).
+* :func:`stats` reads both, :func:`reset` clears both.
+* :func:`device_trace` is the way to trace a call: every thread of the
+  host, the card's kernels and copies, and a ``summary.json`` of the spans
+  and counters of the stretch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import threading
 import time
-from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+PREFIX = "lidal."
+
+_LOCK = threading.Lock()
+_SPANS: Dict[str, list] = {}  # name -> [count, total seconds, self seconds]
+_COUNTERS: Dict[str, int] = {}
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+_OFF = contextlib.nullcontext()
+_seen_off = True  # a span found no profiler running since the aggregate was last cleared
 
 
-def _synchronize(tree) -> None:
-    """Wait for the work queued on the CUDA devices of the tensors in ``tree``."""
-    if isinstance(tree, torch.Tensor):
-        if tree.is_cuda:
-            torch.cuda.synchronize(tree.device)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            _synchronize(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _synchronize(v)
+class _Span:
+    __slots__ = ("name", "range", "start", "inner")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.range = torch.profiler.record_function(PREFIX + name)
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.range.__enter__()
+        stack.append(self)
+        self.inner = 0.0
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        took = time.perf_counter() - self.start
+        stack = _OPEN.stack
+        stack.pop()
+        if stack:
+            stack[-1].inner += took
+        self.range.__exit__(*exc)
+        with _LOCK:
+            agg = _SPANS.get(self.name)
+            if agg is None:
+                agg = _SPANS[self.name] = [0, 0.0, 0.0]
+            agg[0] += 1
+            agg[1] += took
+            agg[2] += took - self.inner
 
 
-class PhaseTimer:
-    """Accumulating named phase timer.  ``sync=True`` waits for the device work
-    of ``block_on`` (a tensor or a tree of them) so a phase's time includes its
-    asynchronous launches."""
-
-    def __init__(self, sync: bool = True):
-        self.sync = sync
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, block_on=None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None and self.sync:
-                _synchronize(block_on)
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"{name:32s} {t:9.3f}s total  {t / max(c, 1) * 1e3:9.2f} ms/call  x{c}")
-        return "\n".join(lines)
-
-    def as_dict(self) -> Dict[str, Dict[str, float]]:
-        return {
-            n: {"total_s": self.totals[n], "calls": self.counts[n]} for n in self.totals
-        }
-
-    def dump_json(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.as_dict(), f, indent=2)
+def span(name: str):
+    """A context that records ``name`` while a ``torch.profiler`` runs and
+    does nothing otherwise."""
+    global _seen_off
+    if not _autograd_profiler._is_profiler_enabled:
+        _seen_off = True
+        return _OFF
+    if _seen_off:
+        with _LOCK:
+            if _seen_off:
+                _SPANS.clear()
+                _seen_off = False
+    return _Span(name)
 
 
-class ThroughputMeter:
-    """EMA-smoothed items/sec meter for train/inference loops."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.rate: Optional[float] = None
-        self._last: Optional[float] = None
 
-    def tick(self, items: int) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            inst = items / max(now - self._last, 1e-9)
-            self.rate = inst if self.rate is None else (
-                (1 - self.alpha) * self.rate + self.alpha * inst
-            )
-        self._last = now
-        return self.rate or 0.0
+def counter(name: str) -> int:
+    """The counter ``name`` (0 before its first count)."""
+    with _LOCK:
+        return _COUNTERS.get(name, 0)
+
+
+def stats() -> Dict[str, Dict]:
+    """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters": {name: n}}``."""
+    with _LOCK:
+        spans = {n: {"count": c, "total_s": t, "self_s": s} for n, (c, t, s) in _SPANS.items()}
+        return {"spans": spans, "counters": dict(_COUNTERS)}
+
+
+def reset() -> None:
+    """Clear the spans and the counters."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
+
+
+def _all_threads() -> Optional[torch._C._profiler._ExperimentalConfig]:
+    """A profiler setting that traces every thread, where this torch has one
+    (otherwise only the thread that starts the profiler is traced)."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (TypeError, AttributeError):
+        return None
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str]) -> Iterator[None]:
-    """``torch.profiler`` trace of the host and, where there is a card, of its
-    kernels, written under ``log_dir`` on exit; a no-op when ``log_dir`` is
-    None."""
+    """Trace the enclosed call: a ``torch.profiler`` trace of every thread's
+    host work and spans and, where there is a card, its kernels and copies
+    (a Chrome / TensorBoard ``*.pt.trace.json``), and ``summary.json`` with
+    :func:`stats` of the stretch, both under ``log_dir``; a no-op when
+    ``log_dir`` is None."""
     if not log_dir:
         yield
         return
+    reset()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities,
+    with torch.profiler.profile(activities=activities, experimental_config=_all_threads(),
                                 on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
         yield
+    with open(os.path.join(log_dir, "summary.json"), "w") as f:
+        json.dump(stats(), f, indent=2)

@@ -65,6 +65,7 @@ from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8
 from lidal_tpu_torch.runtime.train import cross_entropy_ignore
 from lidal_tpu_torch.runtime.weights import _to_torch, minkunet_state_dict_from_jax, spvcnn_state_dict_from_jax
+from lidal_tpu_torch.utils import profiling
 from tests.test_pallas_kernels import _int_feats, _sorted_nbr
 from tests.test_torch_conv import CAPS, _call, _inputs, plan  # noqa: F401  (plan: the module's fixture)
 from tests.test_torch_frames import surface_frames, torch_args
@@ -327,9 +328,9 @@ def test_minkunet_train_step_on_the_route_matches_pallas_interpret(frames):
             loss.backward()
         return float(loss.detach()), {n: p.grad.numpy() for n, p in model.named_parameters()}
 
-    launches = cuda_conv_dxdw_fused.LAUNCHES
+    launches = profiling.counter("launch.conv_dx_dw_fused")
     loss, grads = port_step(conv.bf16_route)
-    assert cuda_conv_dxdw_fused.LAUNCHES == launches  # the CPU takes the plain versions: no launch
+    assert profiling.counter("launch.conv_dx_dw_fused") == launches  # the CPU takes the plain versions: no launch
     _, grads_f32 = port_step(contextlib.nullcontext)
     np.testing.assert_allclose(loss, float(loss_j), rtol=1e-3)
     assert sorted(grads) == sorted(want_g)

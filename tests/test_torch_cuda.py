@@ -51,8 +51,14 @@ from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8, cuda_merge
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
 from lidal_tpu_torch.ops.kernel_map import rulebook_streams
+from lidal_tpu_torch.utils import profiling
 
 CAPS = (1024, 512, 256, 128, 64)  # the coarse levels overflow on these frames
+
+
+def launches(*kernels):
+    """The launch counts of ``kernels`` (``launch.<kernel>`` in ``utils.profiling``)."""
+    return tuple(profiling.counter("launch." + k) for k in kernels)
 
 
 def _frames(seed, b=2, p=1024, n=900):
@@ -112,7 +118,7 @@ def test_wrappers_refuse_devices_they_have_no_path_for():
 
 @pytest.mark.cuda
 def test_lookup_kernel_matches_plain(plan_on):
-    before = cuda_merge.LAUNCHES
+    before = profiling.counter("launch.lookup_sorted")
     streams_by_level = [rulebook_streams(lv.coords, lv.valid) for lv in plan_on.plan.levels]
     t_hi, t_lo, q_hi, q_lo = streams_by_level[0]
     dup_hi, dup_lo = q_hi.clone(), q_lo.clone()
@@ -129,7 +135,7 @@ def test_lookup_kernel_matches_plain(plan_on):
             got = cuda_merge.lookup_sorted(*streams, with_found=found)
             assert got.is_cuda
             assert torch.equal(got, cuda_merge.lookup_sorted_plain(*streams, with_found=found))
-    assert cuda_merge.LAUNCHES == before + 2 * len(cases)
+    assert profiling.counter("launch.lookup_sorted") == before + 2 * len(cases)
 
 
 def _table_streams(keys, streams, dev):
@@ -178,7 +184,7 @@ def test_lookup_kernel_window_branches(card):
         "all-sentinel tiles": (table, np.full((2, 3000), -1, np.int64), False),
         "all-sentinel table": (np.full((1, 4096), -1, np.int64), offset, False),
     }
-    before = cuda_merge.LAUNCHES
+    before = profiling.counter("launch.lookup_sorted")
     for name, (tk, qk, wide) in cases.items():
         streams = _table_streams(tk, qk, card)
         for found in (True, False):
@@ -186,7 +192,7 @@ def test_lookup_kernel_window_branches(card):
             assert torch.equal(got, cuda_merge.lookup_sorted_plain(*streams, with_found=found)), (name, found)
         n_wide, n_tiles = cuda_merge.wide_tiles(*streams)
         assert (n_wide > 0) == wide and n_wide <= n_tiles, (name, n_wide, n_tiles)
-    assert cuda_merge.LAUNCHES == before + 2 * len(cases)
+    assert profiling.counter("launch.lookup_sorted") == before + 2 * len(cases)
 
 
 def _conv_maps(plan_on):
@@ -210,7 +216,7 @@ def test_conv_kernel_matches_plain(plan_on):
     maps = _conv_maps(plan_on)
     shapes = [("subm", 4, 32), ("subm", 32, 32), ("subm", 96, 96), ("subm", 384, 256),
               ("down", 128, 128), ("up", 256, 128), ("up", 96, 64)]
-    before = cuda_conv.LAUNCHES
+    before = profiling.counter("launch.subm_conv")
     for kind, cin, cout in shapes:
         nbr, n = maps[kind]
         feats, w, scale, shift = _conv_inputs(rng, n, nbr.shape[1], cin, cout, nbr.device)
@@ -219,7 +225,7 @@ def test_conv_kernel_matches_plain(plan_on):
             got = cuda_conv.subm_conv(feats, w, nbr, *ep)
             assert got.is_cuda and got.shape == want.shape
             assert bool(((got - want).abs() <= 1e-4 * want.abs().clamp_min(1.0)).all()), (kind, cin, cout, len(ep))
-    assert cuda_conv.LAUNCHES == before + 3 * len(shapes)
+    assert profiling.counter("launch.subm_conv") == before + 3 * len(shapes)
     with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
         cuda_conv.subm_conv(feats.double(), w, nbr)
 
@@ -293,7 +299,7 @@ def test_conv_dx_dw_kernel_matches_plain_and_is_deterministic(plan_on):
         ("subm", 256, 384, 384, True), ("down", 64, 32, 32, True), ("up", 96, 128, 128, True),
         ("up", 256, 256, 256, True), ("none", 32, 32, 32, True),
     ]
-    before = cuda_conv_dxdw.LAUNCHES
+    before = profiling.counter("launch.conv_dx_dw")
     for kind, c_src, c_dst, c_f, need_dx in shapes:
         nbr, n = maps[kind]
         nbr = nbr.to(dev)
@@ -315,7 +321,7 @@ def test_conv_dx_dw_kernel_matches_plain_and_is_deterministic(plan_on):
             assert dx is None and want_dx is None
         if kind == "none":
             assert not dwg.any() and not dx.any()
-    assert cuda_conv_dxdw.LAUNCHES == before + 2 * len(shapes)
+    assert profiling.counter("launch.conv_dx_dw") == before + 2 * len(shapes)
     with pytest.raises(ValueError):  # a CUDA tensor the kernel cannot take raises; no fallback
         cuda_conv_dxdw.conv_dx_dw(src.double(), w2, nbr, f)
 
@@ -405,9 +411,9 @@ def test_train_step_backward_kernel_matches_plain(card, monkeypatch):
         loss.backward()
         return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    before = cuda_conv_dxdw.LAUNCHES
+    before = profiling.counter("launch.conv_dx_dw")
     loss, g = grads()
-    assert cuda_conv_dxdw.LAUNCHES > before
+    assert profiling.counter("launch.conv_dx_dw") > before
     monkeypatch.setattr(cuda_conv_dxdw, "conv_dx_dw", cuda_conv_dxdw.conv_dx_dw_plain)
     loss_p, g_p = grads()
     assert loss == loss_p  # the same forward
@@ -442,9 +448,9 @@ def test_nn_band_kernel_matches_plain_bit_for_bit(card):
         assert torch.equal(a.cpu(), b)
     pq = nn_match.prepared_from_grid(nn_match.build_grid(frames[0].to(card), valid.to(card), 0.1))
     blo, nb = nn_match.band_bounds(grids, pq)
-    before = cuda_nnband.LAUNCHES
+    before = profiling.counter("launch.nn_band")
     d2, row = cuda_nnband.nn_band(grids.planar, pq.q_t, blo, nb)
-    assert cuda_nnband.LAUNCHES == before + 1 and d2.is_cuda
+    assert profiling.counter("launch.nn_band") == before + 1 and d2.is_cuda
     d2_p, row_p = cuda_nnband.nn_band_plain(grids.planar, pq.q_t, blo, nb)
     assert torch.equal(d2, d2_p) and torch.equal(row, row_p)
     matched = (torch.sqrt(d2) <= torch.full((), 0.1, device=card)) & pq.s_ok
@@ -577,10 +583,10 @@ def test_gather8_kernel_bit_equal_to_plain(card, m, n, c):
     feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card)
     nbr = _random_map(rng, m, n).to(card)
     w8 = torch.from_numpy(rng.standard_normal((m, 8)).astype(np.float32)).to(card)
-    before = cuda_gather8.GATHER8_LAUNCHES
+    before = profiling.counter("launch.gather8")
     got = cuda_gather8.gather8_forward(feats, nbr, w8)
     torch.cuda.synchronize()
-    assert cuda_gather8.GATHER8_LAUNCHES == before + 1
+    assert profiling.counter("launch.gather8") == before + 1
     assert torch.equal(got, cuda_gather8.gather8_plain(feats, nbr, w8))
     assert not got[5::11].any()  # all-sentinel rows are exactly zero
     with pytest.raises(ValueError):
@@ -596,10 +602,10 @@ def test_scatter8_kernel_matches_plain_and_is_deterministic(card, m, n, c):
     dy = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32)).to(card)
     nbr = _random_map(rng, m, n).to(card)  # (20000, 40): 3200 pairs a target on average
     w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
-    before = cuda_gather8.SCATTER8_LAUNCHES
+    before = profiling.counter("launch.scatter8")
     got = cuda_gather8.scatter8(dy, nbr, w8, n)
     torch.cuda.synchronize()
-    assert cuda_gather8.SCATTER8_LAUNCHES == before + 1
+    assert profiling.counter("launch.scatter8") == before + 1
     assert torch.equal(got, cuda_gather8.scatter8(dy, nbr, w8, n))  # no atomics: the same bits
     plain = cuda_gather8.scatter8_plain(dy, nbr, w8, n)
     abs_sum = cuda_gather8.scatter8_plain(dy.abs(), nbr, w8.abs(), n)
@@ -668,9 +674,9 @@ def test_gather8_function_backward_is_the_scatter_kernel(card):
     feats = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32)).to(card).requires_grad_(True)
     nbr, w8 = _random_map(rng, m, n).to(card), torch.rand((m, 8), device=card)
     cot = torch.randn((m, c), device=card)
-    before = cuda_gather8.SCATTER8_LAUNCHES
+    before = profiling.counter("launch.scatter8")
     (cuda_gather8.gather8(feats, nbr, w8) * cot).sum().backward()
-    assert cuda_gather8.SCATTER8_LAUNCHES == before + 1
+    assert profiling.counter("launch.scatter8") == before + 1
     assert torch.equal(feats.grad, cuda_gather8.scatter8(cot, nbr, w8, n))
 
 
@@ -694,11 +700,11 @@ def test_spvcnn_kernel_path_matches_plain_path(card, monkeypatch):
         logits.square().mean().backward()
         return logits_eval, {n: p.grad.clone() for n, p in trained.named_parameters()}
 
-    counts = cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES, cuda_gather8.CHILD_SUM_LAUNCHES
+    counts = launches("gather8", "scatter8", "child_sum")
     logits, grads = run()
-    assert cuda_gather8.GATHER8_LAUNCHES == counts[0] + 4  # 2 trilinear per forward, train and eval
-    assert cuda_gather8.SCATTER8_LAUNCHES == counts[1] + 2
-    assert cuda_gather8.CHILD_SUM_LAUNCHES == counts[2] + 4  # 2 chains per forward
+    assert profiling.counter("launch.gather8") == counts[0] + 4  # 2 trilinear per forward, train and eval
+    assert profiling.counter("launch.scatter8") == counts[1] + 2
+    assert profiling.counter("launch.child_sum") == counts[2] + 4  # 2 chains per forward
     monkeypatch.setattr(cuda_conv_dxdw, "conv_dx_dw", cuda_conv_dxdw.conv_dx_dw_plain)
     monkeypatch.setattr(cuda_gather8, "gather8_forward", cuda_gather8.gather8_plain)
     monkeypatch.setattr(cuda_gather8, "child_sum", cuda_gather8.child_sum_plain)
@@ -739,13 +745,13 @@ def test_gather_first_kernels_match_plain_and_each_other(card, m, n, k, cin, cou
     feats = torch.from_numpy(rng.standard_normal((n, cin)).astype(np.float32)).to(card)
     w = torch.from_numpy((rng.standard_normal((k, cin, cout)) * 0.05).astype(np.float32)).to(card)
     nbr = _probe_map(rng, m, n, k, sort=sort).to(card)
-    counts = cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_bf16.BYTE_PLANES_LAUNCHES
+    counts = launches("conv_gather_first", "conv_byte_planes")
     got = cuda_conv_bf16.conv_gather_first(feats, w, nbr)
     torch.cuda.synchronize()
     piped = cuda_conv_bf16.conv_gather_first(feats, w, nbr, pipelined=True)
     planes = cuda_conv_bf16.to_byte_planes(feats)
     from_planes = cuda_conv_bf16.conv_byte_planes(planes, w, nbr)
-    assert (cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_bf16.BYTE_PLANES_LAUNCHES) == (counts[0] + 2, counts[1] + 1)
+    assert launches("conv_gather_first", "conv_byte_planes") == (counts[0] + 2, counts[1] + 1)
     assert got.is_cuda and got.shape == (m, cout) and bool(got.isfinite().all())
     want = cuda_conv_bf16.conv_gather_first_plain(feats, w, nbr)
     abs_sum = cuda_conv_bf16.conv_gather_first_plain(feats.abs(), w.abs(), nbr)
@@ -774,13 +780,13 @@ def test_fused_backward_kernel_matches_plain_in_its_three_modes(card, m, n, k, c
     w2 = torch.from_numpy((rng.standard_normal((k, c_src, c_dst)) / np.sqrt(k * c_src)).astype(np.float32)).to(card)
     f = torch.from_numpy(rng.standard_normal((m, c_f)).astype(np.float32)).to(card)
     nbr = _probe_map(rng, m, n, k, sort=sort).to(card)
-    before = cuda_conv_dxdw_fused.LAUNCHES
+    before = profiling.counter("launch.conv_dx_dw_fused")
     dx, dw = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
     torch.cuda.synchronize()
     dx2, dw2 = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
     dx_a, none = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx")
     dx_b, zeros = cuda_conv_dxdw_fused.conv_dx_dw_fused(src, w2, nbr, f, "dx_zero_dw")
-    assert cuda_conv_dxdw_fused.LAUNCHES == before + 4
+    assert profiling.counter("launch.conv_dx_dw_fused") == before + 4
     want_dx, want_dw = cuda_conv_dxdw_fused.conv_dx_dw_fused_plain(src, w2, nbr, f)
     abs_dx, abs_dw = cuda_conv_dxdw_fused.conv_dx_dw_fused_plain(src.abs(), w2.abs(), nbr, f.abs())
     assert dx.shape == (m, c_dst) and dw.shape == (k, c_f, c_src) and dx.is_contiguous() and dw.is_contiguous()
@@ -901,10 +907,10 @@ def test_bf16_epilogue_matches_plain_and_masks_empty_rows(card, case, relu):
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(card)
     shift = torch.from_numpy(rng.normal(scale=0.1, size=cout).astype(np.float32)).to(card)
     cb = cuda_conv_bf16
-    before = cb.GATHER_FIRST_LAUNCHES
+    before = profiling.counter("launch.conv_gather_first")
     got = cb.conv_gather_first(feats, w, nbr, scale=scale, shift=shift, relu=relu)
     torch.cuda.synchronize()
-    assert cb.GATHER_FIRST_LAUNCHES == before + 1
+    assert profiling.counter("launch.conv_gather_first") == before + 1
     want = cb.conv_gather_first_plain(feats, w, nbr, scale=scale, shift=shift, relu=relu)
     bound = cb.conv_gather_first_plain(feats.abs(), w.abs(), nbr) * scale.abs() + shift.abs()
     assert got.shape == (m, cout) and bool(got.isfinite().all())
@@ -930,10 +936,10 @@ def test_fused_backward_dw_alone_equals_dx_dw(card, case):
     w2 = torch.from_numpy((rng.standard_normal((k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)).to(card)
     f = torch.from_numpy(rng.standard_normal((m, c_f)).astype(np.float32)).to(card)
     fz = cuda_conv_dxdw_fused
-    before = fz.LAUNCHES
+    before = profiling.counter("launch.conv_dx_dw_fused")
     dx, dw = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw", need_dx=False)
     torch.cuda.synchronize()
-    assert dx is None and fz.LAUNCHES == before + 1
+    assert dx is None and profiling.counter("launch.conv_dx_dw_fused") == before + 1
     _, dw_all = fz.conv_dx_dw_fused(src, w2, nbr, f, "dx_dw")
     assert torch.equal(dw, dw_all)
     want = fz.conv_dx_dw_fused_plain(src, w2, nbr, f, "dx_dw", need_dx=False)[1]
@@ -958,11 +964,11 @@ def test_bf16_gather8_and_scatter8_kernels_match_plain(card, m, n, c):
     nbr = _random_map(rng, m, n).to(card)
     w8 = torch.from_numpy(rng.random((m, 8)).astype(np.float32)).to(card)
     g8 = cuda_gather8
-    counts = g8.GATHER8_LAUNCHES, g8.SCATTER8_LAUNCHES, g8.GATHER8_BF16_LAUNCHES, g8.SCATTER8_BF16_LAUNCHES
+    counts = launches("gather8", "scatter8", "gather8_bf16", "scatter8_bf16")
     out = g8.gather8_forward(feats, nbr, w8, True)
     dfe = g8.scatter8(dy, nbr, w8, n, True)
     torch.cuda.synchronize()
-    assert (g8.GATHER8_LAUNCHES, g8.SCATTER8_LAUNCHES, g8.GATHER8_BF16_LAUNCHES, g8.SCATTER8_BF16_LAUNCHES) == (
+    assert launches("gather8", "scatter8", "gather8_bf16", "scatter8_bf16") == (
         counts[0], counts[1], counts[2] + 1, counts[3] + 1)
     assert torch.equal(out, g8.gather8_plain(feats, nbr, w8, True))
     assert not torch.equal(out, g8.gather8_forward(feats, nbr, w8))  # the table was rounded
@@ -1031,10 +1037,10 @@ def test_child_sum_kernel_bit_equal_to_the_chain(card, shape, c, bf16):
     too; it counts in its own counter.  A SPVCNN plan's chains below."""
     rng = np.random.default_rng(len(shape) + c)
     x, children, counts = _chain_inputs(rng, shape, c, card)
-    before = cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES
+    before = launches("child_sum", "child_sum_bf16")
     got = cuda_gather8.child_sum(x, children, counts, bf16)
     torch.cuda.synchronize()
-    after = cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES
+    after = launches("child_sum", "child_sum_bf16")
     assert after == (before[0] + (not bf16), before[1] + bf16)
     want = cuda_gather8.child_sum_plain(x, children, counts, bf16)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -1080,10 +1086,8 @@ def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
     monkeypatch.setattr(cuda_gather8, "SCATTER8_BF16", True)
 
     def counters():
-        return (cuda_conv.LAUNCHES, cuda_conv_dxdw.LAUNCHES, cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES,
-                cuda_gather8.CHILD_SUM_LAUNCHES, cuda_conv_bf16.GATHER_FIRST_LAUNCHES, cuda_conv_dxdw_fused.LAUNCHES,
-                cuda_gather8.GATHER8_BF16_LAUNCHES, cuda_gather8.SCATTER8_BF16_LAUNCHES,
-                cuda_gather8.CHILD_SUM_BF16_LAUNCHES)
+        return launches("subm_conv", "conv_dx_dw", "gather8", "scatter8", "child_sum", "conv_gather_first",
+                        "conv_dx_dw_fused", "gather8_bf16", "scatter8_bf16", "child_sum_bf16")
 
     torch.manual_seed(0)
     before = counters()

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import lidal_tpu.ops.pallas_gather8 as pg8
-from lidal_tpu_torch.ops import cuda_gather8
 from lidal_tpu_torch.ops.cuda_gather8 import (
     build_transpose,
     gather8,
@@ -34,6 +33,7 @@ from lidal_tpu_torch.ops.cuda_gather8 import (
     scatter8,
     scatter8_plain,
 )
+from lidal_tpu_torch.utils import profiling
 from tests.test_torch_frames import torch_args
 
 SHAPES = [
@@ -208,11 +208,11 @@ def test_gather8_gradcheck_f64():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    before = cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES
+    before = profiling.counter("launch.gather8"), profiling.counter("launch.scatter8")
     rng = np.random.default_rng(13)
     f = torch.from_numpy(rng.standard_normal((16, 4)).astype(np.float32)).requires_grad_(True)
     nbr = torch.from_numpy(rng.integers(0, 17, size=(8, 8)).astype(np.int32))
     gather8(f, nbr, torch.ones(8, 8)).sum().backward()
-    assert (cuda_gather8.GATHER8_LAUNCHES, cuda_gather8.SCATTER8_LAUNCHES) == before
+    assert (profiling.counter("launch.gather8"), profiling.counter("launch.scatter8")) == before
     with pytest.raises(ValueError):
         gather8_forward(f.detach(), nbr[:, :4], torch.ones(8, 4))

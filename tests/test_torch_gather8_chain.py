@@ -41,10 +41,11 @@ import lidal_tpu.ops.pallas_gather8 as pg8
 from lidal_tpu.data.pipeline import prepare_eval_batch as jax_prepare_eval_batch
 from lidal_tpu.ops import devoxelize as jdev
 from lidal_tpu_torch.data.pipeline import prepare_eval_batch
-from lidal_tpu_torch.ops import conv, cuda_gather8
+from lidal_tpu_torch.ops import conv
 from lidal_tpu_torch.ops.conv import _flatten_idx
 from lidal_tpu_torch.ops.cuda_gather8 import child_sum, child_sum_plain, gather8_plain, scatter8_plain
 from lidal_tpu_torch.ops.devoxelize import point_to_voxel_avg_batched
+from lidal_tpu_torch.utils import profiling
 from tests.test_torch_frames import surface_frames, torch_args
 from tests.test_torch_gather8 import _sorted_nbr
 
@@ -246,8 +247,8 @@ def test_fused_backward_bit_equal_to_the_chained_parent_gathers(plans, name, lev
 
 
 def test_child_sum_counts_its_launches_only_on_a_card():
-    before = cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES
+    before = profiling.counter("launch.child_sum"), profiling.counter("launch.child_sum_bf16")
     rng = np.random.default_rng(120)
     x, children, counts = _random_chain(rng, 2, 4)
     child_sum(torch.from_numpy(x), [torch.from_numpy(ch) for ch in children], torch.from_numpy(counts), True)
-    assert (cuda_gather8.CHILD_SUM_LAUNCHES, cuda_gather8.CHILD_SUM_BF16_LAUNCHES) == before
+    assert (profiling.counter("launch.child_sum"), profiling.counter("launch.child_sum_bf16")) == before

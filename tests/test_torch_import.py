@@ -24,8 +24,8 @@ jax_package = sorted(m for m in sys.modules if m == "lidal_tpu" or m.startswith(
 assert not jax_package, jax_package
 assert "tools" not in sys.modules and not any(m.startswith("tools.") for m in sys.modules)
 assert not kernels_build._LIBS and not kernels_build.BUILD_LOG, "a kernel was built at import"
-from lidal_tpu_torch.ops import cuda_conv_bf16, cuda_conv_dxdw_fused
-assert cuda_conv_bf16.GATHER_FIRST_LAUNCHES == cuda_conv_bf16.BYTE_PLANES_LAUNCHES == cuda_conv_dxdw_fused.LAUNCHES == 0
+from lidal_tpu_torch.utils import profiling
+assert profiling.stats()["counters"] == {}, "a kernel was launched or a collective issued at import"
 for new in ("ops.devoxelize", "ops.cuda_gather8", "models.spvcnn", "ops.cuda_conv_bf16", "ops.cuda_conv_dxdw_fused",
             "tools.timing", "tools.probe_conv_v3", "tools.probe_int8_gather", "tools.probe_dxdw_features",
             "active.frame_level", "active.frame_runner", "active.redal", "active.redal_runner", "cli.__main__",
@@ -37,8 +37,7 @@ from lidal_tpu_torch.prep import native
 assert not native._LIBS and not native.BUILD_LOG, "the native library was built at import"
 import torch.distributed
 assert not torch.distributed.is_initialized(), "a process group was created at import"
-from lidal_tpu_torch.parallel import mesh
-assert mesh.ALL_REDUCES == 0 and "lidal_tpu_torch.parallel.mesh" in names
+assert profiling.counter("all_reduce.calls") == 0 and "lidal_tpu_torch.parallel.mesh" in names
 assert "scipy.spatial" not in sys.modules and "sklearn" not in sys.modules
 print(len(names))
 """

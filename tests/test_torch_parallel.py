@@ -52,6 +52,7 @@ from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.runtime import evaluate, prob_inference, train_loop
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.runtime.train import TrainState, make_optimizer, sum_gradients, train_step
+from lidal_tpu_torch.utils import profiling
 from tests.test_torch_frames import OVERFLOW_CAPS, surface_frames
 
 CAPS = (2048, 1024, 512, 256, 128)
@@ -323,7 +324,7 @@ def _rank_main(rank, init_file, root, port):
             model.load_state_dict(torch.load(path))
             state = TrainState(0, model, make_optimizer(model))
             out[f"step_{name}"] = (_steps(state, _train_batch(name, slice(rank, rank + 1)), group), model.state_dict())
-        out["all_reduces"] = mesh.ALL_REDUCES
+        out["all_reduces"] = profiling.counter("all_reduce.calls")
     finally:
         dist.destroy_process_group()
     out["host_command"] = _host_command(rank, root, port)

@@ -1,13 +1,11 @@
 """The port's own utilities (``lidal_tpu_torch/utils``): the PLY / PCD IO and
 LZF codec round trips of ``tests/test_io.py``, each also read back by the JAX
 package's reader (and the JAX package's files by the port's), the LZF streams
-bit-equal to the JAX package's; ``PhaseTimer``, ``ThroughputMeter``,
-``device_trace`` and the determinism audit as in ``tests/test_utils_misc.py``,
-over torch tensors and state dicts."""
+bit-equal to the JAX package's; ``device_trace`` and the determinism audit
+as in ``tests/test_utils_misc.py``, over torch tensors and state dicts (the
+recorder's spans and counters: ``tests/test_torch_tracing.py``)."""
 
-import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -18,7 +16,7 @@ from lidal_tpu.utils.determinism import tree_fingerprint as jax_tree_fingerprint
 from lidal_tpu_torch.models.minkunet import MinkUNet
 from lidal_tpu_torch.utils import pcd, ply
 from lidal_tpu_torch.utils.determinism import check_deterministic, tree_fingerprint
-from lidal_tpu_torch.utils.profiling import PhaseTimer, ThroughputMeter, device_trace
+from lidal_tpu_torch.utils.profiling import device_trace
 from tests.test_torch_minkunet import NARROW
 
 
@@ -155,39 +153,13 @@ def test_files_and_streams_cross_the_packages(tmp_path):
         assert pcd.lzf_compress(data) == jax_pcd.lzf_compress(data)
 
 
-def test_phase_timer_accumulates(tmp_path):
-    t = PhaseTimer()
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("a", block_on={"x": torch.ones(3), "y": [torch.zeros(2)]}):
-        time.sleep(0.01)
-    with t.phase("b"):
-        pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1
-    assert t.totals["a"] >= 0.02
-    rep = t.report()
-    assert "a" in rep and "ms/call" in rep
-    d = t.as_dict()
-    assert d["a"]["calls"] == 2
-    t.dump_json(str(tmp_path / "phases.json"))
-    with open(tmp_path / "phases.json") as f:
-        assert json.load(f)["b"]["calls"] == 1
-
-
-def test_throughput_meter():
-    m = ThroughputMeter(alpha=1.0)
-    assert m.tick(10) == 0.0
-    time.sleep(0.01)
-    r = m.tick(10)
-    assert 0 < r < 10 / 0.01 * 1.01
-
-
 def test_device_trace_noop_and_trace(tmp_path):
     with device_trace(None):
         pass  # no-op path
     with device_trace(str(tmp_path / "trace")):
         torch.ones(64).cumsum(0)
     files = os.listdir(tmp_path / "trace")
+    files.remove("summary.json")
     assert len(files) == 1 and files[0].endswith(".json")
 
 
