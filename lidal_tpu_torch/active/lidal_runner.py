@@ -60,7 +60,7 @@ from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
 from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.prep.grid import load_grid_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
-from lidal_tpu_torch.runtime.prob_inference import check_writes, frame_generator, make_multiview_fn, to_host
+from lidal_tpu_torch.runtime.prob_inference import check_writes, frame_generator, make_multiview_fn, to_host, upload
 from lidal_tpu_torch.utils import profiling
 
 
@@ -483,7 +483,7 @@ def run_fused_lidal_round(
                 with profiling.span("round.infer"):
                     prob_t, pred_t, _ = fn(
                         frame_generator(inf_cfg.seed, frame_index[(seq, name)]),
-                        *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
+                        *(upload(a, device) for a in (oxyz, osig, ovalid)),
                     )
                 if save_prob and ni in share:  # a neighbour beyond the share is saved by its own rank
                     writes.append(writer.submit(save_frame, name, len(xyz_raw), prob_t, pred_t))

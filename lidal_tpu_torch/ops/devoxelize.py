@@ -31,7 +31,7 @@ import torch
 
 from lidal_tpu_torch.ops import conv, cuda_gather8
 from lidal_tpu_torch.ops.conv import _flatten_idx, _flatten_nbr
-from lidal_tpu_torch.ops.kernel_map import OFFSETS2, DownPlan, UNetPlan
+from lidal_tpu_torch.ops.kernel_map import OFFSETS2, DownPlan, UNetPlan, device_constant
 
 
 class TriMap(NamedTuple):
@@ -74,10 +74,10 @@ def _build_tri(coords0, valid0, anc, level_nbr3, lshift: int) -> TriMap:
     b, cap_l, _ = level_nbr3.shape
     u = (coords0 & (s - 1)).to(torch.float32) / float(s)  # [B, cap0, 3]
     # a sentinel ancestor (== cap_l) gathers the appended all-sentinel row
-    corners = level_nbr3[:, :, list(_TAP8)]  # [B, cap_l, 8]
+    corners = level_nbr3.index_select(2, device_constant(_TAP8, torch.long, dev))  # [B, cap_l, 8]
     corners = torch.cat([corners, corners.new_full((b, 1, len(_TAP8)), cap_l)], dim=1)
     idx8 = corners.gather(1, anc.long()[..., None].expand(-1, -1, len(_TAP8)))  # [B, cap0, 8]
-    offs = torch.tensor(OFFSETS2, dtype=torch.bool, device=dev)  # [8, 3], d = (dx<<2)|(dy<<1)|dz
+    offs = device_constant(OFFSETS2, torch.bool, dev)  # [8, 3], d = (dx<<2)|(dy<<1)|dz
     w = torch.where(offs[None, None], u[:, :, None, :], 1.0 - u[:, :, None, :]).prod(dim=-1)  # [B, cap0, 8]
     w = torch.where((idx8 < cap_l) & valid0[..., None], w, 0.0)
     return TriMap(idx8=idx8.to(torch.int32), w8=w.to(torch.float32))

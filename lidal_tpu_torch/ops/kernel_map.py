@@ -15,7 +15,7 @@ every conv of the network is then a gather + GEMM over it.
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -33,6 +33,24 @@ OFFSETS2 = tuple(itertools.product((0, 1), repeat=3))
 K2 = len(OFFSETS2)  # 8
 
 _OFFS26 = [o for o in OFFSETS3 if o != (0, 0, 0)]
+# Each offset's delta of the packed (hi, lo) key (``hashing.pack_keys``).
+_D_HI = tuple((dx << 14) + dy for dx, dy, _ in _OFFS26)
+_D_LO = tuple(dz for _, _, dz in _OFFS26)
+
+_CONSTANTS: Dict = {}  # (values, dtype, device) -> tensor
+
+
+def device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made at the first
+    call for a device and kept.  A host-to-device copy waits for the stream,
+    and none may run while a CUDA graph captures the plan
+    (``runtime/prob_inference``), so the plan takes its constants from here.
+    Callers only read them."""
+    key = (values, dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 class LevelPlan(NamedTuple):
@@ -68,11 +86,10 @@ def rulebook_streams(coords: torch.Tensor, valid: torch.Tensor):
     b, cap, _ = coords.shape
     dev = coords.device
     key_hi, key_lo = pack_keys(coords, valid)  # [B, cap]
-    d_hi = torch.tensor([(dx << 14) + dy for dx, dy, _ in _OFFS26], dtype=torch.int32, device=dev)
-    d_lo = torch.tensor([dz for _, _, dz in _OFFS26], dtype=torch.int32, device=dev)
-    sent = torch.tensor(SENTINEL_KEY, dtype=torch.int32, device=dev)
-    q_hi = torch.where(valid[:, None, :], key_hi[:, None, :] + d_hi[None, :, None], sent)
-    q_lo = torch.where(valid[:, None, :], key_lo[:, None, :] + d_lo[None, :, None], sent)
+    d_hi = device_constant(_D_HI, torch.int32, dev)
+    d_lo = device_constant(_D_LO, torch.int32, dev)
+    q_hi = torch.where(valid[:, None, :], key_hi[:, None, :] + d_hi[None, :, None], SENTINEL_KEY)
+    q_lo = torch.where(valid[:, None, :], key_lo[:, None, :] + d_lo[None, :, None], SENTINEL_KEY)
     return key_hi, key_lo, q_hi.reshape(b * len(_OFFS26), cap), q_lo.reshape(b * len(_OFFS26), cap)
 
 

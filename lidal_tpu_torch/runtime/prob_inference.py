@@ -21,22 +21,30 @@ from ``(cfg.seed, global frame index)``, all views at once, so a frame's
 output depends neither on the order of the frames, nor on ``view_chunk``, nor
 on whether this module or the fused round (``active/lidal_runner.py``)
 computed it.
+
+On a CUDA device a chunk's batch plan (augment, voxelize, rulebooks, point
+maps: some 650 small kernels) is captured once per shape as a CUDA graph
+(:class:`PlanGraph`) and replayed for every chunk; the network's forward
+stays eager.  The graphs live for the process, so later calls replay what
+the first captured.  On the CPU the plan runs eagerly.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from lidal_tpu_torch.config import RunConfig
-from lidal_tpu_torch.data.augment import sample_augment
-from lidal_tpu_torch.data.pipeline import forward_batch, pad_points, prepare_eval_batch
+from lidal_tpu_torch.data.augment import AugmentDraws, sample_augment
+from lidal_tpu_torch.data.pipeline import EvalBatch, forward_batch, pad_points, prepare_eval_batch
 from lidal_tpu_torch.runtime.evaluate import project_logits_to_points
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
+from lidal_tpu_torch.utils import profiling
 
 
 def wants_outfeat(cfg: RunConfig) -> bool:
@@ -49,6 +57,109 @@ def frame_generator(seed: int, index: int) -> torch.Generator:
     frame's GLOBAL index."""
     mixed = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0]
     return torch.Generator(device="cpu").manual_seed(int(mixed) & (2**63 - 1))
+
+
+def eager_plan(chunk: int, level_caps: Tuple[int, ...], scale: float, full_scale: int, augment: bool,
+               with_points: bool) -> Callable:
+    """``plan(xyz [P, 3], sig [P], valid [P], draws) -> EvalBatch``: the
+    batch of ``chunk`` views of one frame, ``draws`` the chunk's rows of
+    :func:`sample_augment` (None without augmentation)."""
+
+    def plan(xyz, sig, valid, draws):
+        return prepare_eval_batch(
+            None, xyz.expand((chunk,) + xyz.shape), sig.expand((chunk,) + sig.shape),
+            valid.expand((chunk,) + valid.shape), level_caps=level_caps, scale=scale, full_scale=full_scale,
+            augment=augment, draws=draws, with_points=with_points,
+        )
+
+    return plan
+
+
+def _clone(x):
+    """A copy of every tensor of a batch, in its (named) tuples."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_clone(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+class PlanGraph:
+    """:func:`eager_plan` of one shape key on a CUDA device, captured once as
+    a CUDA graph and replayed for every chunk.
+
+    Eagerly, the host takes about as long to queue a chunk's ~650 plan
+    kernels as the card takes to run them; a replay is one launch.  The
+    plan makes no synchronising call, as a capture requires.  A call writes
+    the frame and the chunk's draws into static device buffers (the draws
+    through pinned host memory), all on the current stream with no host
+    wait, replays the graph on the current stream and returns a copy of its
+    outputs: a later replay overwrites the graph's own tensors, never a
+    batch a caller holds.  The first call runs the plan eagerly on the
+    buffers, which loads its kernels and constants, returns that batch and
+    then captures.  The capture's launch counts are kept aside and added at
+    each replay, so ``launch.<kernel>`` counts what the card ran.  Calls
+    that share a graph queue on one stream (the lock orders them)."""
+
+    def __init__(self, device: torch.device, chunk: int, point_cap: int, level_caps: Tuple[int, ...], scale: float,
+                 full_scale: int, augment: bool, with_points: bool):
+        self.plan = eager_plan(chunk, level_caps, scale, full_scale, augment, with_points)
+        with torch.inference_mode(False):  # written in place by callers in and out of inference mode
+            self.xyz = torch.zeros((point_cap, 3), device=device)
+            self.sig = torch.zeros((point_cap,), device=device)
+            self.valid = torch.zeros((point_cap,), dtype=torch.bool, device=device)
+            self.draws = AugmentDraws(*(torch.zeros(s, device=device) for s in ((chunk, 3, 3), (chunk, 1, 3),
+                                                                                 (chunk, 1, 3)))) if augment else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[EvalBatch] = None
+        self.launches: Dict[str, int] = {}
+        self.lock = threading.Lock()
+
+    def __call__(self, xyz, sig, valid, draws: Optional[AugmentDraws]) -> EvalBatch:
+        with self.lock:
+            self.xyz.copy_(xyz)
+            self.sig.copy_(sig)
+            self.valid.copy_(valid)
+            if draws is not None:
+                for dst, src in zip(self.draws, draws):
+                    dst.copy_(src.pin_memory(), non_blocking=True)
+            if self.graph is None:
+                return self._capture()
+            self.graph.replay()
+            profiling.count("plan_graph.replay")
+            for name, n in self.launches.items():
+                profiling.count(name, n)
+            return _clone(self.out)
+
+    def _capture(self) -> EvalBatch:
+        batch = self.plan(self.xyz, self.sig, self.valid, self.draws)
+        graph = torch.cuda.CUDAGraph()
+        with profiling.diverted_counts() as launches:
+            # thread_local: the other thread of a round may use the card meanwhile
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.out = self.plan(self.xyz, self.sig, self.valid, self.draws)
+        self.graph, self.launches = graph, launches
+        profiling.count("plan_graph.capture")
+        return batch
+
+
+_PLAN_GRAPHS: Dict[tuple, PlanGraph] = {}  # the process's graphs: each round call replays the first's
+_PLAN_GRAPHS_LOCK = threading.Lock()
+
+
+def chunk_plan(device: torch.device, chunk: int, point_cap: int, level_caps: Tuple[int, ...], scale: float,
+               full_scale: int, augment: bool, with_points: bool) -> Callable:
+    """The chunk plan of :func:`eager_plan` on ``device``: eager on the CPU,
+    the :class:`PlanGraph` of these arguments on a CUDA device."""
+    if device.type != "cuda":
+        return eager_plan(chunk, level_caps, scale, full_scale, augment, with_points)
+    key = (device, chunk, point_cap, tuple(level_caps), scale, full_scale, augment, with_points)
+    with _PLAN_GRAPHS_LOCK:
+        graph = _PLAN_GRAPHS.get(key)
+        if graph is None:
+            graph = _PLAN_GRAPHS[key] = PlanGraph(*key)
+    return graph
 
 
 def make_multiview_fn(cfg: RunConfig, model: torch.nn.Module, with_feat: Optional[bool] = None,
@@ -65,7 +176,8 @@ def make_multiview_fn(cfg: RunConfig, model: torch.nn.Module, with_feat: Optiona
     ``inf_reps`` not above it): each chunk's softmax probabilities/features
     are summed and the mean is taken over all views at the end — the
     reference's single mean over 8 views (prob_inference.py:107-118).
-    ``augment=False`` runs every view on the unaugmented frame (parity tests)."""
+    ``augment=False`` runs every view on the unaugmented frame (parity tests).
+    Each chunk's batch comes from :func:`chunk_plan`."""
     data = cfg.data
     reps = cfg.inf_reps
     if with_feat is None:
@@ -76,17 +188,11 @@ def make_multiview_fn(cfg: RunConfig, model: torch.nn.Module, with_feat: Optiona
 
     def run(generator, xyz, sig, valid):
         draws = sample_augment(generator, reps) if augment else None
-        xyz_r = xyz.expand((chunk,) + xyz.shape)
-        sig_r = sig.expand((chunk,) + sig.shape)
-        val_r = valid.expand((chunk,) + valid.shape)
+        plan = chunk_plan(xyz.device, chunk, xyz.shape[0], data.level_caps, data.scale, data.full_scale, augment,
+                          cfg.is_spvcnn)
         prob_sum = feat_sum = None
         for c0 in range(0, reps, chunk):
-            eb = prepare_eval_batch(
-                None, xyz_r, sig_r, val_r,
-                level_caps=data.level_caps, scale=data.scale, full_scale=data.full_scale,
-                augment=augment, draws=draws.rows(c0, c0 + chunk) if augment else None,
-                with_points=cfg.is_spvcnn,
-            )
+            eb = plan(xyz, sig, valid, draws.rows(c0, c0 + chunk) if augment else None)
             logits, feat = forward_batch(model, eb)
             prob = torch.softmax(project_logits_to_points(logits, eb.inverse).float(), dim=-1).sum(dim=0)
             prob_sum = prob if prob_sum is None else prob_sum + prob
@@ -98,6 +204,14 @@ def make_multiview_fn(cfg: RunConfig, model: torch.nn.Module, with_feat: Optiona
         return prob_mean, pred, (feat_sum / reps if with_feat else None)
 
     return run
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``; to a card through pinned memory, queued on the
+    current stream with no host wait (a pageable copy would wait for the
+    stream)."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
 
 
 def to_host(t: Optional[torch.Tensor]):
@@ -185,7 +299,7 @@ def run_prob_inference(
                     next_load = reader.submit(load, idx + 1)
                 out = fn(
                     frame_generator(cfg.seed, first_index + idx),
-                    *(torch.from_numpy(a).to(device) for a in (oxyz, osig, ovalid)),
+                    *(upload(a, device) for a in (oxyz, osig, ovalid)),
                 )
                 hosts, event = [], None
                 for t in out:

@@ -13,8 +13,11 @@
   profiled stretch: the first span recorded after spans were last seen off
   clears it.
 * :func:`count` adds to a named counter, always, under one lock: the
-  kernels' launches (``launch.<kernel>``) and the collectives
-  (``all_reduce.calls``, ``all_reduce.bytes``).
+  kernels' launches (``launch.<kernel>``), the collectives
+  (``all_reduce.calls``, ``all_reduce.bytes``) and the batch plan's CUDA
+  graphs (``plan_graph.capture``, ``plan_graph.replay``).  Inside
+  :func:`diverted_counts` a thread's counts go to a dict instead: a CUDA
+  graph's capture runs nothing, and its launches count when it replays.
 * :func:`stats` reads both, :func:`reset` clears both.
 * :func:`device_trace` is the way to trace a call: every thread of the
   host, the card's kernels and copies, and a ``summary.json`` of the spans
@@ -39,6 +42,7 @@ _LOCK = threading.Lock()
 _SPANS: Dict[str, list] = {}  # name -> [count, total seconds, self seconds]
 _COUNTERS: Dict[str, int] = {}
 _OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+_DIVERTED = threading.local()  # .counts: the dict this thread's counts go to, or None
 _OFF = contextlib.nullcontext()
 _seen_off = True  # a span found no profiler running since the aggregate was last cleared
 
@@ -93,8 +97,25 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
+    diverted = getattr(_DIVERTED, "counts", None)
+    if diverted is not None:
+        diverted[name] = diverted.get(name, 0) + n
+        return
     with _LOCK:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def diverted_counts() -> Iterator[Dict[str, int]]:
+    """Collect what this thread counts inside the block in the dict it
+    yields, and leave the counters as they are; other threads count as
+    before."""
+    outer = getattr(_DIVERTED, "counts", None)
+    _DIVERTED.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _DIVERTED.counts = outer
 
 
 def counter(name: str) -> int:

@@ -35,22 +35,35 @@ bf16-rounded table bit-equal to its plain version, ``scatter8`` on bf16-rounded
 rows as the f32 one, neither allocating a bf16 copy, and no f32 conv,
 backward, ``gather8``, ``child_sum`` or ``scatter8`` launch on the route.  The
 child-sum chain (``child_sum``) is bit-equal to its plain version, the levels
-run one after another, on both routes.
+run one after another, on both routes.  A chunk's batch plan replayed as a
+CUDA graph (``runtime/prob_inference.PlanGraph``) is bit-equal to the eager
+plan in every field, makes no synchronising call, and gives a fused round
+the eager plans' probabilities, selection and launch counts.
 """
 
 import copy
+import dataclasses
+import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from lidal_tpu_torch.data.pipeline import prepare_eval_batch, prepare_train_batch
+from lidal_tpu_torch.active import lidal_runner
+from lidal_tpu_torch.config import NU_CONFIG, SK_CONFIG, RunConfig
+from lidal_tpu_torch.data.augment import AugmentDraws, sample_augment
+from lidal_tpu_torch.data.pipeline import pad_points, prepare_eval_batch, prepare_train_batch
 from lidal_tpu_torch.data.pipeline import forward_batch
+from lidal_tpu_torch.data.selection import save_sv_info
 from lidal_tpu_torch.models.minkunet import MinkUNet
 from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.ops import conv, cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8, cuda_merge
 from lidal_tpu_torch.ops.hashing import SENTINEL_KEY
 from lidal_tpu_torch.ops.kernel_map import rulebook_streams
+from lidal_tpu_torch.runtime import prob_inference
+from lidal_tpu_torch.runtime.paths import Paths
+from lidal_tpu_torch.runtime.train_loop import build_model
 from lidal_tpu_torch.utils import profiling
 
 CAPS = (1024, 512, 256, 128, 64)  # the coarse levels overflow on these frames
@@ -1109,3 +1122,156 @@ def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
     assert after[5] - mid[5] == 42 and after[6] - mid[6] == 42
     assert (after[7] - mid[7], after[8] - mid[8], after[9] - mid[9]) == (2, 2, 2)
     assert all(bool(p.grad.isfinite().all()) for p in model.parameters() if p.grad is not None)
+
+
+def _scan_points(rng, n):
+    """n surface-like points of a street (a ground ring and walls), 2-42 m out."""
+    r = 2.0 + 40.0 * rng.random(n) ** 1.5
+    th = rng.uniform(0, 2 * np.pi, n)
+    z = np.where(rng.random(n) < 0.6, -1.7 + 0.05 * rng.standard_normal(n), rng.uniform(-1.7, 2.0, n))
+    return np.stack([r * np.cos(th), r * np.sin(th), z], 1).astype(np.float32)
+
+
+def _fields(a, b, name="batch"):
+    """(name, tensor of a, tensor of b) for every tensor of two batches of one structure."""
+    if isinstance(a, torch.Tensor):
+        return [(name, a, b)]
+    if isinstance(a, tuple):
+        names = getattr(a, "_fields", range(len(a)))
+        assert type(a) is type(b) and len(a) == len(b), name
+        return [f for n, x, y in zip(names, a, b) for f in _fields(x, y, f"{name}.{n}")]
+    assert a is None and b is None, name
+    return []
+
+
+PLAN_DATA = {"SK": (SK_CONFIG, 110_000), "NU": (NU_CONFIG, 34_000)}  # caps, points a frame
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_name", list(PLAN_DATA))
+@pytest.mark.parametrize("augment", [True, False], ids=["augment", "plain"])
+@pytest.mark.parametrize("with_points", [False, True], ids=["minkunet", "spvcnn"])
+def test_plan_graph_replays_equal_eager_plans(card, data_name, augment, with_points):
+    """Three frames of two chunks of 4 views through the chunk's plan graph:
+    every field of every batch is bit-equal to the eager plan of the same
+    inputs, and the first batch returned is unchanged after the later
+    replays."""
+    data, n = PLAN_DATA[data_name]
+    key = (data.level_caps, data.scale, data.full_scale, augment, with_points)
+    plan = prob_inference.chunk_plan(card, 4, data.point_cap, *key)
+    eager = prob_inference.eager_plan(4, *key)
+    assert isinstance(plan, prob_inference.PlanGraph)
+    rng = np.random.default_rng(70)
+    first = None
+    with torch.inference_mode():
+        for frame in range(3):
+            m = n - n // 10 * frame
+            xyz, sig, valid = (torch.from_numpy(a).to(card) for a in pad_points(
+                _scan_points(rng, m), rng.random(m).astype(np.float32), None, data.point_cap)[:3])
+            draws = sample_augment(prob_inference.frame_generator(5, frame), 8) if augment else None
+            for c0 in (0, 4):
+                rows = draws.rows(c0, c0 + 4) if augment else None
+                got = plan(xyz, sig, valid, rows)
+                want = eager(xyz, sig, valid, AugmentDraws(*(t.to(card) for t in rows)) if augment else None)
+                for name, g, w in _fields(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), f"frame {frame}, views {c0}-{c0 + 3}: {name}"
+                if first is None:
+                    first = (got, prob_inference._clone(got))
+    assert plan.graph is not None
+    for name, g, w in _fields(*first):
+        assert torch.equal(g, w), f"the first batch's {name} changed under later replays"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_points", [False, True], ids=["minkunet", "spvcnn"])
+def test_plan_and_its_replay_make_no_synchronising_call(card, with_points):
+    """``prepare_eval_batch`` on device draws and a replayed chunk, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call waits for the card."""
+    data, n = PLAN_DATA["SK"]
+    rng = np.random.default_rng(72)
+    xyz, sig, valid = (torch.from_numpy(a).to(card) for a in pad_points(
+        _scan_points(rng, n), rng.random(n).astype(np.float32), None, data.point_cap)[:3])
+    draws = sample_augment(prob_inference.frame_generator(5, 0), 8)
+    key = (data.level_caps, data.scale, data.full_scale, True, with_points)
+    plan = prob_inference.chunk_plan(card, 4, data.point_cap, *key)
+    with torch.inference_mode():
+        plan(xyz, sig, valid, draws.rows(0, 4))  # captures where no earlier test did
+        device_draws = AugmentDraws(*(t.to(card) for t in draws.rows(4, 8)))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prob_inference.eager_plan(4, *key)(xyz, sig, valid, device_draws)
+            plan(xyz, sig, valid, draws.rows(4, 8))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+
+def _round_tree(root, frames=6, n=20_000, k=20):
+    """A SemanticKITTI sequence "00" of ``frames`` frames that see one static
+    street from a sensor moving 0.5 m a frame, as the fused round reads it:
+    the registered points, ``k`` supervoxels a frame and round-0 flags (the
+    first frame labelled).  Returns (config, reader of the raw frames)."""
+    rng = np.random.default_rng(71)
+    world = _scan_points(rng, 3 * n)
+    data = dataclasses.replace(SK_CONFIG, train_split=("00",), val_split=())
+    cfg = RunConfig(dataset_name="SK", model_name="Mink", label_unit="sv", metric_name="LiDAL", r_id=1, seed=9,
+                    inf_reps=8, view_chunk=4, data_root=str(root / "sequences"),
+                    processing_root=str(root / "base"), checkpoint_root=str(root / "ckpt"), data_override=data)
+    paths = Paths(cfg)
+    dirs = [paths.grid_dir("00"), paths.supervoxel_dir("00", "KMeans"), paths.sv_flag_dir("00", r_id=0)]
+    for d in dirs:
+        os.makedirs(d)
+    raw = {}
+    for i in range(frames):
+        name = f"{i:06d}"
+        seen = np.sort(rng.choice(3 * n, n, replace=False))
+        reg = world[seen] + 0.01 * rng.standard_normal((n, 3)).astype(np.float32)
+        raw[name] = (reg - np.float32([0.5 * i, 0.0, 0.0]), rng.random(n).astype(np.float32))
+        np.savez_compressed(os.path.join(dirs[0], f"{name}.npz"), xyz=reg)
+        save_sv_info(os.path.join(dirs[1], f"{name}.npz"), rng.permutation(np.arange(n) % k),
+                     np.arange(i * k, (i + 1) * k))
+        np.save(os.path.join(dirs[2], f"{name}.npy"), np.full(k, int(i == 0), np.int32))
+    return cfg, lambda seq, name: raw[name]
+
+
+@pytest.mark.cuda
+def test_fused_round_on_plan_graphs_equals_eager_plans(card, tmp_path, monkeypatch):
+    """A fused round with every chunk's plan eager (``chunk_plan`` swapped),
+    then twice on the plan graphs, from one tree: bit-equal probability
+    maps, equal selections, and each kernel's launch count as eager's.  The
+    first call captures the key once and replays 2 per frame less the first
+    chunk (its eager warm-up); the second call replays 2 per frame."""
+    monkeypatch.setattr(prob_inference, "_PLAN_GRAPHS", {})
+    frames = 6
+    cfg0, read_fn = _round_tree(tmp_path, frames)
+    torch.manual_seed(0)
+    model = build_model(cfg0).to(card).eval()
+
+    def run(tag):
+        cfg = dataclasses.replace(cfg0, processing_root=str(tmp_path / tag))
+        shutil.copytree(cfg0.processing_root, cfg.processing_root)
+        profiling.reset()
+        res = lidal_runner.run_fused_lidal_round(cfg, model, read_fn, train_split=["00"],
+                                                 train_point_num=frames * 20_000, device=card)
+        counters = profiling.stats()["counters"]
+        prob_dir = Paths(lidal_runner._prev_cfg(cfg)).prob_dir("00")
+        probs = [np.load(os.path.join(prob_dir, f"{i:06d}.npy")) for i in range(frames)]
+        return res, counters, probs
+
+    with monkeypatch.context() as m:
+        m.setattr(prob_inference, "chunk_plan",
+                  lambda device, chunk, point_cap, *key: prob_inference.eager_plan(chunk, *key))
+        eager = run("eager")
+    first, second = run("graph_first"), run("graph_second")
+    launches = {k: v for k, v in eager[1].items() if k.startswith("launch.")}
+    assert launches["launch.lookup_sorted"] == 10 * frames and launches["launch.nn_band"] == frames
+    assert not any(k.startswith("plan_graph.") for k in eager[1])
+    for got, capture, replay in ((first, 1, 2 * frames - 1), (second, 0, 2 * frames)):
+        res, counters, probs = got
+        assert {k: v for k, v in counters.items() if k.startswith("launch.")} == launches
+        assert counters.get("plan_graph.capture", 0) == capture and counters["plan_graph.replay"] == replay
+        for i, (p, q) in enumerate(zip(probs, eager[2])):
+            assert np.array_equal(p, q), f"frame {i}: probabilities differ from the eager plans'"
+        for a, b in zip(res, eager[0]):
+            assert np.array_equal(a, b), "the selection differs from the eager plans'"

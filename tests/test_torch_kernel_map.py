@@ -8,11 +8,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from lidal_tpu.data.augment import augment_and_voxelize as jax_augment_and_voxelize
 from lidal_tpu.ops import kernel_map as jkm
 from lidal_tpu_torch.data.augment import augment_and_voxelize
+from lidal_tpu_torch.ops import devoxelize
 from lidal_tpu_torch.ops import kernel_map as km
+from lidal_tpu_torch.ops.hashing import pack_keys
 from tests.test_torch_frames import LOSSLESS_CAPS, OVERFLOW_CAPS, surface_frames, torch_args
 
 
@@ -27,6 +30,29 @@ def _jax_plan(xyz, sig, valid, caps):
 def test_offsets_match_jax():
     assert km.OFFSETS3 == jkm.OFFSETS3 and km.OFFSETS2 == jkm.OFFSETS2
     assert (km.K3, km.CENTER3, km.K2) == (jkm.K3, jkm.CENTER3, jkm.K2)
+
+
+def test_device_constants_equal_the_literals_they_replace():
+    """The plan's constants, made once per device: each offset's key delta
+    (``pack_keys`` of a shifted voxel is its key plus the delta), the up
+    map's corner offsets and their taps among the kernel-3 offsets."""
+    dev = torch.device("cpu")
+    d_hi = km.device_constant(km._D_HI, torch.int32, dev)
+    d_lo = km.device_constant(km._D_LO, torch.int32, dev)
+    offs26 = [o for o in km.OFFSETS3 if o != (0, 0, 0)]
+    assert d_hi.tolist() == [(dx << 14) + dy for dx, dy, _ in offs26] and d_lo.tolist() == [dz for _, _, dz in offs26]
+    assert d_hi.dtype == d_lo.dtype == torch.int32
+    assert km.device_constant(km._D_HI, torch.int32, dev) is d_hi  # made once
+    coords = torch.tensor([[5, 9, 300], [0, 0, 0], [16381, 16381, 7]], dtype=torch.int32)
+    valid = torch.ones(3, dtype=torch.bool)
+    hi, lo = pack_keys(coords, valid)
+    for k, o in enumerate(offs26):
+        s_hi, s_lo = pack_keys(coords + torch.tensor(o, dtype=torch.int32), valid)
+        assert torch.equal(s_hi, hi + d_hi[k]) and torch.equal(s_lo, lo + d_lo[k])
+    offs2 = km.device_constant(km.OFFSETS2, torch.bool, dev)
+    assert torch.equal(offs2, torch.tensor(km.OFFSETS2, dtype=torch.bool))
+    tap8 = km.device_constant(devoxelize._TAP8, torch.long, dev)
+    assert tap8.dtype == torch.long and [km.OFFSETS3[t] for t in tap8.tolist()] == list(km.OFFSETS2)
 
 
 @pytest.mark.parametrize("caps,span", [(LOSSLESS_CAPS, 6.0), (OVERFLOW_CAPS, 6.0), (OVERFLOW_CAPS, 40.0)])

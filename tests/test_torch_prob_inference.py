@@ -29,10 +29,14 @@ from lidal_tpu.models.spvcnn import SPVCNN as JaxSPVCNN
 from lidal_tpu.runtime import evaluate as jax_evaluate
 from lidal_tpu.runtime import prob_inference as jax_prob
 from lidal_tpu_torch.config import DataConfig, RunConfig
+from lidal_tpu_torch.data.augment import sample_augment
+from lidal_tpu_torch.data.pipeline import forward_batch, prepare_eval_batch
 from lidal_tpu_torch.models.minkunet import MinkUNet
 from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.runtime import prob_inference
+from lidal_tpu_torch.runtime.evaluate import project_logits_to_points
 from lidal_tpu_torch.runtime.paths import Paths
+from lidal_tpu_torch.utils import profiling
 from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax, spvcnn_state_dict_from_jax
 from tests.test_torch_frames import OVERFLOW_CAPS, surface_frames
 from tests.test_torch_minkunet import NARROW, _randomise_bn
@@ -137,6 +141,32 @@ def test_view_chunk_and_feature_branch_invariance(models, tmp_path):
     np.testing.assert_array_equal(pred_nf.numpy(), outs[2][1])
     # the views do differ: the mean of 4 views is not the first view alone
     assert np.abs(outs[4][0] - one_view).max() > 1e-3
+
+
+def test_cpu_chunks_are_eager_plans_and_capture_nothing(models, tmp_path):
+    """On the CPU no plan graph is made: every chunk is ``prepare_eval_batch``
+    on the chunk's rows of the frame's draws, and the outputs equal that
+    composition bit for bit."""
+    _, _, model = models
+    (xyz, sig), = _frames(65, 1)
+    args = [torch.from_numpy(a) for a in prob_inference.pad_points(xyz, sig, None, P)[:3]]
+    cfg = _cfg(tmp_path, inf_reps=4, view_chunk=2)
+    profiling.reset()
+    with torch.inference_mode():
+        prob, pred, feat = prob_inference.make_multiview_fn(cfg, model, with_feat=True)(
+            prob_inference.frame_generator(cfg.seed, 3), *args)
+        draws = sample_augment(prob_inference.frame_generator(cfg.seed, 3), 4)
+        want_prob = want_feat = 0.0
+        for c0 in (0, 2):
+            eb = prepare_eval_batch(None, *(a.expand((2,) + a.shape) for a in args), level_caps=OVERFLOW_CAPS,
+                                    draws=draws.rows(c0, c0 + 2))
+            logits, f = forward_batch(model, eb)
+            want_prob = want_prob + torch.softmax(project_logits_to_points(logits, eb.inverse).float(), -1).sum(0)
+            want_feat = want_feat + project_logits_to_points(f, eb.inverse).float().sum(0)
+    assert torch.equal(prob, want_prob / 4) and torch.equal(feat, want_feat / 4)
+    assert torch.equal(pred, prob.argmax(-1).to(torch.int32))
+    assert profiling.counter("plan_graph.capture") == profiling.counter("plan_graph.replay") == 0
+    assert prob_inference._PLAN_GRAPHS == {}
 
 
 def test_frames_do_not_depend_on_order_or_repeats(models, tmp_path):

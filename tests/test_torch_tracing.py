@@ -117,6 +117,26 @@ def test_count_is_exact_under_eight_threads():
     assert profiling.stats()["counters"] == {"t.hits": 8 * 5000, "t.bytes": 12}
 
 
+def test_diverted_counts_stay_out_of_the_counters():
+    """Inside ``diverted_counts`` this thread's counts go to its dict (the
+    innermost one where they nest); other threads still count."""
+    profiling.count("t.launch", 2)
+    with profiling.diverted_counts() as kept:
+        profiling.count("t.launch", 5)
+        profiling.count("t.other")
+        worker = threading.Thread(target=lambda: profiling.count("t.launch", 7))
+        worker.start()
+        worker.join(timeout=60)
+        with profiling.diverted_counts() as inner:
+            profiling.count("t.inner")
+        profiling.count("t.other")
+    assert not worker.is_alive()
+    assert kept == {"t.launch": 5, "t.other": 2} and inner == {"t.inner": 1}
+    assert profiling.stats()["counters"] == {"t.launch": 9}
+    profiling.count("t.other")
+    assert profiling.counter("t.other") == 1
+
+
 def test_device_trace_holds_a_worker_span_and_a_summary(tmp_path):
     def work():
         with profiling.span("t.traced_worker"):
