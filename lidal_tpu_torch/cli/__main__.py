@@ -48,7 +48,7 @@ from lidal_tpu_torch.parallel import mesh
 
 def _add_run_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset_name", type=str, default="SK", help="SK | NU")
-    p.add_argument("--model_name", type=str, default="Mink", help="contains Mink or SPVCNN")
+    p.add_argument("--model_name", type=str, default="Mink", help="contains Mink, SPVCNN or PTv3")
     p.add_argument("--label_unit", type=str, default="sv", help="fr | sv")
     p.add_argument("--metric_name", type=str, default="LiDAL")
     p.add_argument("--r_id", type=int, default=0)

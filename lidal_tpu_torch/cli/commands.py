@@ -1,5 +1,5 @@
 """Command implementations wiring the run loops, data and checkpoints (port of
-``lidal_tpu/cli/commands.py``: SemanticKITTI and nuScenes, MinkUNet or SPVCNN,
+``lidal_tpu/cli/commands.py``: SemanticKITTI and nuScenes, MinkUNet, SPVCNN or PTv3,
 every selection metric, every ``prep`` stage, ``import-torch``).
 
 Every command that runs a model runs it on ``device`` (default: the CUDA card)

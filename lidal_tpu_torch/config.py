@@ -59,7 +59,7 @@ class RunConfig:
     """One active-learning run (the reference CLI 5-tuple + training statics)."""
 
     dataset_name: str = "SK"  # 'SK' | 'NU'
-    model_name: str = "Mink"  # contains 'Mink' or 'SPVCNN' (reference train.py:38-47)
+    model_name: str = "Mink"  # contains 'Mink' or 'SPVCNN' (reference train.py:38-47), or 'PTv3'
     label_unit: str = "sv"  # 'fr' | 'sv'
     metric_name: str = "LiDAL"
     r_id: int = 0
@@ -118,3 +118,11 @@ class RunConfig:
     @property
     def is_spvcnn(self) -> bool:
         return "SPVCNN" in self.model_name
+
+
+def is_ptv3(cfg) -> bool:
+    """Whether ``cfg.model_name`` names Point Transformer V3 (``models/ptv3.py``),
+    the port's own addition; a function, not a field or property, so that the
+    JAX package's ``RunConfig`` (which the tests hand to the port's entry
+    points) answers it too."""
+    return "PTv3" in cfg.model_name

@@ -110,10 +110,13 @@ def forward_batch(model: torch.nn.Module, batch, dropout_seeds=None):
     """``(logits, feats)`` of ``model`` on a :class:`TrainBatch` or
     :class:`EvalBatch`: MinkUNet takes the features and the plan; a batch
     prepared ``with_points`` is SPVCNN's, which also takes the point plan and,
-    in train mode, one dropout seed per frame."""
-    if batch.pplan is None:
-        return model(batch.feats, batch.plan)
-    return model(batch.feats, batch.plan, batch.pplan, dropout_seeds)
+    in train mode, one dropout seed per frame; PTv3 takes the features, the
+    plan and, in train mode, the step's ``models/ptv3.StepDraws``."""
+    if batch.pplan is not None:
+        return model(batch.feats, batch.plan, batch.pplan, dropout_seeds)
+    if dropout_seeds is not None:
+        return model(batch.feats, batch.plan, dropout_seeds)
+    return model(batch.feats, batch.plan)
 
 
 def pad_points(xyz, sig, labels, point_cap: int):

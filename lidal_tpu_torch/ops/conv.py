@@ -15,6 +15,11 @@ from which each conv recovers dW (the JAX custom VJPs, ``conv.py:102-223``):
 * up: ``dX`` and ``dW = dwg`` over ``child``, the same pairing seen from the
   coarse side.
 
+A map wider than the kernels' 27 taps (PTv3's kernel-5 stem, 125 taps)
+runs as groups of at most 27 of its columns (:func:`subm_conv_wide`): the
+forward adds the groups' gather-GEMMs, the backward adds their dx and
+concatenates their dwg, so every launch is one of the 27-tap kernels.
+
 Frames flatten into one call: frame b's rows are offset by ``b * cap`` and
 each frame's sentinel (its cap) maps to the global sentinel ``B * cap``.
 
@@ -115,6 +120,50 @@ class _GatherConv(torch.autograd.Function):
         return dx, (dwg.flip(0) if ctx.mirror else dwg), None, None, None
 
 
+KERNEL_TAPS = 27  # the most taps one launch of the f32 kernels takes
+
+
+def _tap_groups(k: int):
+    return [slice(g, min(g + KERNEL_TAPS, k)) for g in range(0, k, KERNEL_TAPS)]
+
+
+class _WideSubmConv(torch.autograd.Function):
+    """:class:`_GatherConv` over a mirrored map of more than
+    :data:`KERNEL_TAPS` taps, one f32 launch per group of columns: the
+    forward adds the groups' outputs; the backward runs ``conv_dx_dw`` over
+    each group with ``w2 = flip(w)^T``, adds the dx and concatenates the dwg
+    (flipped back).  The bf16 route has no such shape: it raises."""
+
+    @staticmethod
+    def forward(ctx, feats, w, nbr):
+        if BF16_OPERANDS:
+            raise ValueError(f"no bf16 route for a {w.shape[0]}-tap conv")
+        ctx.save_for_backward(feats, w, nbr)
+        out = None
+        for g in _tap_groups(w.shape[0]):
+            part = cuda_conv.subm_conv(feats, w[g].contiguous(), nbr[:, g].contiguous())
+            out = part if out is None else out + part
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        feats, w, nbr = ctx.saved_tensors
+        w2 = w.flip(0).transpose(1, 2).contiguous()
+        need_dx = ctx.needs_input_grad[0]
+        dy = dy.contiguous()
+        dx, dwgs = None, []
+        for g in _tap_groups(w.shape[0]):
+            dx_g, dwg = cuda_conv_dxdw.conv_dx_dw(dy, w2[g].contiguous(), nbr[:, g].contiguous(), feats, need_dx)
+            dx = dx_g if dx is None else dx + dx_g
+            dwgs.append(dwg)
+        return dx, torch.cat(dwgs).flip(0), None
+
+
+def subm_conv_wide(feats: torch.Tensor, w: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """:func:`subm_conv` for K > :data:`KERNEL_TAPS` (odd, mirrored taps)."""
+    return _WideSubmConv.apply(feats, w, nbr)
+
+
 def subm_conv(feats: torch.Tensor, w: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     """out[i] = sum_k feats[nbr[i, k]] @ w[k]; feats [cap, cin], w [K, cin, cout],
     nbr [cap, K] (sentinel cap), K odd with mirrored taps."""
@@ -136,9 +185,10 @@ def up_conv(feats, w, child, parent, pdelta) -> torch.Tensor:
 
 
 def subm_conv_batched(x, w, nbr) -> torch.Tensor:
-    """x [B, cap, cin], nbr [B, cap, K] -> [B, cap, cout]."""
+    """x [B, cap, cin], nbr [B, cap, K] -> [B, cap, cout] (K > 27 in groups of taps)."""
     b, n, c = x.shape
-    return subm_conv(x.reshape(b * n, c), w, _flatten_nbr(nbr, n)).reshape(b, n, -1)
+    conv = subm_conv_wide if w.shape[0] > KERNEL_TAPS else subm_conv
+    return conv(x.reshape(b * n, c), w, _flatten_nbr(nbr, n)).reshape(b, n, -1)
 
 
 def down_conv_batched(x, w, child, parent, pdelta) -> torch.Tensor:

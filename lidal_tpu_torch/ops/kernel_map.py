@@ -5,7 +5,9 @@ NamedTuples with the JAX package's field names and ``[B, cap, ...]`` layouts;
 every conv of the network is then a gather + GEMM over it.
 
 * **subm** (kernel 3, stride 1): ``nbr3[b, i, k]`` is the row of
-  ``coord_i + OFFSETS3[k]`` in the same level, or the sentinel ``cap``.
+  ``coord_i + OFFSETS3[k]`` in the same level, or the sentinel ``cap``;
+  PTv3's kernel-5 stem map (:func:`build_subm5_nbr_batched`) is the same
+  over ``OFFSETS5``, built only for that model.
 * **down** (kernel 2, stride 2): coarse coords are ``unique(coords >> 1)``;
   ``child[b, o, d]`` is the fine row at ``2 * coord_o + OFFSETS2[d]``.
 * **up**: ``parent[b, f]`` and ``pdelta[b, f]``, the same pairing seen from
@@ -32,10 +34,24 @@ CENTER3 = 13  # index of (0, 0, 0)
 OFFSETS2 = tuple(itertools.product((0, 1), repeat=3))
 K2 = len(OFFSETS2)  # 8
 
+# Kernel-5 offsets (PTv3's stem), x-major; OFFSETS5[K5 - 1 - k] == -OFFSETS5[k].
+OFFSETS5 = tuple(itertools.product((-2, -1, 0, 1, 2), repeat=3))
+K5 = len(OFFSETS5)  # 125
+CENTER5 = 62
+
 _OFFS26 = [o for o in OFFSETS3 if o != (0, 0, 0)]
-# Each offset's delta of the packed (hi, lo) key (``hashing.pack_keys``).
-_D_HI = tuple((dx << 14) + dy for dx, dy, _ in _OFFS26)
-_D_LO = tuple(dz for _, _, dz in _OFFS26)
+_OFFS124 = [o for o in OFFSETS5 if o != (0, 0, 0)]
+
+
+def _key_deltas(offsets):
+    """Each offset's delta of the packed (hi, lo) key (``hashing.pack_keys``).
+    A y of -1 or -2 borrows from x in ``hi`` and names y = 16382 or 16381,
+    which no voxel of a grid under ``full_scale`` holds: such a query misses."""
+    return tuple((dx << 14) + dy for dx, dy, _ in offsets), tuple(dz for _, _, dz in offsets)
+
+
+_D_HI, _D_LO = _key_deltas(_OFFS26)
+_D5_HI, _D5_LO = _key_deltas(_OFFS124)
 
 _CONSTANTS: Dict = {}  # (values, dtype, device) -> tensor
 
@@ -76,9 +92,10 @@ class UNetPlan(NamedTuple):
     downs: Tuple[DownPlan, ...]
 
 
-def rulebook_streams(coords: torch.Tensor, valid: torch.Tensor):
+def rulebook_streams(coords: torch.Tensor, valid: torch.Tensor, deltas=(_D_HI, _D_LO)):
     """The lookups of one level's rulebook: tables [B, cap] and the B x 26
-    offset query streams [B * 26, cap] (frame-major).
+    offset query streams [B * 26, cap] (frame-major; ``deltas`` gives
+    other offsets' key deltas, B x len(offsets) streams).
 
     A kernel offset adds a constant to the packed key, computed in int32 as
     the JAX package does (``kernel_map.py:138-141``), so each stream stays
@@ -86,11 +103,12 @@ def rulebook_streams(coords: torch.Tensor, valid: torch.Tensor):
     b, cap, _ = coords.shape
     dev = coords.device
     key_hi, key_lo = pack_keys(coords, valid)  # [B, cap]
-    d_hi = device_constant(_D_HI, torch.int32, dev)
-    d_lo = device_constant(_D_LO, torch.int32, dev)
+    d_hi = device_constant(deltas[0], torch.int32, dev)
+    d_lo = device_constant(deltas[1], torch.int32, dev)
     q_hi = torch.where(valid[:, None, :], key_hi[:, None, :] + d_hi[None, :, None], SENTINEL_KEY)
     q_lo = torch.where(valid[:, None, :], key_lo[:, None, :] + d_lo[None, :, None], SENTINEL_KEY)
-    return key_hi, key_lo, q_hi.reshape(b * len(_OFFS26), cap), q_lo.reshape(b * len(_OFFS26), cap)
+    s = len(deltas[0])
+    return key_hi, key_lo, q_hi.reshape(b * s, cap), q_lo.reshape(b * s, cap)
 
 
 def build_subm_nbr_batched(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -103,6 +121,18 @@ def build_subm_nbr_batched(coords: torch.Tensor, valid: torch.Tensor) -> torch.T
     center = torch.where(valid, own[None, :], cap).to(torch.int32)
     nbr = torch.cat([nbr26[:, :CENTER3], center[:, None, :], nbr26[:, CENTER3:]], dim=1)
     return nbr.transpose(1, 2).contiguous()  # [B, cap, 27]
+
+
+def build_subm5_nbr_batched(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Kernel-5 stride-1 rulebook (PTv3's stem): coords [B, cap, 3] -> nbr
+    [B, cap, 125], all B x 124 offset streams in one lookup launch."""
+    b, cap, _ = coords.shape
+    n = len(_OFFS124)
+    nbr = lookup_sorted_grouped(*rulebook_streams(coords, valid, (_D5_HI, _D5_LO))).reshape(b, n, cap)
+    own = torch.arange(cap, dtype=torch.int32, device=coords.device)
+    center = torch.where(valid, own[None, :], cap).to(torch.int32)
+    nbr = torch.cat([nbr[:, :CENTER5], center[:, None, :], nbr[:, CENTER5:]], dim=1)
+    return nbr.transpose(1, 2).contiguous()  # [B, cap, 125]
 
 
 def build_down(coords_fine: torch.Tensor, valid_fine: torch.Tensor, cap_coarse: int):

@@ -23,8 +23,10 @@ rank 0 at the start of training (``runtime/train_loop.run_train``).
 Every helper takes the group as ``group``; ``None`` means no group (one
 process): rank 0 of 1, the whole range, no barrier, and a sum over one rank.
 Nothing here creates a group at import: :func:`init_from_env` does, for the
-command line under ``torchrun``; tests and scripts may create their own and
-pass it to the entry points as ``group``.
+command line under ``torchrun``, and :func:`init_group` for a launcher that
+names the rank, the size and the address itself (the benchmark's
+data-parallel loop); tests and scripts may create their own and pass it to
+the entry points as ``group``.
 """
 
 from __future__ import annotations
@@ -59,13 +61,27 @@ def init_from_env(device: Union[torch.device, str] = "cuda") -> torch.device:
         return device
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return init_group(int(os.environ["RANK"]), world_size, "env://", device)
+
+
+def init_group(rank_: int, world_size: int, init_method: str, device: Union[torch.device, str],
+               timeout: datetime.timedelta = GROUP_TIMEOUT) -> torch.device:
+    """Join the default process group as ``rank_`` of ``world_size`` at
+    ``init_method`` (``env://``, ``tcp://host:port``, ``file://...``): over
+    NCCL on a CUDA ``device``, made this process's current device and the
+    group's ``device_id`` (``cuda`` alone means ``cuda:rank_``), over gloo on
+    the CPU.  Returns the device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", rank_)
         torch.cuda.set_device(device)
     dist.init_process_group(
         "nccl" if device.type == "cuda" else "gloo",
-        init_method="env://",
-        rank=int(os.environ["RANK"]),
+        init_method=init_method,
+        rank=rank_,
         world_size=world_size,
-        timeout=GROUP_TIMEOUT,
+        timeout=timeout,
         device_id=device if device.type == "cuda" else None,
     )
     return device

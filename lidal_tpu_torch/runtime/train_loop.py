@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lidal_tpu_torch.config import RunConfig
+from lidal_tpu_torch.config import RunConfig, is_ptv3
 from lidal_tpu_torch.runtime.paths import Paths, ensure_dir
 from lidal_tpu_torch.data import nuscenes as nu, semantic_kitti as sk
 from lidal_tpu_torch.data.augment import sample_augment
@@ -47,6 +47,7 @@ from lidal_tpu_torch.data.selection import (
 )
 from lidal_tpu_torch.models.layers import sync_batchnorm
 from lidal_tpu_torch.models.minkunet import MinkUNet
+from lidal_tpu_torch.models.ptv3 import PTv3, StepDraws
 from lidal_tpu_torch.models.spvcnn import SPVCNN
 from lidal_tpu_torch.parallel import mesh
 from lidal_tpu_torch.runtime import checkpoint as ckpt
@@ -54,12 +55,27 @@ from lidal_tpu_torch.runtime.train import TrainState, flat_buckets, make_optimiz
 from lidal_tpu_torch.utils import profiling
 
 
-def build_model(cfg: RunConfig, group: Optional[dist.ProcessGroup] = None) -> MinkUNet:
+def build_model(cfg: RunConfig, group: Optional[dist.ProcessGroup] = None) -> torch.nn.Module:
     """The model family ``cfg.model_name`` names (SPVCNN is a MinkUNet trunk
-    with a point branch); with ``group`` every BN, SPVCNN's point-branch BNs
-    included, sums its train-mode statistics over the group."""
-    cls = SPVCNN if cfg.is_spvcnn else MinkUNet
+    with a point branch; PTv3 is Point Transformer V3); with ``group`` every
+    BN, SPVCNN's point-branch BNs included, sums its train-mode statistics
+    over the group."""
+    cls = PTv3 if is_ptv3(cfg) else SPVCNN if cfg.is_spvcnn else MinkUNet
     return sync_batchnorm(cls(num_classes=cfg.data.num_classes), group)
+
+
+def step_draws(gen: torch.Generator, cfg: RunConfig, n_global: int, lo: int, hi: int):
+    """A step's draws of the model's own randomness, after the augmentation's:
+    SPVCNN's dropout seeds, one per frame, so a frame's masks do not depend
+    on its batch mates (``models/layers.PerFrameDropout``); PTv3's the same
+    for its drop path and one more seed for the step's order shuffle
+    (``models/ptv3.StepDraws``); a rank keeps its rows.  None for MinkUNet."""
+    if not (cfg.is_spvcnn or is_ptv3(cfg)):
+        return None
+    seeds = torch.randint(0, 2**62, (n_global,), generator=gen)[lo:hi].tolist()
+    if cfg.is_spvcnn:
+        return seeds
+    return StepDraws(seeds, int(torch.randint(0, 2**62, (1,), generator=gen)))
 
 
 def _bootstrap_round0(cfg: RunConfig, seq_frames: dict, group: Optional[dist.ProcessGroup]) -> None:
@@ -227,7 +243,8 @@ def run_train(
     (``sk_dataloader.py:21,39-42``).  A caller's ``loader`` yields global
     batches, which the ranks must split evenly.  Augmentation and SPVCNN's per-frame dropout seeds draw
     from a CPU ``torch.Generator`` seeded from ``cfg.seed``, for the global
-    batch.  ``on_step(step, loss)`` gets the loss as a device tensor; the log
+    batch (PTv3: its drop-path seeds and order shuffle, ``step_draws``).
+    ``on_step(step, loss)`` gets the loss as a device tensor; the log
     line reads it every ``log_every`` steps."""
     device = torch.device(device)
     data = cfg.data
@@ -279,9 +296,7 @@ def run_train(
                 draws=draws.rows(lo, hi),
                 with_points=cfg.is_spvcnn,
             )
-            # SPVCNN's dropout: one seed per frame, so a frame's masks do not
-            # depend on its batch mates (models/layers.PerFrameDropout)
-            seeds = torch.randint(0, 2**62, (n_global,), generator=gen)[lo:hi].tolist() if cfg.is_spvcnn else None
+            seeds = step_draws(gen, cfg, n_global, lo, hi)
         loss = train_step(state, tb, seeds, group)
         if b.get("trunc_points", 0):
             print(f"WARNING: point_cap truncated {b['trunc_points']} points this batch")

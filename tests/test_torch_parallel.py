@@ -652,6 +652,24 @@ def test_init_from_env_joins_with_the_round_timeout(monkeypatch):
     assert calls[1][1]["device_id"] == torch.device("cuda", 1)
 
 
+def test_init_group_joins_at_the_given_address(monkeypatch):
+    """A launcher's own ranks: gloo on the CPU, NCCL on ``cuda:rank`` (or the
+    card named), at the address and with the timeout given."""
+    calls, current = [], []
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    short = datetime.timedelta(minutes=10)
+    assert mesh.init_group(2, 4, "tcp://127.0.0.1:29500", "cpu", short) == torch.device("cpu")
+    assert mesh.init_group(3, 4, "tcp://127.0.0.1:29500", "cuda") == torch.device("cuda", 3)
+    assert mesh.init_group(0, 4, "file:///x", "cuda:1") == torch.device("cuda", 1)
+    assert [b for b, _ in calls] == ["gloo", "nccl", "nccl"] and current == [torch.device("cuda", 3),
+                                                                              torch.device("cuda", 1)]
+    assert [(kw["rank"], kw["world_size"], kw["init_method"]) for _, kw in calls] == [
+        (2, 4, "tcp://127.0.0.1:29500"), (3, 4, "tcp://127.0.0.1:29500"), (0, 4, "file:///x")]
+    assert [kw["timeout"] for _, kw in calls] == [short, mesh.GROUP_TIMEOUT, mesh.GROUP_TIMEOUT]
+    assert [kw["device_id"] for _, kw in calls] == [None, torch.device("cuda", 3), torch.device("cuda", 1)]
+
+
 def test_mesh_without_a_group(monkeypatch):
     """Without a process group: rank 0 of 1, the whole range, no barrier, a
     sum over one rank; init_from_env creates no group when WORLD_SIZE is
