@@ -273,10 +273,27 @@ on the route no f32 conv, backward, gather8, child_sum or scatter8 may launch.
     ``subm_conv_bf16``, ``conv_dx_dw_bf16``, ``gather8_bf16``,
     ``child_sum_bf16`` and ``scatter8_bf16`` entries are (a)'s numbers,
     with the launches of the bf16 runs of (b)-(g).
+31. PTv3's patch attention kernels (``csrc/patch_attention.cu``) at
+    ``sk_ptv3_train``'s level-0 (ATTN_SHAPES: 300 patches x 2 heads) and
+    level-3 shapes (28 x 16), K = 1024, d = 16: o, lse, dq, dk and dv no further
+    from the plain version in f64 than F64_FACTOR times the f32 plain version
+    (+ 1e-6 of the abs-sum, ``attention_abs_sums``; lse: of |lse|), two
+    forwards and two backwards bit-equal;
+    forward and backward timed apart beside their plain versions, their
+    bounds (the forward's 4 and the backward's 8 x P x K^2 x C operations at
+    495 / 3 TFLOP/s; q, k, v, o, lse, dO, dq, dk, dv once each) and the
+    library's memory-efficient ``F.scaled_dot_product_attention`` and its
+    backward as the yardstick (``library_ms``), which the port never calls.
+32. PTv3's main paths at ``sk_ptv3_train``'s shapes (``ptv3_sk``, B = 5
+    frames of the SK tree): ``run_train`` with ``model_name="PTv3"``, then an
+    eval forward of the trained model on the B = 4 eval batch; one
+    ``launch.attn_fwd`` a block and forward and two ``launch.attn_bwd`` (dq,
+    then dk and dv) a block and backward, counted from 0 just before.
 
 The launch counts of the JSON record are those of the main paths (the eval
 runs of phases 5, 16 and 25, the train runs of phases 8, 17 and 26, the fused
-rounds of phases 12, 18 and 27, the probes' run of phase 22; on the route
+rounds of phases 12, 18 and 27, the probes' run of phase 22, PTv3's train run
+and eval forward of phase 32; on the route
 the runs of 30 (b)-(g)), each counted from 0 just before it.  ``bound_ms`` is the least time the card could
 take for the same work: the larger of the bytes the function must move (each
 input read once, each output written once) over 3.35 TB/s and its operations
@@ -345,6 +362,8 @@ NU_WORLD_POINTS = 200_000  # points of the static world both NU scenes see
 NU_ORIGIN = np.array([1010.0, 1610.0, 0.0])  # map coordinates (m) of the NU route's start, as in Boston seaport's map
 NU_STEP, NU_TURN = 2.5, 0.5  # metres and degrees the NU ego moves and turns a keyframe
 NU_PREP_FRAMES = 4  # frames of the vccs and boundary stages (host code)
+ATTN_SHAPES = ((300, 2), (28, 16))  # (patches, heads) of sk_ptv3_train's level 0 and level 3 (phase 31)
+ATTN_K = 1024  # tokens a patch
 # NVIDIA H100 SXM data-sheet peaks: HBM bytes/s, f32 FLOP/s outside the tensor
 # cores; integer compares are taken at half the f32 rate (64 INT32 lanes per SM
 # against 128 FP32 lanes)
@@ -428,7 +447,7 @@ def require(ok: bool, what: str) -> None:
 
 KERNELS = ("lookup_sorted", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "scatter8",
            "conv_gather_first", "conv_byte_planes", "conv_dx_dw_fused", "gather8_bf16", "scatter8_bf16",
-           "child_sum", "child_sum_bf16")
+           "child_sum", "child_sum_bf16", "attn_fwd", "attn_bwd")
 
 
 def reset_launches() -> None:
@@ -2006,6 +2025,126 @@ def scoring_phase(cfg_round, root, dev):
             what = f"{points} points added on a budget of {budget}"
         print(f"[23 scoring] score_command {metric}/{unit}: {what}; flag files on the card == on the CPU; "
               f"{seconds[0]:.2f} s on the card, {seconds[1]:.2f} s on the CPU")
+
+
+def attention_abs_sums(q, k, v, do):
+    """The abs-sums of the patch attention's outputs (f64): each output's sum
+    of the magnitudes of its terms down the chain that computes it, ``P |v|``
+    for o, ``P^T |dO|`` for dv, and for dq and dk ``scale P (|dO| |v|^T +
+    rowsum(|dO| |o|))`` times ``|k|`` and, transposed, ``|q|`` (P >= 0).  The
+    f64 gate's floor, as the abs-sum of the convs' gate (phase 7)."""
+    import torch
+
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    outs = [torch.empty_like(q) for _ in range(4)]
+    step = max(1, (1 << 24) // (q.shape[1] * q.shape[2] * q.shape[2]))
+    for s in range(0, q.shape[0], step):
+        b = slice(s, s + step)
+        p = torch.softmax((q[b] @ k[b].transpose(-2, -1)) * scale, -1)
+        o_abs = p @ v[b].abs()
+        ds = p * (do[b].abs() @ v[b].abs().transpose(-2, -1) + (do[b].abs() * (p @ v[b]).abs()).sum(-1, keepdim=True))
+        outs[0][b], outs[3][b] = o_abs, p.transpose(-2, -1) @ do[b].abs()
+        outs[1][b], outs[2][b] = scale * ds @ k[b].abs(), scale * ds.transpose(-2, -1) @ q[b].abs()
+    return outs  # o, dq, dk, dv
+
+
+def attention_phase(dev) -> dict:
+    """31: the patch attention kernels against their plain versions at
+    ATTN_SHAPES; its record entry's numbers, forward and backward summed over
+    the shapes."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from lidal_tpu_torch.ops import patch_attention as pa
+
+    def distance(x, ref):
+        return float((x.double() - ref).abs().max()) / float(ref.abs().max())
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bound, worst = Bound(), 0.0
+    for p, h in ATTN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + p * h)
+        q, k, v, do = (torch.randn(p, h, ATTN_K, pa.HEAD_DIM, generator=g, device=dev) * sc for sc in (1.5, 1.5, 1, 1))
+        o, lse = pa.patch_attention_forward(q, k, v)
+        grads = pa.patch_attention_backward(q, k, v, o, lse, do)
+        o2, lse2 = pa.patch_attention_forward(q, k, v)
+        grads2 = pa.patch_attention_backward(q, k, v, o, lse, do)
+        require(torch.equal(o, o2) and torch.equal(lse, lse2) and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+                f"attention {p} x {h}: two runs differ")
+        ref_o, ref_lse = pa.patch_attention_plain(q.double(), k.double(), v.double())
+        ref_g = pa.patch_attention_backward_plain(q.double(), k.double(), v.double(), ref_o, ref_lse, do.double())
+        f32_o, f32_lse = pa.patch_attention_plain(q, k, v)
+        f32_g = pa.patch_attention_backward_plain(q, k, v, f32_o, f32_lse, do)
+        dists = {}
+        a_o, a_dq, a_dk, a_dv = attention_abs_sums(q, k, v, do)
+        sums = (a_o, ref_lse.abs(), a_dq, a_dk, a_dv)
+        for name, got, f32, ref, b in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + grads, (f32_o, f32_lse) + f32_g,
+                                          (ref_o, ref_lse) + ref_g, sums):
+            e_k, e_p = (float((x.double() - ref).abs().max()) for x in (got, f32))
+            dists[name] = (distance(got, ref), distance(f32, ref))
+            require(bool(got.isfinite().all()) and e_k <= F64_FACTOR * e_p + 1e-6 * float(b.max()),
+                    f"attention {p} x {h} {name}: kernel {e_k:.3g} from f64, plain f32 {e_p:.3g}")
+            worst = max(worst, float((got - f32).abs().max()))
+        del ref_o, ref_g, f32_o, f32_g, o2, grads2, sums, a_o, a_dq, a_dk, a_dv
+        fwd_ms = cuda_ms(lambda: pa.patch_attention_forward(q, k, v))
+        bwd_ms = cuda_ms(lambda: pa.patch_attention_backward(q, k, v, o, lse, do))
+        plain_fwd = cuda_ms(lambda: pa.patch_attention_plain(q, k, v), reps=2)
+        plain_bwd = cuda_ms(lambda: pa.patch_attention_backward_plain(q, k, v, o, lse, do), reps=2)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+        del out, leaves
+        work = 4.0 * p * h * ATTN_K * ATTN_K * pa.HEAD_DIM
+        b_fwd = bound.add(nbytes(q, k, v, o, lse), work, PEAK_SPLIT_TF32)
+        b_bwd = bound.add(nbytes(q, k, v, o, lse, do, *grads), 2 * work, PEAK_SPLIT_TF32)
+        tot["ms"] += fwd_ms + bwd_ms
+        tot["plain_ms"] += plain_fwd + plain_bwd
+        tot["library_ms"] += lib_fwd + lib_bwd
+        print(f"[31 attention] {p} patches x {h} heads x {ATTN_K}: forward {fwd_ms:.3f} ms (plain {plain_fwd:.3f}, "
+              f"bound {b_fwd:.3f}, {100 * b_fwd / fwd_ms:.1f} %; memory-efficient SDPA {lib_fwd:.3f}), backward "
+              f"{bwd_ms:.3f} ms (plain {plain_bwd:.3f}, bound {b_bwd:.3f}, {100 * b_bwd / bwd_ms:.1f} %; SDPA backward "
+              f"{lib_bwd:.3f}); distance from f64, kernel / plain f32: "
+              + ", ".join(f"{n} {a:.3g} / {b:.3g}" for n, (a, b) in dists.items()) + "; reruns bit-equal")
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "bound_ms": bound.total, "bound_by": bound.by, **tot}
+
+
+def ptv3_path_phase(cfg, eb, dev) -> dict:
+    """32: PTv3's train run (``cfg`` with ``model_name="PTv3"``) and an eval
+    forward of the trained model on ``eb``; the kernels' launches in both,
+    counted from 0 just before them."""
+    import torch
+
+    from lidal_tpu_torch.data.pipeline import forward_batch
+    from lidal_tpu_torch.models import ptv3
+    from lidal_tpu_torch.runtime.train_loop import run_train
+
+    losses = []
+    reset_launches()
+    state = run_train(dataclasses.replace(cfg, model_name="PTv3"), max_iter=1 + TIMED_STEPS, log_every=1,
+                      on_step=lambda step, loss: losses.append(float(loss)), device=dev)
+    model = state.model.eval()
+    with torch.no_grad():
+        logits = forward_batch(model, eb)[0]
+    finite = bool(logits.isfinite().all())
+    launches = read_launches(("attn_fwd", "attn_bwd"))
+    blocks = sum(isinstance(m, ptv3.Attention) for m in model.modules())
+    require(state.step == 1 + TIMED_STEPS, f"run_train took {state.step} steps")
+    require(all(np.isfinite(x) for x in losses) and finite, f"PTv3: losses {losses}, eval logits finite {finite}")
+    want = {"attn_fwd": (state.step + 1) * blocks, "attn_bwd": 2 * state.step * blocks}
+    got = {k: launches[k] for k in want}
+    require(got == want, f"PTv3's attention launched {got}, {want} expected ({blocks} blocks, {state.step} steps "
+                         "and one eval forward)")
+    print(f"[32 PTv3] run_train: {state.step} steps of {cfg.data.batch_size} frames, losses "
+          f"{[round(x, 4) for x in losses]}; eval forward on {len(eb.feats)} frames; attention launches {got} "
+          f"({blocks} blocks); all launches {launches}")
+    del state, model, logits
+    return launches
 
 
 def lookup_phase(eb) -> dict:
@@ -3607,7 +3746,8 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
 
     # ---- 2. build ----------------------------------------------------------------
-    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "conv_gather_first", "conv_dx_dw_fused")
+    sources = ("merge_lookup", "subm_conv", "conv_dx_dw", "nn_band", "gather8", "conv_gather_first", "conv_dx_dw_fused",
+               "patch_attention")
     t0 = time.perf_counter()
     kernels_build.load_all(sources)
     print(f"[2 build] {len(sources)} sources, one nvcc each, started together: {time.perf_counter() - t0:.1f} s")
@@ -3647,6 +3787,9 @@ def main() -> None:
     del real_convs
     byte_planes = byte_planes_phase(dev)
     torch.cuda.empty_cache()
+
+    # ---- 31. PTv3's patch attention kernels ---------------------------------------------
+    attention = attention_phase(dev)
 
     # ---- 5, 6. the eval slice and the whole forward -------------------------------------------
     del eb
@@ -3724,6 +3867,9 @@ def main() -> None:
         del tb30
         torch.cuda.empty_cache()
         route["train Mink"] = route_train_phase(cfg_train, root, dev)
+        torch.cuda.empty_cache()
+        # ---- 32. PTv3's main paths: run_train and an eval forward ---------------------------------
+        ptv3_launches = ptv3_path_phase(cfg_train, prepare(b0, SEED), dev)
         torch.cuda.empty_cache()
 
         cfg_train_spv = dataclasses.replace(cfg_train, model_name="SPVCNN")
@@ -3831,7 +3977,8 @@ def main() -> None:
         shutil.rmtree(root, ignore_errors=True)
     # every main path's run, each counted from 0 just before it
     total = {k: sum(run[k] for run in (launches, train_launches, round_launches, launches_16, launches_17, launches_18,
-                                       probe_launches, nu_eval["Mink"], nu_eval["SPVCNN"], nu_train, nu_round))
+                                       probe_launches, nu_eval["Mink"], nu_eval["SPVCNN"], nu_train, nu_round,
+                                       ptv3_launches))
              for k in KERNELS}
     on_route = {k: sum(run[k] for run in route.values()) for k in KERNELS}  # phase 30's main paths
 
@@ -3879,6 +4026,10 @@ def main() -> None:
             {
                 "name": "conv_dx_dw_fused", "route": "cuda", "source": "lidal_tpu_torch/csrc/conv_dx_dw_fused.cu",
                 "replaces": "tools/probe_dxdw_features.py:42", "launches": total["conv_dx_dw_fused"], **fused,
+            },
+            {  # PTv3 has no JAX counterpart: the kernels replace the library's memory-efficient attention
+                "name": "patch_attention", "route": "cuda", "source": "lidal_tpu_torch/csrc/patch_attention.cu",
+                "replaces": None, "launches": total["attn_fwd"] + total["attn_bwd"], **attention,
             },
             # the bf16 route (phase 30): the JAX package's own route on its TPU, at the model path's shapes
             {

@@ -14,21 +14,32 @@ rows (``valid`` false) never enter.
 where each padded slot reads); :func:`order_index` turns it and one curve's
 order into the gather of the slots' rows and the un-pad of the result.
 :func:`patch_attention` is the attention itself, ``softmax(q k^T / sqrt(d))
-v`` over ``[patches, heads, k, d]`` in f32: ``F.scaled_dot_product_attention``,
-on a card restricted to its memory-efficient backend (f32 operands,
-``OpMultiplyAddFastF32``: three TF32 products per f32 product), which never
-forms the ``k x k`` scores; no other backend is taken.  Each call counts
-``launch.patch_attention``.
+v`` over ``[patches, heads, k, d]`` in f32, with its own backward
+(:func:`patch_attention_backward`, from the output and the rows' log-sum-exp).
+A CUDA tensor runs the hand-written kernels of ``csrc/patch_attention.cu``
+(split-TF32 products, f32 softmax, the ``k x k`` scores never stored, sums in
+an order the shape fixes), compiled for ``d = 16`` only; a CPU tensor runs the
+plain versions, :func:`patch_attention_plain` and
+:func:`patch_attention_backward_plain`: explicit products and softmax over
+blocks of patches, the backward written out as the kernels compute it.  Each
+call of :func:`patch_attention` counts ``launch.patch_attention``, on either
+device; each kernel launch on a card counts ``launch.attn_fwd`` (one a
+forward) or ``launch.attn_bwd`` (two a backward: dq, then dk and dv).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import ctypes
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.utils import profiling
+
+HEAD_DIM = 16  # the head dimension the kernels are compiled for (C / heads in every PTv3 stage)
+PLAIN_SCORES = 1 << 24  # scores a block of the plain versions holds at once
 
 
 class PatchLayout(NamedTuple):
@@ -135,13 +146,123 @@ def from_slots(slots: torch.Tensor, idx: OrderIndex) -> torch.Tensor:
     return _Gather.apply(slots, idx.unpad, idx.own_row)
 
 
+def check_kernel_operands(q: torch.Tensor, *rest: torch.Tensor) -> None:
+    """What the kernels take: ``q`` and each of ``rest`` (k, v, o, dO) contiguous
+    f32 ``[P, H, K, 16]`` of one shape on q's device, 16-byte aligned.
+    Raises ``ValueError`` otherwise: there is no fallback."""
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the attention kernels take q, k, v [P, H, K, {HEAD_DIM}], got {tuple(q.shape)}")
+    for x in (q,) + rest:
+        if x.shape != q.shape or x.dtype != torch.float32 or x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"contiguous f32 {tuple(q.shape)} on {q.device} expected, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if x.data_ptr() % 16:
+            raise ValueError("the attention kernels read 16-byte slices: operands must be 16-byte aligned")
+
+
+def _blocks(q: torch.Tensor):
+    """Slices of the patch dimension holding at most :data:`PLAIN_SCORES` scores."""
+    p, h, kk, _ = q.shape
+    step = max(1, PLAIN_SCORES // max(1, h * kk * kk))
+    return [slice(s, s + step) for s in range(0, p, step)]
+
+
+def patch_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward: ``(o, lse)``, ``o = softmax(s) v`` and
+    ``lse = logsumexp(s)`` over ``s = q k^T * d**-0.5``, per block of patches."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = torch.empty_like(q), q.new_empty(q.shape[:-1])
+    for b in _blocks(q):
+        s = (q[b] @ k[b].transpose(-2, -1)) * scale
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        den = e.sum(-1, keepdim=True)
+        o[b] = (e @ v[b]) / den
+        lse[b] = (m + torch.log(den)).squeeze(-1)
+    return o, lse
+
+
+def patch_attention_backward_plain(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward, as the kernels compute it: ``D =
+    rowsum(dO o)``, ``P = exp(s - lse)``, ``dS = P (dO v^T - D)``, then ``dq =
+    dS k * scale``, ``dk = dS^T q * scale``, ``dv = P^T dO``."""
+    scale = q.shape[-1] ** -0.5
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = (do * o).sum(-1, keepdim=True)
+    for b in _blocks(q):
+        p = torch.exp((q[b] @ k[b].transpose(-2, -1)) * scale - lse[b][..., None])
+        ds = p * (do[b] @ v[b].transpose(-2, -1) - dvec[b])
+        dq[b] = (ds @ k[b]) * scale
+        dk[b] = (ds.transpose(-2, -1) @ q[b]) * scale
+        dv[b] = p.transpose(-2, -1) @ do[b]
+    return dq, dk, dv
+
+
+def patch_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of q, k, v f32 ``[P, H, K, d]``: the output and each row's
+    log-sum-exp of its scaled scores ``[P, H, K]``."""
+    if q.device.type == "cpu":
+        return patch_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"patch attention runs on CPU or CUDA tensors, got {q.device}")
+    check_kernel_operands(q, k, v)
+    p, h, kk, d = q.shape
+    o, lse = torch.empty_like(q), q.new_empty((p, h, kk))
+    fn = kernels_build.function("patch_attention", "lidal_attn_fwd",
+                                [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), p * h, kk, d**-0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    kernels_build.check(err, "patch attention forward")
+    if q.numel():  # an empty call launches nothing
+        profiling.count("launch.attn_fwd")
+    return o, lse
+
+
+def patch_attention_backward(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of the attention from its inputs, its output ``o``, the
+    rows' log-sum-exp ``lse`` and the output's gradient ``do``.  On a card two
+    launches (dq, then dk and dv), bit-equal on reruns: no float atomics."""
+    if q.device.type == "cpu":
+        return patch_attention_backward_plain(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"patch attention runs on CPU or CUDA tensors, got {q.device}")
+    check_kernel_operands(q, k, v, o, do)
+    p, h, kk, d = q.shape
+    if lse.shape != (p, h, kk) or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 {(p, h, kk)} on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dvec = torch.empty_like(lse)
+    fn = kernels_build.function("patch_attention", "lidal_attn_bwd",
+                                [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(), p * h, kk, d**-0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    kernels_build.check(err, "patch attention backward")
+    if q.numel():
+        profiling.count("launch.attn_bwd", 2)
+    return dq, dk, dv
+
+
+class _PatchAttention(torch.autograd.Function):
+    """The forward keeps ``o`` and ``lse``; the backward calls
+    :func:`patch_attention_backward` through the module, where a wrapper may
+    replace it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = patch_attention_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return patch_attention_backward(*ctx.saved_tensors, do.contiguous())
+
+
 def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``softmax(q k^T * d**-0.5) v`` per patch and head: q, k, v f32 [P, H, K, d]
-    -> [P, H, K, d]."""
+    -> [P, H, K, d], differentiable in all three."""
     profiling.count("launch.patch_attention")
-    if q.device.type == "cuda":
-        from torch.nn.attention import SDPBackend, sdpa_kernel
-
-        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            return F.scaled_dot_product_attention(q, k, v)
-    return F.scaled_dot_product_attention(q, k, v)
+    return _PatchAttention.apply(q, k, v)

@@ -16,7 +16,8 @@ larger of the leaf's and the median leaf's (2.5e-3 read: Adam's first steps
 are sign-like and amplify rounding));
 ``run_train`` runs with ``model_name="PTv3"``; a fused round reaches a
 selection; the spans and counters are recorded and the counters equal the
-patch arithmetic.  On a card (``-m cuda``): the 125-tap conv's forward and
+patch arithmetic (one attention call a block; on the CPU no kernel launch
+is counted, under a backward neither).  On a card (``-m cuda``): the 125-tap conv's forward and
 backward against the plain versions.
 
 This module imports no JAX at import time (the card runs its ``cuda`` test
@@ -272,6 +273,11 @@ def test_spans_and_counters_equal_the_patch_arithmetic(frames_dir, few_threads):
         pads += per_level[l] * (padded - sum(n))
     assert counters["ptv3.patches"] == patches and counters["ptv3.pad_tokens"] == pads
     assert counters["launch.patch_attention"] == sum(per_level)
+    kernels = ("launch.attn_fwd", "launch.attn_bwd")  # kernel launches: none on the CPU
+    assert not any(n in counters for n in kernels)
+    forward_batch(model, tb)[0].sum().backward()  # the plain backward of every block's attention
+    counters = profiling.stats()["counters"]
+    assert counters["launch.patch_attention"] == 2 * sum(per_level) and not any(n in counters for n in kernels)
 
 
 def test_run_train_takes_ptv3(frames_dir, tmp_path, few_threads):
