@@ -218,9 +218,9 @@ ranks on one GPU.  Any failed group or rank fails the run.
     selections identical to phase 12's, ``nn_band`` launched once a frame.
 
 Phase 30 drives the bf16 route (``ops/conv.bf16_route``, the command line's
-``--bf16_route``: ``ops/conv.BF16_OPERANDS`` and
-``ops/cuda_gather8.SCATTER8_BF16``, the counterparts of the JAX package's
-``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``: operands staged in
+``--bf16_route``: ``ops/conv.BF16_OPERANDS``, the counterpart of the JAX
+package's ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD`` set
+together: operands staged in
 bf16, sums in f32) at full width with the seeded weights, batches and caps of
 phases 5, 8, 12, 16-18 and 25-29; every earlier phase runs on the f32 route,
 the default, as before.  Its parts run beside the phase whose model or tree
@@ -2962,10 +2962,10 @@ F32_KERNELS = ("subm_conv", "conv_dx_dw", "gather8", "scatter8", "child_sum")  #
 
 
 def bf16_route(on: bool = True):
-    """``ops/conv.bf16_route(on)``: within, ``ops/conv.BF16_OPERANDS`` and
-    ``ops/cuda_gather8.SCATTER8_BF16`` (the counterparts of the JAX package's
-    ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``) set to ``on``;
-    both restored after."""
+    """``ops/conv.bf16_route(on)``: within, ``ops/conv.BF16_OPERANDS`` (the
+    counterpart of the JAX package's ``conv.USE_PALLAS`` and
+    ``pallas_gather8.USE_PALLAS_BWD`` set together) set to ``on``; restored
+    after."""
     from lidal_tpu_torch.ops import conv
 
     return conv.bf16_route(on)
@@ -3649,7 +3649,7 @@ def experiment_phase(cfg, root, dev):
     and supervoxels; round 0 labels phase 12's round-1 frames, every third),
     EXPERIMENT_STEPS train steps a round, eval on, with ``--bf16_route`` and
     without it: seconds of each, the route run's launches (no f32 kernel)
-    and the f32 run's (no bf16 kernel), both switches off after each; per
+    and the f32 run's (no bf16 kernel), the switch off after each; per
     round the supervoxels each run labels and pseudo-labels, and their
     overlap |A n B| / |A u B| (recorded, not gated: from round 2 on the two
     runs train on different labels).  The selection budget is 1 % of the
@@ -3658,7 +3658,7 @@ def experiment_phase(cfg, root, dev):
     Returns the route run's launches."""
     from lidal_tpu_torch import config
     from lidal_tpu_torch.cli import __main__ as cli
-    from lidal_tpu_torch.ops import conv, cuda_gather8
+    from lidal_tpu_torch.ops import conv
     from lidal_tpu_torch.runtime.paths import Paths
 
     src = os.path.join(root, "Processing_fused")  # phase 12's fused tree
@@ -3688,7 +3688,7 @@ def experiment_phase(cfg, root, dev):
             t0 = time.perf_counter()
             require(cli.main(argv) == 0, f"run-experiment ({tag}) failed")
             seconds = time.perf_counter() - t0
-            require(not conv.BF16_OPERANDS and not cuda_gather8.SCATTER8_BF16, "the route's switches stayed on")
+            require(not conv.BF16_OPERANDS, "the route's switch stayed on")
             if route:
                 launches = read_route_launches(("lookup_sorted", "conv_gather_first", "conv_dx_dw_fused", "nn_band"))
             else:

@@ -15,9 +15,9 @@
 //
 // The TPU kernels turn all of this into matrix products with one-hot blocks
 // over a band of the sorted map, in bf16.  None of that carries over: an SM
-// gathers rows directly, in f32.  The bf16 route (ops/conv.BF16_OPERANDS and
-// ops/cuda_gather8.SCATTER8_BF16, the counterparts of lidal_tpu/ops/conv.py:
-// USE_PALLAS and pallas_gather8.py:USE_PALLAS_BWD) rounds what the TPU
+// gathers rows directly, in f32.  The bf16 route (ops/conv.BF16_OPERANDS, the
+// counterpart of lidal_tpu/ops/conv.py:USE_PALLAS and
+// pallas_gather8.py:USE_PALLAS_BWD set together) rounds what the TPU
 // kernels round: gather8 reads its table as bf16 (pallas_gather8.py:139; the
 // one-hot product of :105-106 is exact, w8 stays f32), every level of the
 // child-sum chain reads the level below as bf16 (each gather8_pallas call

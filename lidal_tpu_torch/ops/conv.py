@@ -38,7 +38,9 @@ table (``ops/devoxelize.py``).  Activations between layers stay f32.  A
 shape that a bf16 kernel does not take raises: the route never falls back
 to the f32 kernels.  :func:`bf16_route` is how the package's own code (the
 command line's ``--bf16_route``) turns the route on: it sets this switch and
-``cuda_gather8.SCATTER8_BF16`` together and restores both.
+restores it.  It is the route's one switch, forward and backward, also for
+SPVCNN's point transfers: the kernel wrappers read no switch, the route is
+passed down to them as an argument.
 """
 
 from __future__ import annotations
@@ -47,11 +49,11 @@ import contextlib
 
 import torch
 
-from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused, cuda_gather8
+from lidal_tpu_torch.ops import cuda_conv, cuda_conv_bf16, cuda_conv_dxdw, cuda_conv_dxdw_fused
 
 # The bf16 route (operands rounded to bf16, f32 sums): the counterpart of
-# lidal_tpu/ops/conv.py:USE_PALLAS.  A forward takes the route it finds here,
-# and its backward the same.
+# lidal_tpu/ops/conv.py:USE_PALLAS and pallas_gather8.USE_PALLAS_BWD set
+# together.  A forward takes the route it finds here, and its backward the same.
 BF16_OPERANDS: bool = False
 
 
@@ -59,17 +61,15 @@ BF16_OPERANDS: bool = False
 def bf16_route(on: bool = True):
     """Within: the bf16 route on (or off, with ``on=False``) for every conv and
     for SPVCNN's point transfers and their backward: :data:`BF16_OPERANDS`
-    and ``cuda_gather8.SCATTER8_BF16``, the counterparts of the JAX package's
-    ``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD``, both set to
-    ``on``.  On exit, also after an exception, both get back the values they
-    had before, so the context nests."""
+    set to ``on``.  On exit, also after an exception, it gets back the value
+    it had before, so the context nests."""
     global BF16_OPERANDS
-    before = BF16_OPERANDS, cuda_gather8.SCATTER8_BF16
-    BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = bool(on)
+    before = BF16_OPERANDS
+    BF16_OPERANDS = bool(on)
     try:
         yield
     finally:
-        BF16_OPERANDS, cuda_gather8.SCATTER8_BF16 = before
+        BF16_OPERANDS = before
 
 
 def _flatten_nbr(nbr: torch.Tensor, cap_src: int) -> torch.Tensor:

@@ -23,19 +23,22 @@ not fixed, so the two agree within a tolerance scaled by ``sum |w8| |dy|`` per
 target.  ``child_sum`` is bit-equal to :func:`child_sum_plain`, the levels
 run one after another.
 
-The bf16 route rounds what the TPU kernels round: ``bf16_table=True`` reads
-``feats`` as bf16 (``pallas_gather8.py:139``; ``w8`` stays f32, the one-hot
-of ``:105-106`` is exact), which ``ops/devoxelize.py`` asks for under
-``ops/conv.BF16_OPERANDS`` as the JAX package's ``devoxelize.py:126-133``
-does under ``conv.USE_PALLAS``; ``bf16=True`` of :func:`child_sum` reads the
-points and each level's sums as bf16, as the JAX chain casts the table of
-each of its ``gather8_pallas`` calls; ``bf16=True`` of :func:`scatter8`
-reads ``dy`` as bf16 and rounds ``w8`` to bf16 (``:314`` and the weighted
-one-hot of ``:284``), which the backward of :func:`gather8` asks for under
-:data:`SCATTER8_BF16`, the counterpart of ``pallas_gather8.USE_PALLAS_BWD``.
-The kernels take the f32 rows and round each value in registers, which gives
-the bits of a cast without a bf16 copy; the products and sums stay f32 in the
-same order, and the plain versions round the same operands.
+The bf16 route rounds what the TPU kernels round.  Every wrapper takes the
+route as an argument and reads no switch of its own: ``ops/devoxelize.py``
+passes ``ops/conv.BF16_OPERANDS``, the route's one switch (the JAX package's
+``conv.USE_PALLAS`` and ``pallas_gather8.USE_PALLAS_BWD`` set together).
+``bf16_table=True`` of :func:`gather8_forward` reads ``feats`` as bf16
+(``pallas_gather8.py:139``; ``w8`` stays f32, the one-hot of ``:105-106`` is
+exact), as the JAX package's ``devoxelize.py:126-133`` does under
+``conv.USE_PALLAS``; ``bf16=True`` of :func:`child_sum` reads the points and
+each level's sums as bf16, as the JAX chain casts the table of each of its
+``gather8_pallas`` calls; ``bf16=True`` of :func:`scatter8` reads ``dy`` as
+bf16 and rounds ``w8`` to bf16 (``:314`` and the weighted one-hot of
+``:284``).  ``bf16=True`` of :func:`gather8` asks for both: the bf16 table
+forward and the bf16 ``scatter8`` backward.  The kernels take the f32 rows
+and round each value in registers, which gives the bits of a cast without a
+bf16 copy; the products and sums stay f32 in the same order, and the plain
+versions round the same operands.
 """
 
 from __future__ import annotations
@@ -49,10 +52,6 @@ from lidal_tpu_torch import kernels_build
 from lidal_tpu_torch.utils import profiling
 
 TAPS = 8
-
-# The backward of :func:`gather8` reads dy as bf16 and rounds w8 to bf16: the
-# counterpart of lidal_tpu/ops/pallas_gather8.py:USE_PALLAS_BWD (off: f32).
-SCATTER8_BF16: bool = False
 
 _MAX_SCATTER_C = 1024  # a warp covers a row in at most 8 float4 slices a lane
 _MAX_CHAIN_C = 512  # the chain's warp keeps a row in at most 4 float4 slices a lane
@@ -314,22 +313,23 @@ class _Gather8(torch.autograd.Function):
     """``gather8_forward`` with ``scatter8`` as its backward.  The map and its
     weights are plan data, never parameters: both get no gradient (the JAX
     package's ``custom_vjp`` returns a zero weight cotangent by contract).
-    The backward's route is :data:`SCATTER8_BF16` as the forward found it."""
+    The backward takes the forward's route."""
 
     @staticmethod
-    def forward(ctx, feats, nbr, w8, bf16_table: bool):
+    def forward(ctx, feats, nbr, w8, bf16: bool):
         ctx.save_for_backward(nbr, w8)
         ctx.n = feats.shape[0]
-        ctx.bf16_dy = SCATTER8_BF16
-        return gather8_forward(feats.contiguous(), nbr, w8, bf16_table)
+        ctx.bf16 = bf16
+        return gather8_forward(feats.contiguous(), nbr, w8, bf16)
 
     @staticmethod
     def backward(ctx, dy):
         nbr, w8 = ctx.saved_tensors
-        return scatter8(dy.contiguous(), nbr, w8, ctx.n, ctx.bf16_dy), None, None, None
+        return scatter8(dy.contiguous(), nbr, w8, ctx.n, ctx.bf16), None, None, None
 
 
-def gather8(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16_table: bool = False) -> torch.Tensor:
+def gather8(feats: torch.Tensor, nbr: torch.Tensor, w8: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Differentiable :func:`gather8_forward`: d/dfeats is :func:`scatter8`;
-    ``nbr`` and ``w8`` get ``None``."""
-    return _Gather8.apply(feats, nbr, w8, bf16_table)
+    ``nbr`` and ``w8`` get ``None``.  ``bf16`` is the route of both: the
+    forward's ``bf16_table`` and the backward's ``bf16``."""
+    return _Gather8.apply(feats, nbr, w8, bf16)

@@ -40,8 +40,7 @@ seed 0).  It prints the card's name and power limit, then
   ``build_transpose``); where ROOT has ``transpose_map``, also its ms on maps
   whose every pair names one target (segments of 2^16, 2^18 and 2^20 ids);
 * ``gather8``, the point transfers of SPVCNN on both routes (f32, and the
-  bf16 route of ``ops/conv.BF16_OPERANDS`` and
-  ``cuda_gather8.SCATTER8_BF16``): the ms of each ``devoxelize_trilinear_batched``
+  bf16 route of ``ops/conv.BF16_OPERANDS``): the ms of each ``devoxelize_trilinear_batched``
   and ``point_to_voxel_avg_batched`` call of one B = 4 eval forward (seed 0)
   as the model makes it, and of each call of the ``gather8_forward`` /
   ``child_sum`` wrappers inside them (ROOT's ``child_sum`` where it has one);
@@ -86,7 +85,6 @@ seed 0).  It prints the card's name and power limit, then
 
 from __future__ import annotations
 
-import contextlib
 import os
 import subprocess
 import sys
@@ -402,16 +400,11 @@ def scatter8_shapes(cs, dev) -> None:
                   f"torch.sort + searchsorted {cs.cuda_ms(lambda: cuda_gather8.build_transpose(nbr, 1), reps=3):.4f} ms")
 
 
-@contextlib.contextmanager
 def _route(on: bool):
-    """The bf16 route's two switches, set and restored."""
-    from lidal_tpu_torch.ops import conv, cuda_gather8
+    """ROOT's ``ops/conv.bf16_route(on)``: the route's switch set, and restored after."""
+    from lidal_tpu_torch.ops import conv
 
-    conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = on
-    try:
-        yield
-    finally:
-        conv.BF16_OPERANDS = cuda_gather8.SCATTER8_BF16 = False
+    return conv.bf16_route(on)
 
 
 def _spvcnn_eval_batch(cs, dev):

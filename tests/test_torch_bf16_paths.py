@@ -56,50 +56,35 @@ MODELS = ("Mink", "SPVCNN")
 WORLD = 2
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as in the ranks (the CPU convs split sums over
-    threads), and so that the full-width models of the command-line tests
-    on tiny frames do not fight the suite's other workers for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 # ---- the switch -----------------------------------------------------------------------------------
 
 
-def _switches():
-    return conv.BF16_OPERANDS, cuda_gather8.SCATTER8_BF16
-
-
 def test_bf16_route_sets_both_switches_and_restores_them():
-    """Both switches together, back to what they were on exit, also after
-    an exception and when nested (``on=False`` inside the route turns it off
-    for its block alone)."""
-    assert _switches() == (False, False)
+    """The route's one switch (which stands for both of the JAX package's
+    flags), back to what it was on exit, also after an exception and when
+    nested (``on=False`` inside the route turns it off for its block alone)."""
+    assert conv.BF16_OPERANDS is False
     with conv.bf16_route():
-        assert _switches() == (True, True)
+        assert conv.BF16_OPERANDS is True
         with conv.bf16_route(False):
-            assert _switches() == (False, False)
-        assert _switches() == (True, True)
+            assert conv.BF16_OPERANDS is False
+        assert conv.BF16_OPERANDS is True
         with conv.bf16_route(True):
-            assert _switches() == (True, True)
-        assert _switches() == (True, True)
-    assert _switches() == (False, False)
+            assert conv.BF16_OPERANDS is True
+        assert conv.BF16_OPERANDS is True
+    assert conv.BF16_OPERANDS is False
     with pytest.raises(RuntimeError, match="inside"):
         with conv.bf16_route():
             with conv.bf16_route(False):
                 raise RuntimeError("inside")
-    assert _switches() == (False, False)
+    assert conv.BF16_OPERANDS is False
     with pytest.raises(RuntimeError, match="inside"):
         with conv.bf16_route():
             raise RuntimeError("inside")
-    assert _switches() == (False, False)
+    assert conv.BF16_OPERANDS is False
     with conv.bf16_route(False):
-        assert _switches() == (False, False)
-    assert _switches() == (False, False)
+        assert conv.BF16_OPERANDS is False
+    assert conv.BF16_OPERANDS is False
 
 
 # ---- every wrapper call on a path, by route --------------------------------------------------------
@@ -153,10 +138,10 @@ def wrapper_calls(route: bool):
 
 def _main(argv, route):
     """``cli.main(argv)`` (plus ``--bf16_route`` when ``route``), its wrapper
-    calls; both switches are off again after it."""
+    calls; the switch is off again after it."""
     with wrapper_calls(route) as calls:
         assert cli.main(argv + (["--bf16_route"] if route else [])) == 0
-    assert _switches() == (False, False)
+    assert conv.BF16_OPERANDS is False
     return dict(calls)
 
 
@@ -178,7 +163,7 @@ def test_cli_sk_commands_on_the_route_and_off_it(tmp_path, monkeypatch):
     ``--bf16_route`` call only the bf16 wrappers, and without it only the
     f32 ones; without the flag the trained weights are bit-equal to
     ``run_train``'s on the same tree (the f32 route), with it they differ and
-    so do the prob maps; both switches are off after every command, also
+    so do the prob maps; the switch is off after every command, also
     after one that raised."""
     base = tmp_path / "base"
     make_mini_sk(str(base), seqs=("00",), frames_per_seq=SK_FRAMES, points=200)
@@ -195,9 +180,9 @@ def test_cli_sk_commands_on_the_route_and_off_it(tmp_path, monkeypatch):
     results = {}
     for route in (False, True):
         monkeypatch.chdir(tmp_path / ("bf16" if route else "f32"))
-        with pytest.raises(FileNotFoundError):  # no checkpoint yet: the command raises, the switches are restored
+        with pytest.raises(FileNotFoundError):  # no checkpoint yet: the command raises, the switch is restored
             _main(["evaluate"] + _sk_common(0), route)
-        assert _switches() == (False, False)
+        assert conv.BF16_OPERANDS is False
         calls = {cmd: _main([cmd] + (["--max_iter", "1"] if cmd == "train" else []) + _sk_common(0), route)
                  for cmd in ("train", "prob-inference", "evaluate")}
         calls["score"] = _main(["score"] + _sk_common(1), route)
@@ -390,13 +375,12 @@ def _route_rank_main(rank, init_file, root):
     model (2 steps on this rank's frame), eval of 10 frames in global
     batches of 4, and the fused round of each model over the group;
     results under ``root``."""
-    torch.set_num_threads(1)
-    out = {"inherited": _switches()}  # a spawned process starts from the modules' defaults
+    out = {"inherited": conv.BF16_OPERANDS}  # a spawned process starts from the modules' defaults
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=WORLD)
     group = dist.group.WORLD
     try:
         with wrapper_calls(True) as calls, conv.bf16_route():
-            out["switches"] = _switches()
+            out["switch"] = conv.BF16_OPERANDS
             for name in MODELS:
                 out[f"step_{name}"] = _route_step(name, par._train_batch(name, slice(rank, rank + 1)), group)
             res = evaluate.run_eval(par._cfg(root), par._round_model(), par._loader(10, 4, 3), "cpu",
@@ -441,7 +425,7 @@ def test_spawned_ranks_turn_the_route_on_themselves(route_ranks):
     ``bf16_route``, and its model calls ran on the bf16 wrappers alone."""
     _, ranks = route_ranks
     for r in ranks:
-        assert r["inherited"] == (False, False) and r["switches"] == (True, True)
+        assert r["inherited"] is False and r["switch"] is True
         calls = r["calls"]
         assert calls["conv_gather_first"] > 0 and calls["conv_dx_dw_fused"] > 0, calls
         assert calls["gather8_forward"] > 0 and calls["child_sum"] > 0 and calls["scatter8"] > 0, calls

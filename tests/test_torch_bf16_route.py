@@ -1,5 +1,5 @@
-"""Port parity of the bf16 route (``lidal_tpu_torch/ops/conv.BF16_OPERANDS`` and
-``ops/cuda_gather8.SCATTER8_BF16``) against the route the JAX package takes on
+"""Port parity of the bf16 route (``lidal_tpu_torch/ops/conv.BF16_OPERANDS``,
+the route's one switch) against the route the JAX package takes on
 its TPU (``lidal_tpu/ops/conv.USE_PALLAS`` and
 ``ops/pallas_gather8.USE_PALLAS_BWD``), with the four Pallas kernels in
 interpret mode, as ``tests/test_pallas_kernels.py`` runs them.  On the CPU
@@ -204,7 +204,8 @@ def test_routed_conv_backward_matches_pallas_interpret(plan, kind, cin, cout, ne
 def test_routed_gather8_and_scatter8_match_pallas_interpret(seed, n, m, c, density, integer):
     """``gather8`` with its bf16 table and its backward ``scatter8`` on bf16
     ``dy`` and bf16-rounded ``w8`` against ``gather8_pallas`` / ``scatter8_pallas``
-    through the JAX ``gather8``'s custom VJP."""
+    through the JAX ``gather8``'s custom VJP.  The argument alone picks the
+    route of both, with ``conv.BF16_OPERANDS`` off."""
     rng = np.random.default_rng(seed)
     nbr = _sorted_nbr(rng, m, 8, n, density)
     if integer:
@@ -217,9 +218,8 @@ def test_routed_gather8_and_scatter8_match_pallas_interpret(seed, n, m, c, densi
         out_j, vjp = jax.vjp(lambda f: pg8.gather8(f, jnp.asarray(nbr), jnp.asarray(w8)), jnp.asarray(feats))
         out_j, (df_j,) = np.asarray(out_j), vjp(jnp.asarray(dy))
     ft = torch.from_numpy(feats).requires_grad_(True)
-    with conv.bf16_route():
-        out = cuda_gather8.gather8(ft, torch.from_numpy(nbr), torch.from_numpy(w8), True)
-        out.backward(torch.from_numpy(dy))
+    out = cuda_gather8.gather8(ft, torch.from_numpy(nbr), torch.from_numpy(w8), bf16=True)  # the switch stays off
+    out.backward(torch.from_numpy(dy))
     got, df = out.detach().numpy(), ft.grad.numpy()
     if integer:
         np.testing.assert_array_equal(got, out_j)
@@ -391,7 +391,7 @@ def test_switch_is_off_by_default_and_flipping_it_changes_nothing_else(frames):
     """Off (the default) no bf16 wrapper runs; on, no f32 conv wrapper runs and
     gather8 / scatter8 take their bf16 rows; off again, the outputs are
     bit-equal to those before it was on."""
-    assert conv.BF16_OPERANDS is False and cuda_gather8.SCATTER8_BF16 is False
+    assert conv.BF16_OPERANDS is False
     flags = {"gather8": [], "scatter8": []}
     g8, s8 = cuda_gather8.gather8_forward, cuda_gather8.scatter8
 
@@ -413,6 +413,6 @@ def test_switch_is_off_by_default_and_flipping_it_changes_nothing_else(frames):
         assert all(flags["gather8"]) and all(flags["scatter8"]) and len(flags["scatter8"]) == 2
         with _bf16_wrappers_forbidden():
             after = _spvcnn_step(frames)
-    assert conv.BF16_OPERANDS is False and cuda_gather8.SCATTER8_BF16 is False
+    assert conv.BF16_OPERANDS is False
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert not torch.equal(on[0], before[0])  # the route changed the numbers

@@ -26,7 +26,7 @@ from lidal_tpu_torch.runtime import checkpoint as ckpt
 from lidal_tpu_torch.runtime.paths import Paths
 from tests.synth import make_mini_sk
 from tests.test_torch_nu_round import FRAMES as NU_FRAMES, N_CLASSES as NU_CLASSES, prepared  # noqa: F401
-from tests.test_torch_nuscenes import SCENES, one_thread  # noqa: F401  (fixture)
+from tests.test_torch_nuscenes import SCENES
 from tests.test_torch_prep_native import native_build_dir  # noqa: F401  (fixture of `prepared`)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,7 +94,7 @@ def test_unported_subcommands_say_which_item_they_wait_for(tmp_path, monkeypatch
         cli.main(["prep", "--stage", "nope"])
 
 
-def test_cli_frame_level_round_on_the_cpu(tmp_path, monkeypatch, one_thread):  # noqa: F811
+def test_cli_frame_level_round_on_the_cpu(tmp_path, monkeypatch):
     d = str(tmp_path)
     make_mini_sk(d, seqs=("00",), frames_per_seq=FRAMES, points=200)
     monkeypatch.chdir(d)
@@ -123,7 +123,6 @@ def test_cli_frame_level_round_on_the_cpu(tmp_path, monkeypatch, one_thread):  #
     # the selection itself through ``python -m``, as a user runs it
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
-    env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run([sys.executable, "-m", "lidal_tpu_torch.cli", "score", "--r_id", "1"] + common,
                          cwd=d, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -144,7 +143,7 @@ def test_cli_frame_level_round_on_the_cpu(tmp_path, monkeypatch, one_thread):  #
     assert os.path.exists(ckpt.ckpt_path(paths[1].ckpt_dir()))
 
 
-def test_cli_nu_round_on_the_cpu(prepared, tmp_path, monkeypatch, one_thread):  # noqa: F811
+def test_cli_nu_round_on_the_cpu(prepared, tmp_path, monkeypatch):
     """``python -m lidal_tpu_torch.cli`` with ``--dataset_name NU`` over the
     default ``nuScenes`` root, its ``splits.json`` training on the first scene
     and validating on the second: every prep stage, then train (r0) ->

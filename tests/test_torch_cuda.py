@@ -1092,11 +1092,10 @@ def test_child_sum_kernel_on_a_spvcnn_plan(card, bf16, monkeypatch):
 
 @pytest.mark.cuda
 def test_bf16_route_launches_no_f32_kernel(card, monkeypatch):
-    """Under ``conv.BF16_OPERANDS`` and ``cuda_gather8.SCATTER8_BF16`` an eval
+    """Under ``conv.BF16_OPERANDS`` an eval
     forward of MinkUNet and one SPVCNN train step launch the bf16 kernels
     and none of the f32 conv, backward, gather8, child_sum or scatter8 kernels."""
     monkeypatch.setattr(conv, "BF16_OPERANDS", True)
-    monkeypatch.setattr(cuda_gather8, "SCATTER8_BF16", True)
 
     def counters():
         return launches("subm_conv", "conv_dx_dw", "gather8", "scatter8", "child_sum", "conv_gather_first",

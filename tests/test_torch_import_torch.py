@@ -44,7 +44,6 @@ from lidal_tpu_torch.runtime.weights import minkunet_state_dict_from_jax, spvcnn
 from tests import ts_oracle
 from tests.test_torch_frames import surface_frames, torch_args
 from tests.test_torch_minkunet import NARROW
-from tests.test_torch_nuscenes import one_thread  # noqa: F401  (fixture)
 
 FAMILIES = {
     "Mink": (ts_oracle.random_minkunet_state_dict, import_torch.convert_minkunet_state_dict,
@@ -103,7 +102,7 @@ def test_export_and_convert_round_trip(family):
 
 
 @pytest.mark.parametrize("dataset,family", [("SK", "Mink"), ("NU", "Mink"), ("NU", "SPVCNN")])
-def test_import_torch_command_restores_step_and_fresh_adam(tmp_path, dataset, family, one_thread):  # noqa: F811
+def test_import_torch_command_restores_step_and_fresh_adam(tmp_path, dataset, family):
     cfg = config.RunConfig(dataset_name=dataset, model_name=family, checkpoint_root=str(tmp_path / "ckpt"))
     sd = _reference_sd(family, 4, cfg.data.num_classes)
     path = str(tmp_path / "current.pt")
@@ -134,7 +133,7 @@ def _to_jax(x):
 
 
 @pytest.mark.parametrize("family", ["Mink", "SPVCNN"])
-def test_narrow_logits_through_a_current_pt_match_jax(tmp_path, family, one_thread):  # noqa: F811
+def test_narrow_logits_through_a_current_pt_match_jax(tmp_path, family):
     _, _, export, _, _, cls = FAMILIES[family]
     spvcnn = family == "SPVCNN"
     torch.manual_seed(5)

@@ -38,7 +38,7 @@ from lidal_tpu_torch.prep.grid import load_grid_points, prepare_nu_grids
 from lidal_tpu_torch.runtime.paths import Paths
 from lidal_tpu_torch.runtime.prob_inference import run_prob_inference
 from tests.test_torch_minkunet import NARROW
-from tests.test_torch_nuscenes import SCENES, make_nu_tree, nu_cfgs, one_thread  # noqa: F401  (fixture)
+from tests.test_torch_nuscenes import SCENES, make_nu_tree, nu_cfgs
 from tests.test_torch_prep_native import native_build_dir  # noqa: F401  (fixture)
 from tests.test_torch_round import port_cfg
 
@@ -150,7 +150,7 @@ def gridded(prepared, tmp_path_factory):
     return jcfg
 
 
-def test_nu_staged_round_flags_equal_jax(gridded, tmp_path, one_thread):  # noqa: F811
+def test_nu_staged_round_flags_equal_jax(gridded, tmp_path):
     """Round 1 scored from the same prob npys by both packages: identical
     ``sv_flag`` files, selections and supervoxel statistics."""
     rng = np.random.default_rng(2)
@@ -177,7 +177,7 @@ def test_nu_staged_round_flags_equal_jax(gridded, tmp_path, one_thread):  # noqa
         assert flags_p[k].dtype == flags_j[k].dtype
 
 
-def test_nu_fused_round_matches_staged(gridded, tmp_path, one_thread):  # noqa: F811
+def test_nu_fused_round_matches_staged(gridded, tmp_path):
     """One pass of inference feeding the ring == inference to npy files, then
     scoring from them, with the frames enumerated as the commands enumerate
     them (manifest order, ids (scene, token)): prob / pred npys, flags and

@@ -92,16 +92,6 @@ def assert_entries_equal(got, want):
                 assert a[k] == b[k], k
 
 
-@pytest.fixture
-def one_thread():
-    """A model on tiny frames is hundreds of small ops: with one intra-op
-    thread they do not fight the suite's other workers for the cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
 @pytest.fixture(scope="module")
 def small_tree(tmp_path_factory):
     return make_nu_tree(str(tmp_path_factory.mktemp("nu_small")), samples=4, points=300)
@@ -255,7 +245,7 @@ def test_nu_train_lists_and_batches_match_jax(list_tree, r_id, label_unit, metri
         assert (labels != plain).any()
 
 
-def test_nu_train_step_matches_jax(small_tree, one_thread):
+def test_nu_train_step_matches_jax(small_tree):
     """One narrow NU step (16 classes) on the first batch of the NU loader.
     The JAX model gets the port's batch (``prepare_train_batch`` is held
     bit-equal in ``test_torch_train.py``) and the port's seeded weights
@@ -293,7 +283,7 @@ def test_nu_train_step_matches_jax(small_tree, one_thread):
     assert all(float(p.grad.abs().max()) > 0 for n, p in named.items() if n.endswith("kernel"))
 
 
-def test_nu_scoring_rounds_score_only_the_scenes_named(small_tree, tmp_path, one_thread):
+def test_nu_scoring_rounds_score_only_the_scenes_named(small_tree, tmp_path):
     """``NU_CONFIG.train_split`` is empty in both packages, and the scoring
     runners read their split from it unless the caller names the scenes: a NU
     round then scores no scene and selects nothing, in both alike."""

@@ -278,7 +278,6 @@ def _host_command(rank, root, port):
 
 def _rank_main(rank, init_file, root, port):
     """One rank of the gloo group: every sharded case, results under ``root``."""
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=WORLD)
     group = dist.group.WORLD
     out = {}
@@ -363,17 +362,6 @@ def _state_dict_from_jax(name, jstate):
 
     conv = spvcnn_state_dict_from_jax if name == "SPVCNN" else minkunet_state_dict_from_jax
     return conv({"params": jstate.params, "batch_stats": jstate.batch_stats})
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as in the ranks: CPU sums split over threads in
-    another order (the bit-equal cases), and the suite's workers run side by
-    side with the ranks."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -58,15 +58,11 @@ CFG = {"num_classes": 19, "in_channels": 4, "scale": 20.0, "full_scale": 8192, "
 
 
 @pytest.fixture
-def few_threads(monkeypatch):
-    """Two threads, and patches of at most 128 tokens on both sides (the
-    frames' smallest counts still set the coarse levels' patches)."""
+def small_patches(monkeypatch):
+    """Patches of at most 128 tokens on both sides (the frames' smallest
+    counts still set the coarse levels' patches)."""
     monkeypatch.setattr(ptv3, "PATCH", 128)
     monkeypatch.setattr(rptv3, "PATCH", 128)
-    before = torch.get_num_threads()
-    torch.set_num_threads(min(before, 2))
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -193,7 +189,7 @@ def test_stem_map_equals_the_reference(frames_dir):
     assert torch.equal(got, want) and len(OFFSETS5) == 125 and nbr5.shape == valid.shape + (125,)
 
 
-def test_forward_gradients_and_adam_steps_match_the_reference(frames_dir, few_threads):
+def test_forward_gradients_and_adam_steps_match_the_reference(frames_dir, small_patches):
     seed = 2**33 + 5
     model = ptv3.PTv3().train()
     with torch.device("meta"):
@@ -236,7 +232,7 @@ def test_forward_gradients_and_adam_steps_match_the_reference(frames_dir, few_th
         assert abs(float((p.detach() - weights[n]).norm()) - ref["delta"][n]) < 1e-2 * max(ref["delta"][n], med), n
 
 
-def test_the_shuffle_and_drop_path_change_the_step_and_eval_ignores_them(frames_dir, few_threads):
+def test_the_shuffle_and_drop_path_change_the_step_and_eval_ignores_them(frames_dir, small_patches):
     torch.manual_seed(0)
     model = ptv3.PTv3().train()
     tb = _port_batch(frames_dir[:2], sample_augment(torch.Generator().manual_seed(2), 2))
@@ -253,7 +249,7 @@ def test_the_shuffle_and_drop_path_change_the_step_and_eval_ignores_them(frames_
     assert torch.equal(e1, e2)
 
 
-def test_spans_and_counters_equal_the_patch_arithmetic(frames_dir, few_threads):
+def test_spans_and_counters_equal_the_patch_arithmetic(frames_dir, small_patches):
     torch.manual_seed(0)
     model = ptv3.PTv3().eval()
     tb = _port_batch(frames_dir[:2], sample_augment(torch.Generator().manual_seed(2), 2))
@@ -280,7 +276,7 @@ def test_spans_and_counters_equal_the_patch_arithmetic(frames_dir, few_threads):
     assert counters["launch.patch_attention"] == 2 * sum(per_level) and not any(n in counters for n in kernels)
 
 
-def test_run_train_takes_ptv3(frames_dir, tmp_path, few_threads):
+def test_run_train_takes_ptv3(frames_dir, tmp_path, small_patches):
     data = DataConfig(name="SK", num_classes=19, batch_size=2, point_cap=POINT_CAP, level_caps=CAPS,
                       train_split=("00",), val_split=())
     cfg = RunConfig(model_name="PTv3", seed=3, data_root=os.path.dirname(os.path.dirname(frames_dir[0])),
@@ -320,7 +316,7 @@ def round_tree(tmp_path_factory):
     return tr, root, jcfg
 
 
-def test_fused_round_with_ptv3_reaches_a_selection(round_tree, tmp_path, few_threads):
+def test_fused_round_with_ptv3_reaches_a_selection(round_tree, tmp_path, small_patches):
     from lidal_tpu_torch.active import lidal_runner
     from lidal_tpu_torch.runtime.paths import Paths
 
