@@ -469,6 +469,16 @@ def read_launches(expected) -> dict:
     return counts
 
 
+def require_row_orders(launches, dx_launches: int, what: str) -> None:
+    """Every f32 conv launch of a MinkUNet or SPVCNN main path walks its map's
+    row order: ``conv.row_order`` counts each ``subm_conv`` launch and each
+    ``conv_dx_dw`` launch with dx (``dx_launches``), and nothing else."""
+    from lidal_tpu_torch.utils import profiling
+
+    got, want = profiling.counter("conv.row_order"), launches["subm_conv"] + dx_launches
+    require(got == want, f"{what}: conv.row_order counted {got}, the f32 launches that walk a map {want}")
+
+
 def conv_close(got, want):
     """(within CONV_TOL * max(1, |plain|) everywhere and finite, max |kernel - plain|)."""
     diff = (got - want).abs()
@@ -524,9 +534,11 @@ def write_sk_tree(root, rng, n_frames):
 
 
 def backward_phase(state, tb):
-    """7: every conv_dx_dw call of one train step against its plain version.
-    Per shape and per step it times the two halves apart (dW alone is the
-    ``need_dx=False`` call on the same arguments, dx the rest), prints the
+    """7: every conv_dx_dw call of one train step against its plain version,
+    called as the main path calls it (dx with its map's row order, each
+    launch of the step counted).  Per shape and per step it times the two
+    halves apart (dW alone is the ``need_dx=False`` call on the same
+    arguments, dx the rest; dx also with the rows as they are), prints the
     real pairs per tap, and times a yardstick: f32 ``torch.mm`` (TF32 off)
     per tap on the real pairs' operands already gathered.  Returns (max
     |kernel - plain|, kernel ms per step, plain ms per step, the step's Bound
@@ -541,49 +553,59 @@ def backward_phase(state, tb):
     captured, calls = {}, {}
     kernel, plain = cuda_conv_dxdw.conv_dx_dw, cuda_conv_dxdw.conv_dx_dw_plain
 
-    def recorder(src, w2, nbr, f, need_dx=True):
+    def recorder(src, w2, nbr, f, need_dx=True, *, order=None):
         key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
         calls[key] = calls.get(key, 0) + 1
         if key not in captured:
-            captured[key] = (src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx))
-        return kernel(src, w2, nbr, f, need_dx)
+            captured[key] = ((src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx)),
+                             None if order is None else order.clone())
+        return kernel(src, w2, nbr, f, need_dx, order=order)
 
     cuda_conv_dxdw.conv_dx_dw = recorder
+    reset_launches()
     try:
         train_step(state, tb)
     finally:
         cuda_conv_dxdw.conv_dx_dw = kernel
+    launches = read_launches(("subm_conv", "conv_dx_dw"))
+    require((launches["subm_conv"], launches["conv_dx_dw"]) == (42, 42),
+            f"a MinkUNet train step launched subm_conv / conv_dx_dw {launches['subm_conv']} / "
+            f"{launches['conv_dx_dw']} times, not 42 / 42")
+    require_row_orders(launches, 41, "[7 backward] a train step")  # the stem's input takes no gradient
+    # the stem's call (no dx) is handed its map's order too; the wrapper drops it, as dW reads none
+    require(all(o is not None for _, o in captured.values()), "a conv_dx_dw call of the step took no row order")
     err = k_total = p_total = 0.0
     least = Bound()  # the whole call at the split-TF32 rate (the kernels' record)
     halves = {h: {"ms": 0.0, "plain": 0.0, "tf32": Bound(), "f32": Bound()} for h in ("dx", "dW")}
-    yard_total = 0.0
+    yard_total = rows_dx = 0.0
     kernel_ms = {}
     for key in sorted(captured):
-        args = captured[key]
+        args, order = captured[key]  # as the main path calls it: with its map's row order where it takes dx
         src, w2, nbr, f, need_dx = args
         k, c_src, c_dst, c_f, m, n, _ = key
         c = calls[key]
-        dx, dwg = kernel(*args)
+        dx, dwg = kernel(*args, order=order)
         real = (nbr >= 0) & (nbr < n)
         per_tap = real.sum(0).tolist()
         # bytes: only the src rows the map names and the f rows with a real tap are read
         pairs, src_bytes = bf16_rows_bytes(nbr, n, 4 * c_src)
         f_bytes = int(real.any(1).sum()) * 4 * c_f
-        b_ms = least.add(src_bytes + f_bytes + nbytes(w2 if need_dx else None, nbr, dx, dwg),
+        b_ms = least.add(src_bytes + f_bytes + nbytes(w2 if need_dx else None, nbr, order, dx, dwg),
                          2.0 * pairs * c_src * ((c_dst if need_dx else 0) + c_f), PEAK_SPLIT_TF32, calls=c)
         h_bound = {}
-        for h, moved, flop in (("dx", src_bytes + nbytes(w2, nbr, dx), c_dst),
+        for h, moved, flop in (("dx", src_bytes + nbytes(w2, nbr, order, dx), c_dst),
                                ("dW", src_bytes + f_bytes + nbytes(nbr, dwg), c_f)):
             if h == "dx" and not need_dx:
                 h_bound[h] = (0.0, 0.0)
                 continue
             h_bound[h] = tuple(halves[h][r].add(moved, 2.0 * pairs * c_src * flop, peak, calls=c)
                                for r, peak in (("tf32", PEAK_SPLIT_TF32), ("f32", PEAK_F32)))
-        _, dwg2 = kernel(*args)
+        dx2, dwg2 = kernel(*args, order=order)
         want = plain(*args)
         ref = plain(src.double(), w2.double(), nbr, f.double(), need_dx)
         bound = plain(src.abs(), w2.abs(), nbr, f.abs(), need_dx)
-        require(torch.equal(dwg, dwg2), f"conv_dx_dw {key}: dwg differs between two runs")
+        require(torch.equal(dwg, dwg2) and (dx is None or torch.equal(dx, dx2)),
+                f"conv_dx_dw {key}: dx or dwg differs between two runs")
         e, notes = 0.0, []
         for name, got, p, r, b in zip(("dx", "dwg"), (dx, dwg), want, ref, bound):
             if got is None:
@@ -598,8 +620,9 @@ def backward_phase(state, tb):
             e = max(e, float(d.max()))
             notes.append(f"{name} from f64 {e_k:.1e} (plain {e_p:.1e})")
         err = max(err, e)
-        k_ms = cuda_ms(lambda: kernel(*args))
+        k_ms = cuda_ms(lambda: kernel(*args, order=order))
         dw_ms = cuda_ms(lambda: kernel(src, w2, nbr, f, False)) if need_dx else k_ms
+        rows_ms = cuda_ms(lambda: kernel(*args)) if need_dx else k_ms  # the rows as they are, for comparison
         p_ms = cuda_ms(lambda: plain(*args), reps=3)
         pdw_ms = cuda_ms(lambda: plain(src, w2, nbr, f, False), reps=3) if need_dx else p_ms
         # the yardstick: the products alone, on operands gathered beforehand
@@ -617,22 +640,25 @@ def backward_phase(state, tb):
         halves["dx"]["ms"] += c * (k_ms - dw_ms)
         halves["dx"]["plain"] += c * (p_ms - pdw_ms)
         yard_total += c * y_ms
+        rows_dx += c * (rows_ms - dw_ms)
         print(f"[7 backward] K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} "
-              f"x{c}: max|d|={e:.2e}, {', '.join(notes)}, dwg bit-equal across runs; "
-              f"kernel {k_ms:.3f} ms (dx {k_ms - dw_ms:.3f}, dW {dw_ms:.3f}; bound split TF32 "
+              f"x{c}: max|d|={e:.2e}, {', '.join(notes)}, dx and dwg bit-equal across runs; "
+              f"kernel {k_ms:.3f} ms (dx {k_ms - dw_ms:.3f} with the row order, {rows_ms - dw_ms:.3f} with the rows "
+              f"as they are; dW {dw_ms:.3f}; bound split TF32 "
               f"{h_bound['dx'][0]:.3f} / {h_bound['dW'][0]:.3f}, f32 {h_bound['dx'][1]:.3f} / {h_bound['dW'][1]:.3f}), "
               f"plain {p_ms:.3f} ms (dW {pdw_ms:.3f}), torch.mm on gathered pairs {y_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms; {pairs} real pairs, per tap {per_tap}")
     dx_h, dw_h = halves["dx"], halves["dW"]
     print(f"[7 backward] {len(captured)} shapes, {sum(calls.values())} calls per train step; per step: "
           f"kernel {k_total:.1f} ms (dx {dx_h['ms']:.1f}, dW {dw_h['ms']:.1f}), plain {p_total:.1f} ms "
-          f"(dx {dx_h['plain']:.1f}, dW {dw_h['plain']:.1f}), bound {least.total:.2f} ms (split TF32, by {least.by})")
+          f"(dx {dx_h['plain']:.1f}, dW {dw_h['plain']:.1f}), bound {least.total:.2f} ms (split TF32, by {least.by}); "
+          f"dx with the rows as they are {rows_dx:.1f} ms")
     for h, v in halves.items():
         print(f"[7 backward] {h} per step: kernel {v['ms']:.2f} ms, plain {v['plain']:.1f} ms, bound split TF32 "
               f"{v['tf32'].total:.3f} ms (by {v['tf32'].by}), f32 FFMA {v['f32'].total:.3f} ms (by {v['f32'].by})")
     print(f"[7 backward] yardstick: f32 torch.mm (TF32 off) per tap on the real pairs' gathered operands "
           f"{yard_total:.2f} ms per step against the dW kernel's {dw_h['ms']:.2f} ms (gathers included)")
-    return err, k_total, p_total, least, captured, calls, kernel_ms
+    return err, k_total, p_total, least, {key: args for key, (args, _) in captured.items()}, calls, kernel_ms
 
 
 def step_split(state, batch, gen, caps, dev, spvcnn=False):
@@ -689,6 +715,8 @@ def train_slice_phase(cfg, dev, caps, tag="8 slice", n_pts=N_PTS):
     launches = read_launches(("lookup_sorted", "subm_conv", "conv_dx_dw") +
                              (("gather8", "child_sum", "scatter8") if spvcnn else ()))
     require(state.step == 1 + TIMED_STEPS, f"run_train took {state.step} steps")
+    # one conv_dx_dw launch a step (the stem's, whose input takes no gradient) has no dx
+    require_row_orders(launches, launches["conv_dx_dw"] - state.step, f"[{tag}] run_train")
     per_step = tuple(launches[k] / state.step for k in ("gather8", "child_sum", "scatter8"))
     require(per_step == ((2, 2, 2) if spvcnn else (0, 0, 0)),
             f"gather8, child_sum and scatter8 launched {per_step} times per step")
@@ -1595,6 +1623,7 @@ def eval_slice_phase(cfg, model, batches, prepare, dev, caps, slice_tag, forward
     end.record()
     torch.cuda.synchronize()
     launches = read_launches(("lookup_sorted", "subm_conv") + (("gather8", "child_sum") if spvcnn else ()))
+    require_row_orders(launches, 0, f"[{slice_tag}] run_eval")
     seconds = start.elapsed_time(end) / 1e3
     require(launches["gather8"] == launches["child_sum"] == (2 * TIMED_BATCHES if spvcnn else 0)
             and launches["scatter8"] == 0,
@@ -2208,8 +2237,10 @@ def lookup_phase(eb) -> dict:
 
 def conv_phase(model, eb):
     """4: the conv kernel against its plain version (and f64) at every shape of
-    one forward of ``model`` on ``eb``.  Returns its record entry's numbers and
-    three real maps for phase 19."""
+    one forward of ``model`` on ``eb``, called as the main path calls it (with
+    its map's row order, each launch of the forward counted); timed also with
+    the rows as they are.  Returns its record entry's numbers and three real
+    maps for phase 19."""
     import torch
 
     from lidal_tpu_torch.ops import cuda_conv
@@ -2217,31 +2248,37 @@ def conv_phase(model, eb):
     captured, calls = {}, {}
     kernel_conv = cuda_conv.subm_conv
 
-    def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
+    def recorder(feats, w, nbr, scale=None, shift=None, relu=False, *, order=None):
         key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
         calls[key] = calls.get(key, 0) + 1
         if key not in captured:
-            captured[key] = (feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu)
-        return kernel_conv(feats, w, nbr, scale, shift, relu)
+            captured[key] = ((feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu),
+                             None if order is None else order.clone())
+        return kernel_conv(feats, w, nbr, scale, shift, relu, order=order)
 
     cuda_conv.subm_conv = recorder
+    reset_launches()
     try:
         with torch.inference_mode():
             model(eb.feats, eb.plan)
     finally:
         cuda_conv.subm_conv = kernel_conv
+    launches = read_launches(("subm_conv",))
+    require(launches["subm_conv"] == 42, f"a MinkUNet forward launched subm_conv {launches['subm_conv']} times, not 42")
+    require_row_orders(launches, 0, "[4 conv] a forward")
+    require(all(o is not None for _, o in captured.values()), "a conv of the forward took no row order")
 
     conv_err = 0.0
-    conv_ms = conv_plain_ms = 0.0
+    conv_ms = conv_rows_ms = conv_plain_ms = 0.0
     conv_bound_f32, conv_bound = Bound(), Bound()  # FFMA at 67 TFLOP/s; split TF32 at 495 / 3
     with torch.inference_mode():
         for key in sorted(captured):
-            args = captured[key]
-            out = cuda_conv.subm_conv(*args)
+            args, order = captured[key]
+            out = cuda_conv.subm_conv(*args, order=order)
             plain = cuda_conv.subm_conv_plain(*args)
             ok, err = conv_close(out, plain)
             require(ok, f"conv {key}: max |kernel - plain| {err}")
-            require(torch.equal(out, cuda_conv.subm_conv(*args)), f"conv {key}: differs between two runs")
+            require(torch.equal(out, cuda_conv.subm_conv(*args, order=order)), f"conv {key}: differs between two runs")
             feats, w, nbr, scale, shift, relu = args
             ref = cuda_conv.subm_conv_plain(feats.double(), w.double(), nbr, scale.double(), shift.double(), relu)
             abs_sum = cuda_conv.subm_conv_plain(feats.abs(), w.abs(), nbr) * scale.abs()
@@ -2251,26 +2288,30 @@ def conv_phase(model, eb):
                     f"conv {key}: {e_k:.2e} from f64 against the plain version's {e_p:.2e}")
             pairs = int((nbr < feats.shape[0]).sum())  # real (row, tap) pairs
             ops = 2.0 * pairs * key[1] * key[2]
-            f32_ms = conv_bound_f32.add(nbytes(*args[:5], out), ops, calls=calls[key])
-            b_ms = conv_bound.add(nbytes(*args[:5], out), ops, PEAK_SPLIT_TF32, calls=calls[key])
+            f32_ms = conv_bound_f32.add(nbytes(*args[:5], order, out), ops, calls=calls[key])
+            b_ms = conv_bound.add(nbytes(*args[:5], order, out), ops, PEAK_SPLIT_TF32, calls=calls[key])
             del out, plain, ref, abs_sum
             conv_err = max(conv_err, err)
-            k_ms = cuda_ms(lambda: cuda_conv.subm_conv(*args))
+            k_ms = cuda_ms(lambda: cuda_conv.subm_conv(*args, order=order))
+            r_ms = cuda_ms(lambda: cuda_conv.subm_conv(*args))  # the rows as they are, for comparison
             p_ms = cuda_ms(lambda: cuda_conv.subm_conv_plain(*args), reps=3)
             conv_ms += calls[key] * k_ms
+            conv_rows_ms += calls[key] * r_ms
             conv_plain_ms += calls[key] * p_ms
             k, cin, cout, relu, m, n = key
             print(f"[4 conv] K={k} cin={cin} cout={cout} relu={int(relu)} m={m} n={n} x{calls[key]}: "
-                  f"max|d|={err:.2e}, from f64 {e_k:.1e} (plain {e_p:.1e}), bit-equal on a rerun; kernel {k_ms:.3f} ms, "
-                  f"plain {p_ms:.3f} ms, bound f32 {f32_ms:.3f} ms, split TF32 {b_ms:.3f} ms ({pairs} real pairs)")
+                  f"max|d|={err:.2e}, from f64 {e_k:.1e} (plain {e_p:.1e}), bit-equal on a rerun; kernel {k_ms:.3f} ms "
+                  f"with the row order ({r_ms:.3f} ms with the rows as they are), plain {p_ms:.3f} ms, "
+                  f"bound f32 {f32_ms:.3f} ms, split TF32 {b_ms:.3f} ms ({pairs} real pairs)")
         # the no-epilogue form at the widest level-0 shape
         key = max(captured, key=lambda kk: (kk[4], kk[1] * kk[2]))
-        feats, w, nbr = captured[key][:3]
-        ok, err = conv_close(cuda_conv.subm_conv(feats, w, nbr), cuda_conv.subm_conv_plain(feats, w, nbr))
+        (feats, w, nbr), order = captured[key][0][:3], captured[key][1]
+        ok, err = conv_close(cuda_conv.subm_conv(feats, w, nbr, order=order), cuda_conv.subm_conv_plain(feats, w, nbr))
         require(ok, f"conv without epilogue {key[:3]}: max |kernel - plain| {err}")
     print(f"[4 conv] {len(captured)} shapes, {sum(calls.values())} calls per forward; within "
           f"{CONV_TOL} * max(1, |plain|) and within {F64_FACTOR}x the plain version's distance from f64; per forward: "
-          f"kernel {conv_ms:.2f} ms, plain {conv_plain_ms:.1f} ms, bound f32 {conv_bound_f32.total:.2f} ms "
+          f"kernel {conv_ms:.2f} ms ({conv_rows_ms:.2f} ms with the rows as they are), plain {conv_plain_ms:.1f} ms, "
+          f"bound f32 {conv_bound_f32.total:.2f} ms "
           f"(by {conv_bound_f32.by}), split TF32 {conv_bound.total:.2f} ms (by {conv_bound.by})")
     # three real maps for phase 19: the widest K = 27 conv of level 0, the largest down conv (m < n) and up conv (m > n)
     picks = {
@@ -2278,7 +2319,7 @@ def conv_phase(model, eb):
         "forward down": max((kk for kk in captured if kk[0] == 8 and kk[4] < kk[5]), key=lambda kk: (kk[5], kk[1] * kk[2])),
         "forward up": max((kk for kk in captured if kk[0] == 8 and kk[4] > kk[5]), key=lambda kk: (kk[4], kk[1] * kk[2])),
     }
-    real_convs = {label: captured[kk][:3] for label, kk in picks.items()}
+    real_convs = {label: captured[kk][0][:3] for label, kk in picks.items()}
     return {"max_abs_err": conv_err, "ms": conv_ms, "plain_ms": conv_plain_ms, "bound_ms": conv_bound.total,
             "bound_by": conv_bound.by, "library_ms": None}, real_convs
 

@@ -18,7 +18,8 @@
 // bf16 operands.
 //
 // * dx is the forward's gather-GEMM with no epilogue: the split-TF32 tensor-
-//   core tile kernel of gather_gemm.cuh, which subm_conv.cu launches too.
+//   core tile kernel of gather_gemm.cuh, which subm_conv.cu launches too, with
+//   the map's row order when the caller gives one.
 //
 // * dwg[k] is a product F_k^T S_k over the real pairs of tap k: F_k = f[i] and
 //   S_k = src[nbr[i, k]] for the rows i whose tap k is real.  Most (row, tap)
@@ -326,7 +327,8 @@ cudaError_t launch_dwg(const float* src, const int* nbr_t, const float* f, float
 }  // namespace
 
 // src [n, c_src], w2 [k, c_src, c_dst], nbr [m, k] and nbr_t [k, m] int32 (the
-// same map), f [m, c_f]; outputs dx [m, c_dst] (written only when need_dx) and
+// same map), order [m] int32 (the row order dx's tiles walk, a permutation of
+// [0, m), or null), f [m, c_f]; outputs dx [m, c_dst] (written only when need_dx) and
 // dwg [k, c_f, c_src]; scratch: ws [k, chunks, c_f, c_src] f32 (unused when
 // chunks == 1), rows [k, m], counts [k] and seg_counts [k, ceil(m / 4096)]
 // int32.  Pairs [s * pairs_per_chunk, (s + 1) * pairs_per_chunk) of a tap's
@@ -335,7 +337,7 @@ cudaError_t launch_dwg(const float* src, const int* nbr_t, const float* f, float
 // aligned.  Needs k <= 27, c_src % 32 == 0, c_f % 4 == 0 and, with need_dx,
 // c_dst % 32 == 0.  Returns the first CUDA error of its launches.
 extern "C" int lidal_conv_dx_dw(const void* src, const void* w2, const void* nbr,
-                                const void* nbr_t, const void* f, void* dx, void* dwg, void* ws,
+                                const void* nbr_t, const void* order, const void* f, void* dx, void* dwg, void* ws,
                                 void* rows, void* counts, void* seg_counts, int m, int n, int k,
                                 int c_src, int c_dst, int c_f, int chunks, int pairs_per_chunk,
                                 int need_dx, void* stream) {
@@ -352,7 +354,8 @@ extern "C" int lidal_conv_dx_dw(const void* src, const void* w2, const void* nbr
     const auto* wp = (const float*)w2;
     const auto* np = (const int*)nbr;
     auto* dp = (float*)dx;
-    const cudaError_t err = gather_gemm::launch<0>(sp, wp, np, nullptr, nullptr, dp, m, n, k, c_src, c_dst, s);
+    const cudaError_t err =
+        gather_gemm::launch<0>(sp, wp, np, (const int*)order, nullptr, nullptr, dp, m, n, k, c_src, c_dst, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)launch_dwg((const float*)src, (const int*)nbr_t, (const float*)f, (float*)dwg, (float*)ws,

@@ -12,7 +12,11 @@
 //
 // A block of 8 warps owns a BM-row x BN-column output tile: all of cout up to
 // 128 columns (cout = 256 and 384 take 2 and 3 column tiles), so each (row,
-// tap) of the map is gathered once per column tile.  The block lists the taps
+// tap) of the map is gathered once per column tile.  The tile's rows are rows
+// row0 .. row0 + BM - 1 of a row order (`order`, a permutation of the m output
+// rows; nullptr: the rows as they are): the caller's order puts rows with the
+// same real taps together (ops/kernel_map.row_order), so that a tile's rows
+// share their taps.  The block lists the taps
 // that name a real row somewhere in the tile (the others are skipped) and
 // walks the flattened reduction (active tap, input channel) in stages of KS
 // columns: KS = 64 when cin % 64 == 0 (and the tile fits twice in an SM's
@@ -26,7 +30,10 @@
 //
 // Each stage's products are summed apart and join the total with one rounded
 // f32 add (a blocked sum: the tensor cores truncate when they add into a large
-// accumulator).  The output tile goes through shared memory so that the
+// accumulator).  When cin % KS == 0 a stage holds one tap, and a stage of a tap
+// that is not real in a row adds an exact +0 to that row: its output is then
+// the same bits under any order.  (At the stem's cin = 4 a stage spans 8 taps,
+// and the tile's active taps decide how a row's taps are grouped into stages.)  The output tile goes through shared memory so that the
 // epilogue and the stores run on float4 rows.  No atomics and one fixed order
 // of sums: the same input gives bit-equal output on every run.
 
@@ -58,7 +65,7 @@ struct Tile {
   static constexpr int BS = BN + 8;               // B row stride: (8 t + g) % 32 distinct
   static constexpr int OS = BN + 4;               // output tile row stride
   static constexpr int STAGE = BM * AS + KS * BS;  // floats per stage buffer
-  static constexpr int HEADER = (BM * kKMax + BM + 32) * 4;  // s_nbr, s_row, s_act (bytes)
+  static constexpr int HEADER = (BM * kKMax + 2 * BM + 32) * 4;  // s_nbr, s_row, s_dst, s_act (bytes)
   static constexpr int SMEM = HEADER + 2 * STAGE * 4;  // two stage buffers
   static_assert(BN % (8 * WN) == 0 && BM * OS <= 2 * STAGE && HEADER % 16 == 0, "tile shape");
 };
@@ -66,14 +73,15 @@ struct Tile {
 template <int BN, int KS, int EPI>  // EPI: 0 none, 1 affine, 2 affine + relu
 __global__ void __launch_bounds__(kThreads, 2)
 kernel(const float* __restrict__ feats, const float* __restrict__ w, const int* __restrict__ nbr,
-       const float* __restrict__ scale, const float* __restrict__ shift, float* __restrict__ out,
-       int m, int n, int k, int cin, int cout) {
+       const int* __restrict__ order, const float* __restrict__ scale, const float* __restrict__ shift,
+       float* __restrict__ out, int m, int n, int k, int cin, int cout) {
   using T = Tile<BN, KS>;
   constexpr int BM = T::BM;
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_nbr = reinterpret_cast<int*>(smem);  // source row per (row, tap), -1 for the sentinel
   int* s_row = s_nbr + BM * kKMax;            // row has a real tap
-  int* s_act = s_row + BM;                    // active taps in order; [kKMax] = how many
+  int* s_dst = s_row + BM;                    // the output row of tile row r, -1 past m
+  int* s_act = s_dst + BM;                    // active taps in order; [kKMax] = how many
   float* stages = reinterpret_cast<float*>(smem + T::HEADER);
 
   const int tid = threadIdx.x;
@@ -87,11 +95,15 @@ kernel(const float* __restrict__ feats, const float* __restrict__ w, const int* 
   const int col0 = blockIdx.y * BN;
 
   if (tid < 32) s_act[tid] = 0;
-  for (int r = tid; r < BM; r += kThreads) s_row[r] = 0;
+  for (int r = tid; r < BM; r += kThreads) {
+    s_row[r] = 0;
+    s_dst[r] = row0 + r < m ? (order != nullptr ? order[row0 + r] : row0 + r) : -1;
+  }
   __syncthreads();
   for (int e = tid; e < BM * k; e += kThreads) {
     const int r = e / k;
-    const int v = row0 + r < m ? nbr[(long long)row0 * k + e] : n;
+    const int dst = s_dst[r];
+    const int v = dst >= 0 ? nbr[(long long)dst * k + (e - r * k)] : n;
     const bool real = (unsigned)v < (unsigned)n;
     s_nbr[e] = real ? v : -1;
     if (real) {
@@ -220,7 +232,8 @@ kernel(const float* __restrict__ feats, const float* __restrict__ w, const int* 
   for (int e = tid; e < BM * PR; e += kThreads) {
     const int r = e / PR;
     const int c = (e - r * PR) * 4;
-    if (row0 + r >= m) continue;
+    const int dst = s_dst[r];
+    if (dst < 0) continue;
     float4 y = *reinterpret_cast<const float4*>(so + r * T::OS + c);
     if (EPI > 0) {
       const float* sc = scale + col0 + c;
@@ -229,14 +242,14 @@ kernel(const float* __restrict__ feats, const float* __restrict__ w, const int* 
       if (EPI == 2) y = make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f), fmaxf(y.w, 0.f));
       if (!s_row[r]) y = make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    *reinterpret_cast<float4*>(out + (long long)(row0 + r) * cout + col0 + c) = y;
+    *reinterpret_cast<float4*>(out + (long long)dst * cout + col0 + c) = y;
   }
 }
 
 template <int BN, int KS, int EPI>
-cudaError_t launch_tile(const float* feats, const float* w, const int* nbr, const float* scale,
-                        const float* shift, float* out, int m, int n, int k, int cin, int cout,
-                        cudaStream_t stream) {
+cudaError_t launch_tile(const float* feats, const float* w, const int* nbr, const int* order,
+                        const float* scale, const float* shift, float* out, int m, int n, int k, int cin,
+                        int cout, cudaStream_t stream) {
   using T = Tile<BN, KS>;
   static_assert(T::SMEM <= kSmemTwoBlocks, "two blocks an SM");
   auto kern = kernel<BN, KS, EPI>;
@@ -244,31 +257,35 @@ cudaError_t launch_tile(const float* feats, const float* w, const int* nbr, cons
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + T::BM - 1) / T::BM, cout / BN);
-  kern<<<grid, kThreads, T::SMEM, stream>>>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout);
+  kern<<<grid, kThreads, T::SMEM, stream>>>(feats, w, nbr, order, scale, shift, out, m, n, k, cin, cout);
   return cudaGetLastError();
 }
 
 template <int BN, int EPI>
-cudaError_t launch_cols(const float* feats, const float* w, const int* nbr, const float* scale,
-                        const float* shift, float* out, int m, int n, int k, int cin, int cout,
-                        cudaStream_t stream) {
+cudaError_t launch_cols(const float* feats, const float* w, const int* nbr, const int* order,
+                        const float* scale, const float* shift, float* out, int m, int n, int k, int cin,
+                        int cout, cudaStream_t stream) {
   if constexpr (Tile<BN, 64>::SMEM <= kSmemTwoBlocks) {
-    if (cin % 64 == 0) return launch_tile<BN, 64, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+    if (cin % 64 == 0)
+      return launch_tile<BN, 64, EPI>(feats, w, nbr, order, scale, shift, out, m, n, k, cin, cout, stream);
   }
-  return launch_tile<BN, 32, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+  return launch_tile<BN, 32, EPI>(feats, w, nbr, order, scale, shift, out, m, n, k, cin, cout, stream);
 }
 
 // The widest column tile that divides cout (128, 96, 64 or 32), and stages of
 // 64 reduction columns when cin % 64 == 0 and two such blocks fit an SM (not
-// at BN = 64, whose tile has 128 rows), else 32.
+// at BN = 64, whose tile has 128 rows), else 32.  `order`: a permutation of
+// [0, m) that the row tiles walk, or nullptr.
 template <int EPI>
-cudaError_t launch(const float* feats, const float* w, const int* nbr, const float* scale,
+cudaError_t launch(const float* feats, const float* w, const int* nbr, const int* order, const float* scale,
                    const float* shift, float* out, int m, int n, int k, int cin, int cout,
                    cudaStream_t stream) {
-  if (cout % 128 == 0) return launch_cols<128, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
-  if (cout % 96 == 0) return launch_cols<96, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
-  if (cout % 64 == 0) return launch_cols<64, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
-  return launch_cols<32, EPI>(feats, w, nbr, scale, shift, out, m, n, k, cin, cout, stream);
+#define GG_COLS(BN) launch_cols<BN, EPI>(feats, w, nbr, order, scale, shift, out, m, n, k, cin, cout, stream)
+  if (cout % 128 == 0) return GG_COLS(128);
+  if (cout % 96 == 0) return GG_COLS(96);
+  if (cout % 64 == 0) return GG_COLS(64);
+  return GG_COLS(32);
+#undef GG_COLS
 }
 
 // True when the kernel takes these sizes: k <= 27, cin % 4 == 0, cout % 32 == 0.

@@ -28,12 +28,14 @@
 
 #include "gather_gemm.cuh"
 
-// feats [n, cin], w [k, cin, cout], nbr [m, k] int32, scale/shift [cout] (read
+// feats [n, cin], w [k, cin, cout], nbr [m, k] int32, order [m] int32 (a
+// permutation of [0, m) that the row tiles walk, or null for the rows as they
+// are), scale/shift [cout] (read
 // only when epilogue > 0), out [m, cout]; all contiguous f32/int32 on the
 // current device, feats/w/out 16-byte aligned.  epilogue: 0 none, 1 affine,
 // 2 affine + relu.  Needs k <= 27, cin % 4 == 0, cout % 32 == 0.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int lidal_subm_conv(const void* feats, const void* w, const void* nbr,
+extern "C" int lidal_subm_conv(const void* feats, const void* w, const void* nbr, const void* order,
                                const void* scale, const void* shift, void* out, int m, int n,
                                int k, int cin, int cout, int epilogue, void* stream) {
   using namespace gather_gemm;
@@ -43,13 +45,14 @@ extern "C" int lidal_subm_conv(const void* feats, const void* w, const void* nbr
   const auto* f = (const float*)feats;
   const auto* wf = (const float*)w;
   const auto* nb = (const int*)nbr;
+  const auto* od = (const int*)order;
   const auto* sc = (const float*)scale;
   const auto* sh = (const float*)shift;
   auto* o = (float*)out;
   const auto s = (cudaStream_t)stream;
   switch (epilogue) {
-    case 0: return (int)launch<0>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    case 1: return (int)launch<1>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
-    default: return (int)launch<2>(f, wf, nb, sc, sh, o, m, n, k, cin, cout, s);
+    case 0: return (int)launch<0>(f, wf, nb, od, sc, sh, o, m, n, k, cin, cout, s);
+    case 1: return (int)launch<1>(f, wf, nb, od, sc, sh, o, m, n, k, cin, cout, s);
+    default: return (int)launch<2>(f, wf, nb, od, sc, sh, o, m, n, k, cin, cout, s);
   }
 }

@@ -60,9 +60,9 @@ class SubMConv3(_SparseConv):
 
     def forward(self, x: torch.Tensor, level: LevelPlan, epilogue=None) -> torch.Tensor:
         if epilogue is None:
-            return subm_conv_batched(x, self.kernel, level.nbr3)
+            return subm_conv_batched(x, self.kernel, level.nbr3, order=level.order)
         a, b, relu = epilogue
-        return subm_conv_bn_batched(x, self.kernel, level.nbr3, a, b, relu)
+        return subm_conv_bn_batched(x, self.kernel, level.nbr3, a, b, relu, order=level.order)
 
 
 class Conv1x1(_SparseConv):
@@ -79,9 +79,10 @@ class DownConv2(_SparseConv):
 
     def forward(self, x: torch.Tensor, down: DownPlan, epilogue=None) -> torch.Tensor:
         if epilogue is None:
-            return down_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta)
+            return down_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta,
+                                     child_order=down.child_order, up_order=down.up_order)
         a, b, relu = epilogue
-        return down_conv_bn_batched(x, self.kernel, down.child, a, b, relu)
+        return down_conv_bn_batched(x, self.kernel, down.child, a, b, relu, order=down.child_order)
 
 
 class UpConv2(_SparseConv):
@@ -91,9 +92,10 @@ class UpConv2(_SparseConv):
 
     def forward(self, x: torch.Tensor, down: DownPlan, epilogue=None) -> torch.Tensor:
         if epilogue is None:
-            return up_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta)
+            return up_conv_batched(x, self.kernel, down.child, down.parent, down.pdelta,
+                                   child_order=down.child_order, up_order=down.up_order)
         a, b, relu = epilogue
-        return up_conv_bn_batched(x, self.kernel, down.parent, down.pdelta, a, b, relu)
+        return up_conv_bn_batched(x, self.kernel, down.parent, down.pdelta, a, b, relu, order=down.up_order)
 
 
 class MaskedBatchNorm(nn.Module):

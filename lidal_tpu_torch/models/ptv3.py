@@ -60,7 +60,7 @@ from torch import nn
 from lidal_tpu_torch.models.layers import MaskedBatchNorm
 from lidal_tpu_torch.ops import patch_attention as pa, serialize
 from lidal_tpu_torch.ops.conv import subm_conv_batched
-from lidal_tpu_torch.ops.kernel_map import K3, K5, DownPlan, UNetPlan, build_subm5_nbr_batched
+from lidal_tpu_torch.ops.kernel_map import K3, K5, DownPlan, LevelPlan, UNetPlan, build_subm5_nbr_batched
 from lidal_tpu_torch.utils import profiling
 
 ENC_CHANNELS = (32, 64, 128, 256, 512)
@@ -94,7 +94,8 @@ class BatchNorm(MaskedBatchNorm):
 class SubMConv(nn.Module):
     """A submanifold conv ``kernel [K, cin, cout]`` (x-major taps, the map's
     columns), with an optional bias; Pointcept's spconv init bound
-    1/sqrt(K * cin) for both."""
+    1/sqrt(K * cin) for both.  ``order`` is the map's row order (None for
+    the kernel-5 stem, whose groups of taps walk none)."""
 
     def __init__(self, taps: int, cin: int, cout: int, bias: bool):
         super().__init__()
@@ -102,8 +103,8 @@ class SubMConv(nn.Module):
         self.kernel = nn.Parameter(torch.empty(taps, cin, cout).uniform_(-bound, bound))
         self.bias = nn.Parameter(torch.empty(cout).uniform_(-bound, bound)) if bias else None
 
-    def forward(self, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        y = subm_conv_batched(x, self.kernel, nbr)
+    def forward(self, x: torch.Tensor, nbr: torch.Tensor, order: Optional[torch.Tensor]) -> torch.Tensor:
+        y = subm_conv_batched(x, self.kernel, nbr, order=order)
         return y if self.bias is None else y + self.bias
 
 
@@ -185,11 +186,11 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(c)
         self.mlp = nn.Sequential(nn.Linear(c, MLP_RATIO * c), nn.GELU(), nn.Linear(MLP_RATIO * c, c))
 
-    def forward(self, x, nbr3, level: Level, valid, draws: Optional[StepDraws]):
-        x = x + self.cpe["norm"](self.cpe["linear"](self.cpe["conv"](x, nbr3)))
+    def forward(self, x, lp: LevelPlan, level: Level, draws: Optional[StepDraws]):
+        x = x + self.cpe["norm"](self.cpe["linear"](self.cpe["conv"](x, lp.nbr3, lp.order)))
         x = x + drop_path(self.attn(self.norm1(x), level, self.slot), self.drop, draws, 2 * self.site)
         x = x + drop_path(self.mlp(self.norm2(x)), self.drop, draws, 2 * self.site + 1)
-        return x * valid[..., None]
+        return x * lp.valid[..., None]
 
 
 class _ChildMax(torch.autograd.Function):
@@ -274,9 +275,9 @@ class Stage(nn.Module):
         self.blocks = nn.ModuleList([Block(c, heads, drops[i], i % len(serialize.ORDERS), first_site + i)
                                      for i in range(depth)])
 
-    def run_blocks(self, x, nbr3, level: Level, valid, draws):
+    def run_blocks(self, x, lp: LevelPlan, level: Level, draws):
         for blk in self.blocks:
-            x = blk(x, nbr3, level, valid, draws)
+            x = blk(x, lp, level, draws)
         return x
 
 
@@ -314,16 +315,16 @@ class PTv3(nn.Module):
             levels = _serialize(plan, draws)
         nbr5 = build_subm5_nbr_batched(lv[0].coords, lv[0].valid)
         emb = self.embedding
-        x = F.gelu(emb["norm"](emb["conv"](feats, nbr5), lv[0].valid))
+        x = F.gelu(emb["norm"](emb["conv"](feats, nbr5, None), lv[0].valid))
         skips = []
         for s, stage in enumerate(self.enc):
             if s > 0:
                 x = stage.down(x, dn[s - 1], lv[s].valid)
-            x = stage.run_blocks(x, lv[s].nbr3, levels[s], lv[s].valid, draws)
+            x = stage.run_blocks(x, lv[s], levels[s], draws)
             skips.append(x)
         for s in reversed(range(len(self.dec))):
             stage = self.dec[s]
             x = stage.up(x, skips[s], dn[s], lv[s + 1].valid, lv[s].valid)
-            x = stage.run_blocks(x, lv[s].nbr3, levels[s], lv[s].valid, draws)
+            x = stage.run_blocks(x, lv[s], levels[s], draws)
         logits = self.head(x) * lv[0].valid[..., None]
         return logits, x

@@ -8,7 +8,8 @@ kernel's weight gradient runs over per-tap lists of the real (row, tap) pairs
 chunks of a fixed number of pairs (:func:`pair_chunks`), whose partials it
 sums in chunk order with no atomics, so one input gives bit-equal results on
 every run (trained weights feed every selection), and the host never waits
-for the lists.
+for the lists.  An optional row order of the map (``kernel_map.row_order``)
+goes to dx's row tiles, as in ``ops/cuda_conv.subm_conv``; dW reads no order.
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ def _check(src, w2, nbr, f) -> None:
         )
 
 
-def conv_dx_dw_plain(src, w2, nbr, f, need_dx: bool = True):
-    """Plain torch version of :func:`conv_dx_dw` (same arguments and results)."""
+def conv_dx_dw_plain(src, w2, nbr, f, need_dx: bool = True, *, order=None):
+    """Plain torch version of :func:`conv_dx_dw` (same arguments and results;
+    ``order`` changes no result and is not read)."""
     _check(src, w2, nbr, f)
     n, c_src = src.shape
     m, k = nbr.shape
@@ -98,7 +100,7 @@ def pair_lists_plain(nbr_t, n: int):
     return torch.where(first, order, m).to(torch.int32), counts
 
 
-def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
+def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True, *, order=None):
     """Both products of a sparse-conv backward over one map.
 
       dx[i]  = sum_k src[nbr[i, k]] @ w2[k]        f32 [m, c_dst] (None unless need_dx)
@@ -111,6 +113,9 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
       w2: f32 [K, c_src, c_dst], K <= 27; c_dst % 32 == 0 when ``need_dx``.
       nbr: int32 [m, K] source rows (sentinel n).
       f: f32 [m, c_f], c_f % 4 == 0 (the forward input at the map's rows).
+      order: int32 [m], the row order dx's tiles walk (as ``subm_conv``'s), or None.
+        A permutation of the rows, which the kernel relies on and does not
+        check: a row named twice or never gives an undefined dx row.
     """
     if src.device.type == "cpu":
         return conv_dx_dw_plain(src, w2, nbr, f, need_dx)
@@ -129,6 +134,10 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
                            ("nbr", nbr, torch.int32), ("f", f, torch.float32)):
         if x.device != src.device or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {src.device}")
+    order = order if need_dx else None  # only dx walks the rows in tiles
+    if order is not None and (order.device != src.device or order.dtype != torch.int32
+                              or not order.is_contiguous() or order.shape != (m,)):
+        raise ValueError(f"order must be a contiguous int32 [{m}] tensor on {src.device}")
     if src.data_ptr() % 16 or w2.data_ptr() % 16 or f.data_ptr() % 16:
         raise ValueError("src, w2 and f must be 16-byte aligned (float4 loads)")
     chunks, per_chunk = pair_chunks(m, k, c_f, c_src)
@@ -141,16 +150,19 @@ def conv_dx_dw(src, w2, nbr, f, need_dx: bool = True):
     counts = torch.empty(k, dtype=torch.int32, device=dev)
     seg_counts = torch.empty((k, max(1, _cdiv(m, _SEG_ROWS))), dtype=torch.int32, device=dev)
     fn = kernels_build.function(
-        "conv_dx_dw", "lidal_conv_dx_dw", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        "conv_dx_dw", "lidal_conv_dx_dw", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     with torch.cuda.device(dev):
         err = fn(
-            src.data_ptr(), w2.data_ptr(), nbr.data_ptr(), nbr_t.data_ptr(), f.data_ptr(),
+            src.data_ptr(), w2.data_ptr(), nbr.data_ptr(), nbr_t.data_ptr(),
+            order.data_ptr() if order is not None else None, f.data_ptr(),
             dx.data_ptr() if need_dx else None, dwg.data_ptr(), ws.data_ptr(),
             rows.data_ptr(), counts.data_ptr(), seg_counts.data_ptr(),
             m, n, k, c_src, c_dst, c_f, chunks, per_chunk, int(need_dx),
             torch.cuda.current_stream().cuda_stream,
         )
     profiling.count("launch.conv_dx_dw")
+    if order is not None:
+        profiling.count("conv.row_order")
     kernels_build.check(err, "conv_dx_dw")
     return dx, dwg

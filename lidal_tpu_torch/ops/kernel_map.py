@@ -12,6 +12,13 @@ every conv of the network is then a gather + GEMM over it.
   ``child[b, o, d]`` is the fine row at ``2 * coord_o + OFFSETS2[d]``.
 * **up**: ``parent[b, f]`` and ``pdelta[b, f]``, the same pairing seen from
   the fine side.
+
+Each of the three maps also gets a **row order** (:func:`row_order`): the
+rows of the flattened batch (frame b's rows at ``b * cap``, as
+``ops/conv._flatten_nbr`` lays them out) stably sorted by their tap mask, the
+bit set of the taps that are real in the row.  The f32 gather-GEMM tile walks
+its output rows in that order, so a tile's rows share their taps and the tile
+multiplies fewer taps that are real in none of its rows.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ class LevelPlan(NamedTuple):
     nbr3: torch.Tensor  # [B, cap, 27] int32 into this level (sentinel = cap)
     num_valid: torch.Tensor  # [B] int32
     overflow: torch.Tensor  # [B] int32: unique voxels dropped past the capacity
+    order: torch.Tensor  # [B, cap] int32: the row order of nbr3, rows of the flattened batch
 
 
 class DownPlan(NamedTuple):
@@ -85,11 +93,49 @@ class DownPlan(NamedTuple):
     child: torch.Tensor  # [B, cap_coarse, 8] int32 into fine (sentinel = cap_fine)
     parent: torch.Tensor  # [B, cap_fine] int32 into coarse (sentinel = cap_coarse)
     pdelta: torch.Tensor  # [B, cap_fine] int32 in [0, 8)
+    child_order: torch.Tensor  # [B, cap_coarse] int32: the row order of child
+    up_order: torch.Tensor  # [B, cap_fine] int32: the row order of the up map of (parent, pdelta)
 
 
 class UNetPlan(NamedTuple):
     levels: Tuple[LevelPlan, ...]
     downs: Tuple[DownPlan, ...]
+
+
+def row_order(real: torch.Tensor) -> torch.Tensor:
+    """The row order of a map: real [B, cap, K] bool (tap k of row i is real)
+    -> [B, cap] int32, a permutation of the B x cap rows of the flattened
+    batch (row ``b * cap + i``), stably sorted by the row's tap mask (bit k
+    for tap k), largest first: rows with the same taps are neighbours, rows
+    with none come last, ties keep their order.  A sort on the device with no
+    host read, so a plan captured in a CUDA graph may hold it."""
+    b, cap, k = real.shape
+    bits = device_constant(tuple(1 << t for t in range(k)), torch.int32, real.device)
+    keys = (real.to(torch.int32) * bits).sum(-1, dtype=torch.int32).reshape(-1)
+    return torch.sort(keys, descending=True, stable=True).indices.to(torch.int32).reshape(b, cap)
+
+
+def up_real(parent: torch.Tensor, pdelta: torch.Tensor, k: int, cap_coarse: int) -> torch.Tensor:
+    """[..., cap_fine, K] bool: the real taps of the up map that
+    ``ops/conv._up_nbr`` expands from (parent, pdelta), tap pdelta[f] of a
+    row f with a parent."""
+    taps = torch.arange(k, dtype=torch.int32, device=parent.device)
+    return (pdelta[..., None] == taps) & (parent[..., None] < cap_coarse)
+
+
+def tile_fill(nbr: torch.Tensor, order, bm: int, n: int) -> float:
+    """The share of real (row, tap) pairs in the products of a gather-GEMM
+    tile of ``bm`` rows that multiplies every tap real in any of its rows:
+    real pairs over the sum, over tiles, of ``bm`` x the tile's real taps.
+    nbr [m, K] (real: 0 <= v < n), its rows taken in ``order`` ([m], the
+    flattened rows; None: as they are).  A measure for tools and tests."""
+    real = (nbr >= 0) & (nbr < n)
+    if order is not None:
+        real = real[order.reshape(-1).long()]
+    m, k = real.shape
+    tiles = torch.cat([real, real.new_zeros(((-m) % bm, k))]).reshape(-1, bm, k)
+    products = bm * int(tiles.any(1).sum())
+    return int(real.sum()) / products if products else 1.0
 
 
 def rulebook_streams(coords: torch.Tensor, valid: torch.Tensor, deltas=(_D_HI, _D_LO)):
@@ -155,7 +201,8 @@ def build_down(coords_fine: torch.Tensor, valid_fine: torch.Tensor, cap_coarse: 
     child = torch.full((b * (cap_coarse + 1) * K2,), cap_fine, dtype=torch.int32, device=dev)
     child[flat.reshape(-1)] = torch.where(valid_fine, fine_ids, cap_fine).reshape(-1)
     child = child.reshape(b, cap_coarse + 1, K2)[:, :cap_coarse].contiguous()
-    return uvc, DownPlan(child=child, parent=parent, pdelta=pdelta)
+    return uvc, DownPlan(child=child, parent=parent, pdelta=pdelta, child_order=row_order(child < cap_fine),
+                         up_order=row_order(up_real(parent, pdelta, K2, cap_coarse)))
 
 
 def build_unet_plan(coords0: torch.Tensor, valid0: torch.Tensor, caps: Sequence[int]) -> UNetPlan:
@@ -172,13 +219,15 @@ def build_unet_plan(coords0: torch.Tensor, valid0: torch.Tensor, caps: Sequence[
     # level 0 is deduplicated by the caller, which accounts its overflow
     cur_overflow = torch.zeros(coords0.shape[0], dtype=torch.int32, device=coords0.device)
     for l in range(len(caps)):
+        nbr3 = build_subm_nbr_batched(cur_coords, cur_valid)
         levels.append(
             LevelPlan(
                 coords=cur_coords,
                 valid=cur_valid,
-                nbr3=build_subm_nbr_batched(cur_coords, cur_valid),
+                nbr3=nbr3,
                 num_valid=cur_valid.sum(dim=1).to(torch.int32),
                 overflow=cur_overflow,
+                order=row_order(nbr3 < nbr3.shape[1]),
             )
         )
         if l + 1 < len(caps):

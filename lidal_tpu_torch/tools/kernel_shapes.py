@@ -20,14 +20,19 @@ seed 0).  It prints the card's name and power limit, then
 * per conv shape of the forward: the kernel's ms, its max |kernel - plain|, the
   GFLOP of the real (row, tap) pairs and of the dense work of the kernel's row
   tiles (every tap that is real somewhere in a tile, times the tile's rows;
-  tiles of 64 rows at cout % 96 == 0 or cout % 128 == 0, else 128), and the
-  TFLOP/s reached on that dense work; then the sums per forward;
+  tiles of 64 rows at cout % 96 == 0 or cout % 128 == 0, else 128), the fill
+  (real over dense, ``kernel_map.tile_fill``; these three where ROOT has it)
+  and the TFLOP/s reached on that dense work, with the row order the model
+  passes (where ROOT's model passes one) and without; then the sums per
+  forward;
 * per ``conv_dx_dw`` shape of one train step (B = 5 frames of ``make_batch``,
   seed 0, the MinkUNet of ``init_state`` with seed 0): the kernel's ms with
   dx and dW apart (dW alone is the ``need_dx=False`` call on the same
   arguments, dx the rest), each checked within ``CONV_TOL`` of the plain
   version's abs-sum, the real (row, tap) pairs, the GFLOP of dW on them and
-  the TFLOP/s reached; then the sums per step;
+  the TFLOP/s reached, and dx's ms and tile fill (where ROOT has
+  ``tile_fill``) with and without the row order (where ROOT's model passes
+  one); then the sums per step;
 * ``nn_band`` at ``chip_smoke.py`` phase 11's shape (26 slots x 131072
   queries: the grids of 26 registered frames of ROOT's ``write_round_tree``,
   seed 6, in a temporary directory): the kernel's ms, checked bit-equal to the
@@ -136,9 +141,11 @@ def forward_shapes(cs, dev, only) -> None:
     from lidal_tpu_torch.config import SK_CONFIG
     from lidal_tpu_torch.data.pipeline import prepare_eval_batch
     from lidal_tpu_torch.models.minkunet import MinkUNet
-    from lidal_tpu_torch.ops import cuda_conv, cuda_merge
+    from lidal_tpu_torch.ops import cuda_conv, cuda_merge, kernel_map
     from lidal_tpu_torch.ops.hashing import key64
     from lidal_tpu_torch.ops.kernel_map import rulebook_streams
+
+    tile_fill = getattr(kernel_map, "tile_fill", None)  # where ROOT has it
 
     batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap)
     eb = prepare_eval_batch(torch.Generator().manual_seed(0),
@@ -173,11 +180,12 @@ def forward_shapes(cs, dev, only) -> None:
     captured, calls = {}, {}
     kernel = cuda_conv.subm_conv
 
-    def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
+    def recorder(feats, w, nbr, scale=None, shift=None, relu=False, **order):  # order: where ROOT passes one
         key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
         calls[key] = calls.get(key, 0) + 1
-        captured.setdefault(key, (feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu))
-        return kernel(feats, w, nbr, scale, shift, relu)
+        captured.setdefault(key, ((feats.clone(), w.clone(), nbr.clone(), scale.clone(), shift.clone(), relu),
+                                  {n: o.clone() for n, o in order.items() if o is not None}))
+        return kernel(feats, w, nbr, scale, shift, relu, **order)
 
     cuda_conv.subm_conv = recorder
     try:
@@ -186,30 +194,41 @@ def forward_shapes(cs, dev, only) -> None:
     finally:
         cuda_conv.subm_conv = kernel
 
-    total = {"ms": 0.0, "real": 0.0, "dense": 0.0}
+    total = {"ms": 0.0, "real": 0.0, "dense": 0.0, "ms_order": 0.0, "dense_order": 0.0}
     with torch.inference_mode():
         for key in sorted(captured):
-            args = captured[key]
+            args, order = captured[key]
             k, cin, cout, _, m, n = key
             nbr = args[2]
-            ok, err = cs.conv_close(kernel(*args), cuda_conv.subm_conv_plain(*args))
-            cs.require(ok, f"conv {key}: max |kernel - plain| {err}")
-            ms = cs.cuda_ms(lambda: kernel(*args), reps=10)
             rows = _tile_rows(cout)
-            real = (nbr < n).reshape(-1, k)
-            tiles = torch.cat([real, real.new_zeros(((-m) % rows, k))]).reshape(-1, rows, k)
             flop = 2.0 * cin * cout
-            real_gf = float(real.sum()) * flop / 1e9
-            dense_gf = float(tiles.any(1).sum()) * rows * flop / 1e9
+            real = int(((nbr >= 0) & (nbr < n)).sum())
+            real_gf = real * flop / 1e9
             c = calls[key]
-            total["ms"] += c * ms
             total["real"] += c * real_gf
-            total["dense"] += c * dense_gf
-            print(f"conv K={k} cin={cin} cout={cout} m={m} n={n} x{c}: {ms:.3f} ms, max|d| {err:.1e}; "
-                  f"GFLOP real {real_gf:.2f}, dense {rows}-row tiles {dense_gf:.2f}; "
-                  f"{dense_gf / ms:.1f} TFLOP/s on the dense work")
-    print(f"conv per forward: {total['ms']:.2f} ms; GFLOP real {total['real']:.1f}, dense {total['dense']:.1f}; "
-          f"{total['dense'] / total['ms']:.1f} TFLOP/s on the dense work")
+            line = f"conv K={k} cin={cin} cout={cout} m={m} n={n} x{c}: GFLOP real {real_gf:.2f}"
+            for label, kw in (("with the row order", order), ("rows as they are", {})):
+                if label == "with the row order" and not order:
+                    continue
+                ok, err = cs.conv_close(kernel(*args, **kw), cuda_conv.subm_conv_plain(*args))
+                cs.require(ok, f"conv {key} {label}: max |kernel - plain| {err}")
+                ms = cs.cuda_ms(lambda: kernel(*args, **kw), reps=10)
+                tag = "_order" if kw else ""
+                total["ms" + tag] += c * ms
+                line += f"; {label}: {ms:.3f} ms, max|d| {err:.1e}"
+                if tile_fill is not None:
+                    fill = tile_fill(nbr, kw.get("order"), rows, n)
+                    dense_gf = real_gf / fill
+                    total["dense" + tag] += c * dense_gf
+                    line += (f", dense {rows}-row tiles {dense_gf:.2f} GFLOP, fill {fill:.3f}, "
+                             f"{dense_gf / ms:.1f} TFLOP/s on the dense work")
+            print(line)
+    for label, tag in (("with the row order", "_order"), ("rows as they are", "")):
+        if total["ms" + tag]:
+            dense = (f"; dense {total['dense' + tag]:.1f} (fill {total['real'] / total['dense' + tag]:.3f}), "
+                     f"{total['dense' + tag] / total['ms' + tag]:.1f} TFLOP/s on the dense work"
+                     if total["dense" + tag] else "")
+            print(f"conv per forward, {label}: {total['ms' + tag]:.2f} ms; GFLOP real {total['real']:.1f}{dense}")
     del model, eb, captured
     torch.cuda.empty_cache()
 
@@ -221,10 +240,11 @@ def backward_shapes(cs, dev) -> None:
 
     from lidal_tpu_torch.config import SK_CONFIG, RunConfig
     from lidal_tpu_torch.data.pipeline import prepare_train_batch
-    from lidal_tpu_torch.ops import cuda_conv_dxdw
+    from lidal_tpu_torch.ops import cuda_conv_dxdw, kernel_map
     from lidal_tpu_torch.runtime.train import train_step
     from lidal_tpu_torch.runtime.train_loop import init_state
 
+    tile_fill = getattr(kernel_map, "tile_fill", None)  # where ROOT has it
     batch = cs.make_batch(np.random.default_rng(0), SK_CONFIG.point_cap, SK_CONFIG.batch_size)
     tb = prepare_train_batch(torch.Generator().manual_seed(0),
                              *(torch.as_tensor(batch[k], device=dev) for k in ("xyz", "sig", "valid", "labels")),
@@ -233,11 +253,12 @@ def backward_shapes(cs, dev) -> None:
     captured, calls = {}, {}
     kernel, plain = cuda_conv_dxdw.conv_dx_dw, cuda_conv_dxdw.conv_dx_dw_plain
 
-    def recorder(src, w2, nbr, f, need_dx=True):
+    def recorder(src, w2, nbr, f, need_dx=True, **order):  # order: where ROOT passes one
         key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
         calls[key] = calls.get(key, 0) + 1
-        captured.setdefault(key, (src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx)))
-        return kernel(src, w2, nbr, f, need_dx)
+        captured.setdefault(key, ((src.clone(), w2.clone(), nbr.clone(), f.clone(), bool(need_dx)),
+                                  {n: o.clone() for n, o in order.items() if o is not None}))
+        return kernel(src, w2, nbr, f, need_dx, **order)
 
     cuda_conv_dxdw.conv_dx_dw = recorder
     try:
@@ -245,9 +266,10 @@ def backward_shapes(cs, dev) -> None:
     finally:
         cuda_conv_dxdw.conv_dx_dw = kernel
     del state, tb
-    total = {"ms": 0.0, "dw": 0.0, "gflop": 0.0}
+    total = {"ms": 0.0, "dw": 0.0, "gflop": 0.0, "dx_order": 0.0}
     for key in sorted(captured):
-        src, w2, nbr, f, need_dx = args = captured[key]
+        args, order = captured[key]
+        src, w2, nbr, f, need_dx = args
         k, c_src, c_dst, c_f, m, n, _ = key
         for nd in sorted({need_dx, False}):
             got = kernel(src, w2, nbr, f, nd)
@@ -264,11 +286,25 @@ def backward_shapes(cs, dev) -> None:
         total["ms"] += c * ms
         total["dw"] += c * dw_ms
         total["gflop"] += c * gflop
-        print(f"conv_dx_dw K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} x{c}: "
-              f"{ms:.3f} ms (dx {ms - dw_ms:.3f}, dW {dw_ms:.3f}); {pairs} real pairs, dW GFLOP {gflop:.2f}, "
-              f"{gflop / dw_ms:.1f} TFLOP/s")
+        line = (f"conv_dx_dw K={k} c_src={c_src} c_dst={c_dst} c_f={c_f} m={m} n={n} dx={int(need_dx)} x{c}: "
+                f"{ms:.3f} ms (dx {ms - dw_ms:.3f}, dW {dw_ms:.3f}); {pairs} real pairs, dW GFLOP {gflop:.2f}, "
+                f"{gflop / dw_ms:.1f} TFLOP/s")
+        if need_dx:
+            rows = _tile_rows(c_dst)
+            if tile_fill is not None:
+                line += f"; dx tile fill {tile_fill(nbr, None, rows, n):.3f}"
+            if order:
+                got = kernel(src, w2, nbr, f, True, **order)
+                want = kernel(src, w2, nbr, f, True)
+                cs.require(torch.equal(got[0], want[0]), f"conv_dx_dw {key}: dx with the row order is not bit-equal")
+                order_ms = cs.cuda_ms(lambda: kernel(src, w2, nbr, f, True, **order), reps=10)
+                total["dx_order"] += c * (order_ms - dw_ms)
+                line += (f"; with the row order: {order_ms:.3f} ms (dx {order_ms - dw_ms:.3f}), dx tile fill "
+                         f"{tile_fill(nbr, order['order'], rows, n):.3f}")
+        print(line)
     print(f"conv_dx_dw per step: {total['ms']:.2f} ms (dx {total['ms'] - total['dw']:.2f}, dW {total['dw']:.2f}); "
-          f"dW GFLOP on real pairs {total['gflop']:.1f}, {total['gflop'] / total['dw']:.1f} TFLOP/s")
+          f"dW GFLOP on real pairs {total['gflop']:.1f}, {total['gflop'] / total['dw']:.1f} TFLOP/s"
+          + (f"; dx with the row order {total['dx_order']:.2f} ms" if total["dx_order"] else ""))
 
 
 def nn_band_shape(cs, dev) -> None:
@@ -622,10 +658,10 @@ def probe_shapes(cs, dev) -> None:
         captured = {}
         kernel = cuda_conv.subm_conv
 
-        def recorder(feats, w, nbr, scale=None, shift=None, relu=False):
+        def recorder(feats, w, nbr, scale=None, shift=None, relu=False, **order):
             key = (nbr.shape[1], feats.shape[1], w.shape[2], relu, nbr.shape[0], feats.shape[0])
             captured.setdefault(key, (feats.clone(), w.clone(), nbr.clone()))
-            return kernel(feats, w, nbr, scale, shift, relu)
+            return kernel(feats, w, nbr, scale, shift, relu, **order)
 
         cuda_conv.subm_conv = recorder
         try:
@@ -658,11 +694,11 @@ def probe_shapes(cs, dev) -> None:
     step, calls = {}, {}
     f32 = cuda_conv_dxdw.conv_dx_dw
 
-    def recorder(src, w2, nbr, f, need_dx=True):
+    def recorder(src, w2, nbr, f, need_dx=True, **order):
         key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0], src.shape[0], bool(need_dx))
         calls[key] = calls.get(key, 0) + 1
         step.setdefault(key, (src.clone(), w2.clone(), nbr.clone(), f.clone()))
-        return f32(src, w2, nbr, f, need_dx)
+        return f32(src, w2, nbr, f, need_dx, **order)
 
     cuda_conv_dxdw.conv_dx_dw = recorder
     try:

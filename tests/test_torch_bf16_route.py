@@ -108,11 +108,11 @@ def test_routed_conv_forward_matches_pallas_interpret(plan, kind, cin, cout, epi
     rng = np.random.default_rng([cin, cout, 0 if epilogue is None else 1 + epilogue, integer])
     x, w, scale, shift = _inputs(rng, kind, cin, cout, integer)
     if epilogue is None:
-        args = _train_conv_args(plan, kind)
+        args, orders = _train_conv_args(plan, kind), _port_orders(plan, kind)
         with jax_pallas_route():
             want = np.asarray(getattr(jconv, f"{kind}_conv_batched")(jnp.asarray(x), jnp.asarray(w), *map(jnp.asarray, args)))
         with conv.bf16_route():
-            got = getattr(conv, f"{kind}_conv_batched")(torch.from_numpy(x), torch.from_numpy(w), *map(torch.from_numpy, args))
+            got = getattr(conv, f"{kind}_conv_batched")(torch.from_numpy(x), torch.from_numpy(w), *map(torch.from_numpy, args), **orders)
     else:
         with jax_pallas_route():
             want = np.asarray(_call(kind, jconv, plan, x, w, scale, shift, epilogue))
@@ -127,14 +127,14 @@ def test_routed_conv_forward_matches_pallas_interpret(plan, kind, cin, cout, epi
     bx, bw = (torch.from_numpy(a).to(torch.bfloat16).float().abs() for a in (x, w))
     ones = torch.ones(cout)
     if epilogue is None:
-        abs_sum = getattr(conv, f"{kind}_conv_batched")(bx, bw, *map(torch.from_numpy, args)).numpy()
+        abs_sum = getattr(conv, f"{kind}_conv_batched")(bx, bw, *map(torch.from_numpy, args), **orders).numpy()
     else:
         abs_sum = _call(kind, conv, plan, bx.numpy(), bw.numpy(), ones.numpy(), 0 * ones.numpy(), False).numpy()
         abs_sum = abs_sum * np.abs(scale)
     assert (np.abs(got - want) <= 2.0**-8 * abs_sum + 1e-7).all(), float(np.abs(got - want).max())
     # the route is bf16, not f32: the f32 route differs on the same inputs
     if epilogue is None:
-        f32 = getattr(conv, f"{kind}_conv_batched")(torch.from_numpy(x), torch.from_numpy(w), *map(torch.from_numpy, args))
+        f32 = getattr(conv, f"{kind}_conv_batched")(torch.from_numpy(x), torch.from_numpy(w), *map(torch.from_numpy, args), **orders)
     else:
         f32 = _call(kind, conv, plan, x, w, scale, shift, epilogue)
     assert np.abs(f32.numpy() - got).max() > 1e-4
@@ -148,6 +148,15 @@ def _train_conv_args(plan, kind):  # noqa: F811
     return d.child.numpy(), d.parent.numpy(), d.pdelta.numpy()
 
 
+def _port_orders(plan, kind):
+    """The row orders the port's ``{kind}_conv_batched`` takes with those maps
+    (the models pass the plan's; the JAX package's convs take none)."""
+    if kind == "subm":
+        return {"order": plan.levels[0].order}
+    d = plan.downs[0]
+    return {"child_order": d.child_order, "up_order": d.up_order}
+
+
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("kind,cin,cout,need_dx", [
     ("subm", 4, 32, False),  # the stem: dW alone
@@ -159,7 +168,7 @@ def test_routed_conv_backward_matches_pallas_interpret(plan, kind, cin, cout, ne
     custom VJPs."""
     rng = np.random.default_rng([cin, cout, integer, 7])
     x, w, _, _ = _inputs(rng, kind, cin, cout, integer)
-    args = _train_conv_args(plan, kind)
+    args, orders = _train_conv_args(plan, kind), _port_orders(plan, kind)
     out_rows = {"subm": CAPS[0], "down": CAPS[1], "up": CAPS[0]}[kind]
     dy = (_int_feats(rng, 2 * out_rows, cout).reshape(2, out_rows, cout) if integer
           else rng.standard_normal((2, out_rows, cout)).astype(np.float32))
@@ -172,7 +181,7 @@ def test_routed_conv_backward_matches_pallas_interpret(plan, kind, cin, cout, ne
         xt = torch.from_numpy(xa).requires_grad_(need_dx)
         wt = torch.from_numpy(wa).requires_grad_(True)
         with route():
-            out = getattr(conv, f"{kind}_conv_batched")(xt, wt, *map(torch.from_numpy, args))
+            out = getattr(conv, f"{kind}_conv_batched")(xt, wt, *map(torch.from_numpy, args), **orders)
             out.backward(torch.from_numpy(dya))
         return (xt.grad.numpy() if need_dx else None), wt.grad.numpy()
 

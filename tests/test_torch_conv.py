@@ -51,13 +51,17 @@ def xla_conv(monkeypatch):
 def _call(kind, lib, plan, x, w, scale, shift, relu):
     """One batched conv of ``kind`` through the JAX package or the port."""
     to = jnp.asarray if lib is jconv else torch.from_numpy
-    if kind == "subm":
-        return lib.subm_conv_bn_batched(to(x), to(w), to(plan.levels[0].nbr3.numpy()), to(scale), to(shift), relu)
-    if kind == "down":
-        return lib.down_conv_bn_batched(to(x), to(w), to(plan.downs[0].child.numpy()), to(scale), to(shift), relu)
     d = plan.downs[0]
+    # the port's convs take the map's row order from the plan; the JAX package's take none
+    order = {} if lib is jconv else {"order": {"subm": plan.levels[0].order, "down": d.child_order,
+                                               "up": d.up_order}[kind]}
+    if kind == "subm":
+        return lib.subm_conv_bn_batched(to(x), to(w), to(plan.levels[0].nbr3.numpy()), to(scale), to(shift), relu,
+                                        **order)
+    if kind == "down":
+        return lib.down_conv_bn_batched(to(x), to(w), to(d.child.numpy()), to(scale), to(shift), relu, **order)
     return lib.up_conv_bn_batched(
-        to(x), to(w), to(d.parent.numpy()), to(d.pdelta.numpy()), to(scale), to(shift), relu
+        to(x), to(w), to(d.parent.numpy()), to(d.pdelta.numpy()), to(scale), to(shift), relu, **order
     )
 
 

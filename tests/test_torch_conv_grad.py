@@ -146,11 +146,19 @@ def _jax_vjp(kind, plan, x, w, dy):
     return [np.asarray(a) for a in (out, dx, dw)]
 
 
+def _orders(kind, plan):
+    """The batched conv's row orders, as the models pass them from the plan."""
+    if kind == "subm":
+        return {"order": plan.levels[0].order}
+    d = plan.downs[0]
+    return {"child_order": d.child_order, "up_order": d.up_order}
+
+
 def _port_vjp(kind, plan, x, w, dy):
     fn = {"subm": conv.subm_conv_batched, "down": conv.down_conv_batched, "up": conv.up_conv_batched}[kind]
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
-    out = fn(xt, wt, *torch_args(*_maps(kind, plan)))
+    out = fn(xt, wt, *torch_args(*_maps(kind, plan)), **_orders(kind, plan))
     dx, dw = torch.autograd.grad(out, (xt, wt), torch.from_numpy(dy))
     return [a.detach().numpy() for a in (out, dx, dw)]
 
@@ -213,9 +221,10 @@ def test_conv_gradcheck_float64():
         return torch.randn(shape, generator=g, dtype=torch.float64).requires_grad_()
 
     cases = [
-        (conv.subm_conv_batched, rand(1, caps[0], 2), rand(27, 2, 3), (p.levels[0].nbr3,)),
-        (conv.down_conv_batched, rand(1, caps[0], 2), rand(8, 2, 3), (d.child, d.parent, d.pdelta)),
-        (conv.up_conv_batched, rand(1, caps[1], 2), rand(8, 2, 3), (d.child, d.parent, d.pdelta)),
+        (conv.subm_conv_batched, rand(1, caps[0], 2), rand(27, 2, 3), (p.levels[0].nbr3,), _orders("subm", p)),
+        (conv.down_conv_batched, rand(1, caps[0], 2), rand(8, 2, 3), (d.child, d.parent, d.pdelta),
+         _orders("down", p)),
+        (conv.up_conv_batched, rand(1, caps[1], 2), rand(8, 2, 3), (d.child, d.parent, d.pdelta), _orders("up", p)),
     ]
-    for fn, x, w, maps in cases:
-        assert torch.autograd.gradcheck(lambda xx, ww: fn(xx, ww, *maps), (x, w), eps=1e-6, atol=1e-8)
+    for fn, x, w, maps, orders in cases:
+        assert torch.autograd.gradcheck(lambda xx, ww: fn(xx, ww, *maps, **orders), (x, w), eps=1e-6, atol=1e-8)

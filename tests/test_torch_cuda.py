@@ -11,7 +11,10 @@ Tolerances: lookups are bit-equal; a conv output and the backward's dx within
 1e-4 * max(1, |plain|) (f32 sums of up to 27 * 384 products in another order;
 the kernel's products are split TF32, three tf32 products per f32 product,
 no further from f64 than 4 times the f32 plain version plus 1e-6 of the
-abs-sum, and bit-equal on reruns); the backward's dwg within 1e-4 * max(1, plain_abs), where plain_abs
+abs-sum, and bit-equal on reruns; with the row order of the plan's maps
+bit-equal to the rows as they are wherever cin >= 32, the stem within the
+same gate, and ``conv.row_order`` counted at each launch that walks one);
+the backward's dwg within 1e-4 * max(1, plain_abs), where plain_abs
 is the plain version on |src| and |f| (a reordered f32 sum over every row);
 a forward's logits within 1e-4 on these small frames; a train step's
 gradients with the backward kernel within 1e-4 of each gradient's max of
@@ -278,6 +281,98 @@ def test_conv_kernel_split_tf32_accuracy_and_reruns(plan_on, kind, cin, cout):
     e_k = float((got.double() - ref).abs().max())
     e_p = float((cuda_conv.subm_conv_plain(feats, w, nbr).double() - ref).abs().max())
     assert e_k <= 4.0 * e_p + 1e-6 * float(abs_sum.max()), (e_k, e_p)
+
+
+def _scan_views(card):
+    """Four consecutive frames of the round's scan traffic (``round_fused_r1``'s
+    parameters, seed 7) at ``SK_CONFIG``'s caps on the card, as one eval batch:
+    the shapes and maps of the benchmark's round and train cells."""
+    import json
+
+    from lidal_bench.traffic import scan
+
+    mix = os.path.join(os.path.dirname(__file__), os.pardir, "lidal_bench", "traffic", "round_fused_r1.json")
+    with open(mix) as fh:
+        params = json.load(fh)["scan"]
+    got, _ = scan.generate(7, 4, params, card)
+    padded = [pad_points(xyz, inten, None, SK_CONFIG.point_cap) for xyz, inten, _ in got]
+    xyz, sig, valid = (torch.as_tensor(np.stack([p[i] for p in padded])).to(card) for i in range(3))
+    return prepare_eval_batch(None, xyz, sig, valid, level_caps=SK_CONFIG.level_caps, augment=False)
+
+
+@pytest.mark.cuda
+def test_row_order_keeps_the_f32_tiles_bits_at_the_cells_shapes(card, monkeypatch):
+    """Every f32 conv shape of a MinkUNet train step on four scan frames at
+    the benchmark's caps (each map with the plan's row order): with cin >= 32
+    the forward with each epilogue and the backward's dx (and dwg) are
+    bit-equal with and without the order; the stem's cin = 4 (a stage spans 8
+    taps, so the order may regroup its sums) is within the kernel's gate
+    against f64; every call is bit-equal on a rerun with the order."""
+    eb = _scan_views(card)
+    torch.manual_seed(0)
+    model = MinkUNet(num_classes=19).to(card)
+    fwd, bwd = {}, {}
+    kernel_f, kernel_b = cuda_conv.subm_conv, cuda_conv_dxdw.conv_dx_dw
+
+    def rec_f(feats, w, nbr, scale=None, shift=None, relu=False, *, order=None):
+        key = (nbr.shape[1], feats.shape[1], w.shape[2], nbr.shape[0])
+        fwd.setdefault(key, (feats.detach().clone(), w.detach().clone(), nbr, order))
+        return kernel_f(feats, w, nbr, scale, shift, relu, order=order)
+
+    def rec_b(src, w2, nbr, f, need_dx=True, *, order=None):
+        if need_dx:
+            key = (nbr.shape[1], src.shape[1], w2.shape[2], f.shape[1], nbr.shape[0])
+            bwd.setdefault(key, (src.clone(), w2.clone(), nbr, f.detach().clone(), order))
+        return kernel_b(src, w2, nbr, f, need_dx, order=order)
+
+    monkeypatch.setattr(cuda_conv, "subm_conv", rec_f)
+    monkeypatch.setattr(cuda_conv_dxdw, "conv_dx_dw", rec_b)
+    logits, _ = model.train()(eb.feats, eb.plan)
+    logits.square().mean().backward()
+    monkeypatch.undo()
+    assert len(fwd) >= 15 and len(bwd) >= 15 and {k[0] for k in fwd} == {27, 8}
+    g = torch.Generator(device=card).manual_seed(1)
+    for key, (feats, w, nbr, order) in fwd.items():
+        assert order is not None and order.shape == (nbr.shape[0],), key
+        cout = w.shape[2]
+        scale, shift = torch.rand(cout, generator=g, device=card) + 0.5, torch.randn(cout, generator=g, device=card)
+        for ep in [(), (scale, shift, False), (scale, shift, True)]:
+            got = cuda_conv.subm_conv(feats, w, nbr, *ep, order=order)
+            assert torch.equal(got, cuda_conv.subm_conv(feats, w, nbr, *ep, order=order)), (key, len(ep), "rerun")
+            if feats.shape[1] >= 32:
+                assert torch.equal(got, cuda_conv.subm_conv(feats, w, nbr, *ep)), (key, len(ep))
+        if feats.shape[1] < 32:
+            ref = cuda_conv.subm_conv_plain(feats.double(), w.double(), nbr)
+            abs_sum = cuda_conv.subm_conv_plain(feats.abs(), w.abs(), nbr)
+            e_k = float((cuda_conv.subm_conv(feats, w, nbr, order=order).double() - ref).abs().max())
+            e_p = float((cuda_conv.subm_conv_plain(feats, w, nbr).double() - ref).abs().max())
+            assert e_k <= 4.0 * e_p + 1e-6 * float(abs_sum.max()), (key, e_k, e_p)
+    for key, (src, w2, nbr, f, order) in bwd.items():
+        assert order is not None, key
+        got = cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f, order=order)
+        again = cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f, order=order)
+        for a, b, c in zip(got, cuda_conv_dxdw.conv_dx_dw(src, w2, nbr, f), again):
+            assert torch.equal(a, b) and torch.equal(a, c), key
+
+
+@pytest.mark.cuda
+def test_row_order_counter_counts_each_launch_that_walks_an_order(plan_on):
+    """``conv.row_order`` counts every f32 forward and dx launch of a MinkUNet
+    (all of them take their map's order): 42 a forward, 41 dx more a backward
+    (the stem's input takes no gradient)."""
+    torch.manual_seed(0)
+    model = MinkUNet(num_classes=19).to(plan_on.feats.device)
+
+    def counts():
+        return launches("subm_conv", "conv_dx_dw") + (profiling.counter("conv.row_order"),)
+
+    before = counts()
+    with torch.inference_mode():
+        model.eval()(plan_on.feats, plan_on.plan)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (42, 0, 42)
+    before = counts()
+    model.train()(plan_on.feats, plan_on.plan)[0].sum().backward()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (42, 42, 42 + 41)
 
 
 @pytest.mark.cuda

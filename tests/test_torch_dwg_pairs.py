@@ -147,7 +147,7 @@ def test_emulated_dwg_matches_jax_xla_and_f64(monkeypatch, plan, kind, cin, cout
     captured = []
     plain = cuda_conv_dxdw.conv_dx_dw_plain
 
-    def emulate(src, w2, nbr, f, need_dx=True):
+    def emulate(src, w2, nbr, f, need_dx=True, order=None):  # dW reads no order
         captured.append((src.detach(), nbr, f.detach()))
         dx, _ = plain(src, w2, nbr, f, need_dx)
         return dx, emulated_dwg(src, nbr, f, per_chunk)

@@ -122,11 +122,13 @@ JAX_TYPES = {t.__name__: t for t in (jkm.UNetPlan, jkm.LevelPlan, jkm.DownPlan, 
 
 
 def _to_jax(x):
-    """The port's batch tuples as the JAX package's, field for field."""
+    """The port's batch tuples as the JAX package's, field for field (by
+    name: the port's plans also hold the row orders)."""
     if isinstance(x, torch.Tensor):
         return jnp.asarray(x.numpy())
     if hasattr(x, "_fields"):
-        return JAX_TYPES[type(x).__name__](*map(_to_jax, x))
+        cls = JAX_TYPES[type(x).__name__]
+        return cls(**{f: _to_jax(getattr(x, f)) for f in cls._fields})
     if isinstance(x, tuple):
         return tuple(map(_to_jax, x))
     return x

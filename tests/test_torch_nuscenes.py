@@ -257,8 +257,11 @@ def test_nu_train_step_matches_jax(small_tree):
     tb = prepare_train_batch(None, *(torch.as_tensor(batch[k]) for k in ("xyz", "sig", "valid", "labels")),
                              level_caps=CAPS, augment=False)
     to_j = lambda t: jnp.asarray(t.numpy())  # noqa: E731
-    plan_j = jkm.UNetPlan(tuple(jkm.LevelPlan(*map(to_j, lv)) for lv in tb.plan.levels),
-                          tuple(jkm.DownPlan(*map(to_j, d)) for d in tb.plan.downs))
+    def jax_tuple(cls, t):  # the JAX package's fields by name (the port's plans also hold the row orders)
+        return cls(**{f: to_j(getattr(t, f)) for f in cls._fields})
+
+    plan_j = jkm.UNetPlan(tuple(jax_tuple(jkm.LevelPlan, lv) for lv in tb.plan.levels),
+                          tuple(jax_tuple(jkm.DownPlan, d) for d in tb.plan.downs))
     torch.manual_seed(3)
     model = MinkUNet(num_classes=16, cs=NARROW)
     variables = jax_convert_minkunet(export_minkunet_state_dict(model.state_dict()))

@@ -18,7 +18,7 @@ are sign-like and amplify rounding));
 selection; the spans and counters are recorded and the counters equal the
 patch arithmetic (one attention call a block; on the CPU no kernel launch
 is counted, under a backward neither).  On a card (``-m cuda``): the 125-tap conv's forward and
-backward against the plain versions.
+backward against the plain versions; the cpe convs walk their level's row order, the stem none.
 
 This module imports no JAX at import time (the card runs its ``cuda`` test
 with ``--noconftest``); the fused round's fixture builds its tree with the
@@ -335,6 +335,26 @@ def test_fused_round_with_ptv3_reaches_a_selection(round_tree, tmp_path, small_p
 
 # -- on the card -------------------------------------------------------------------
 @pytest.mark.cuda
+def test_cpe_convs_take_the_row_order_and_the_stem_none(frames_dir, small_patches):
+    """A PTv3 forward on the card: 5 launches of the stem's 125-tap conv with
+    no row order, and the 22 blocks' 27-tap cpe convs, each with its level's
+    order (``conv.row_order``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = ptv3.PTv3().eval().cuda()
+    xyz, sig, valid, labels = (torch.from_numpy(a).cuda() for a in rdata.padded_batch(frames_dir[:2], POINT_CAP))
+    tb = prepare_train_batch(None, xyz, sig, valid, labels, CAPS, augment=False)
+    before = (profiling.counter("launch.subm_conv"), profiling.counter("conv.row_order"))
+    with torch.no_grad():
+        forward_batch(model, tb)
+    blocks = sum(ptv3.ENC_DEPTHS) + sum(ptv3.DEC_DEPTHS)
+    assert profiling.counter("launch.subm_conv") - before[0] == 5 + blocks
+    assert profiling.counter("conv.row_order") - before[1] == blocks
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cin,need_dx", [(4, False), (32, True)], ids=["stem", "with_dx"])
 def test_wide_conv_on_the_card_matches_the_plain_versions(cin, need_dx):
     """A 125-tap conv (5 launches of the 27-tap kernels) forward, weight
@@ -357,7 +377,7 @@ def test_wide_conv_on_the_card_matches_the_plain_versions(cin, need_dx):
     out = {}
     for dev in ("cpu", "cuda"):
         xd, wd = x.detach().to(dev).requires_grad_(need_dx), w.detach().to(dev).requires_grad_(True)
-        y = conv.subm_conv_batched(xd, wd, nbr.to(dev))
+        y = conv.subm_conv_batched(xd, wd, nbr.to(dev), order=None)
         y.backward(dy.to(dev))
         out[dev] = [t.detach().cpu() for t in (y, wd.grad) + ((xd.grad,) if need_dx else ())]
     for got, want in zip(out["cuda"], out["cpu"]):
